@@ -1,7 +1,7 @@
-"""Data transform pipeline (numpy, host-side): the slice's subset.
+"""Data transform pipeline (numpy, host-side): the port's subset.
 
-A copy of the transforms that the ScanNet test path runs, taken from
-``ponderv2_tpu/datasets/transform.py`` with only the import lines changed:
+A copy of the transforms that the ScanNet test and train paths run, taken
+from ``ponderv2_tpu/datasets/transform.py`` with only the import lines changed:
 the JAX package cannot be imported without JAX (its ``utils`` package
 imports ``optax``). Goes away once that package imports lazily.
 """
@@ -9,6 +9,8 @@ imports ``optax``). Goes away once that package imports lazily.
 from __future__ import annotations
 
 import numpy as np
+import scipy.interpolate
+import scipy.ndimage
 
 from ..utils.registry import Registry
 
@@ -319,3 +321,209 @@ class GridSample:
             hashed *= np.uint64(1099511628211)
             hashed = np.bitwise_xor(hashed, arr[:, j])
         return hashed
+
+
+# ------------------------------------------------- train-time augmentation
+
+
+@TRANSFORMS.register_module()
+class RandomScale:
+    def __init__(self, scale=None, anisotropic=False, keys=None):
+        self.scale = scale if scale is not None else [0.95, 1.05]
+        self.anisotropic = anisotropic
+        self.keys = keys
+
+    def __call__(self, data_dict):
+        s = np.random.uniform(
+            self.scale[0], self.scale[1], 3 if self.anisotropic else 1
+        )
+        s = np.broadcast_to(s, (3,)).copy()
+        data_dict["coord"] = data_dict["coord"] * s
+        _update_cameras(data_dict, self.keys, _mat4_linear(np.diag(s)))
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class RandomFlip:
+    def __init__(self, p=0.5, keys=None):
+        self.p = p
+        self.keys = keys
+
+    def __call__(self, data_dict):
+        for axis in (0, 1):
+            if np.random.rand() < self.p:
+                sign = np.ones(3)
+                sign[axis] = -1
+                data_dict["coord"] = data_dict["coord"] * sign
+                if "normal" in data_dict:
+                    data_dict["normal"] = data_dict["normal"] * sign
+                _update_cameras(data_dict, self.keys, _mat4_linear(np.diag(sign)))
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class RandomJitter:
+    def __init__(self, sigma=0.01, clip=0.05):
+        self.sigma, self.clip = sigma, clip
+
+    def __call__(self, data_dict):
+        jitter = np.clip(
+            self.sigma * np.random.randn(*data_dict["coord"].shape),
+            -self.clip, self.clip,
+        )
+        data_dict["coord"] = data_dict["coord"] + jitter
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class RandomDropout:
+    def __init__(self, dropout_ratio=0.2, dropout_application_ratio=0.5):
+        self.ratio = dropout_ratio
+        self.p = dropout_application_ratio
+
+    def __call__(self, data_dict):
+        if np.random.rand() < self.p:
+            n = len(data_dict["coord"])
+            idx = np.random.choice(n, int(n * (1 - self.ratio)), replace=False)
+            data_dict = _index_points(data_dict, idx)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class ElasticDistortion:
+    def __init__(self, distortion_params=None):
+        self.params = (
+            [[0.2, 0.4], [0.8, 1.6]] if distortion_params is None else distortion_params
+        )
+
+    @staticmethod
+    def _distort(coords, granularity, magnitude):
+        blurs = [np.ones((3, 1, 1, 1)) / 3, np.ones((1, 3, 1, 1)) / 3,
+                 np.ones((1, 1, 3, 1)) / 3]
+        mins = coords.min(0)
+        dims = ((coords - mins).max(0) // granularity).astype(int) + 3
+        noise = np.random.randn(*dims, 3).astype(np.float32)
+        for _ in range(2):
+            for blur in blurs:
+                noise = scipy.ndimage.convolve(noise, blur, mode="constant", cval=0)
+        ax = [np.linspace(d_min, d_max, d)
+              for d_min, d_max, d in zip(mins - granularity,
+                                         mins + granularity * (np.array(dims) - 2),
+                                         dims)]
+        interp = scipy.interpolate.RegularGridInterpolator(
+            ax, noise, bounds_error=False, fill_value=0
+        )
+        return coords + interp(coords) * magnitude
+
+    def __call__(self, data_dict):
+        coord = data_dict["coord"].astype(np.float32)
+        for granularity, magnitude in self.params:
+            coord = self._distort(coord, granularity, magnitude)
+        data_dict["coord"] = coord
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class ChromaticAutoContrast:
+    def __init__(self, p=0.2, blend_factor=None):
+        self.p = p
+        self.blend_factor = blend_factor
+
+    def __call__(self, data_dict):
+        if "color" in data_dict and np.random.rand() < self.p:
+            color = data_dict["color"]
+            lo = color.min(0, keepdims=True)
+            hi = color.max(0, keepdims=True)
+            scale = 255 / np.maximum(hi - lo, 1e-12)
+            contrast = (color - lo) * scale
+            blend = self.blend_factor or np.random.rand()
+            data_dict["color"] = (1 - blend) * color + blend * contrast
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class ChromaticTranslation:
+    def __init__(self, p=0.95, ratio=0.05):
+        self.p, self.ratio = p, ratio
+
+    def __call__(self, data_dict):
+        if "color" in data_dict and np.random.rand() < self.p:
+            tr = (np.random.rand(1, 3) - 0.5) * 255 * 2 * self.ratio
+            data_dict["color"] = np.clip(data_dict["color"] + tr, 0, 255)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class ChromaticJitter:
+    def __init__(self, p=0.95, std=0.005):
+        self.p, self.std = p, std
+
+    def __call__(self, data_dict):
+        if "color" in data_dict and np.random.rand() < self.p:
+            noise = np.random.randn(data_dict["color"].shape[0], 3) * self.std * 255
+            data_dict["color"] = np.clip(data_dict["color"] + noise, 0, 255)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class SphereCrop:
+    def __init__(self, point_max=80000, sample_rate=None, mode="random"):
+        self.point_max = point_max
+        self.sample_rate = sample_rate
+        assert mode in ("random", "center", "all")
+        self.mode = mode
+
+    def __call__(self, data_dict):
+        coord = data_dict["coord"]
+        point_max = (
+            int(self.sample_rate * coord.shape[0])
+            if self.sample_rate is not None
+            else self.point_max
+        )
+        if self.mode == "all":
+            return self._covering_crops(data_dict, point_max)
+        if coord.shape[0] <= point_max:
+            return data_dict
+        if self.mode == "random":
+            center = coord[np.random.randint(coord.shape[0])]
+        else:
+            center = coord[coord.shape[0] // 2]
+        idx = np.argsort(np.sum((coord - center) ** 2, axis=1))[:point_max]
+        return _index_points(data_dict, idx)
+
+    def _covering_crops(self, data_dict, point_max):
+        """Test-time covering crops (reference transform.py:1232-1281): emit a
+        LIST of sphere crops until every point appears in at least one. Crop
+        centers follow a potential field — each crop raises the potential of
+        its points by (1 - d2/max d2)^2 and the next center is the
+        lowest-potential point, pushing later crops toward uncovered regions.
+        Each crop carries ``weight`` (its d2 to the center) and ``index``
+        (original row ids) for vote merging."""
+        coord = data_dict["coord"]
+        n = coord.shape[0]
+        if "index" not in data_dict:
+            data_dict["index"] = np.arange(n)
+        if n <= point_max:
+            out = dict(data_dict)
+            out["weight"] = np.zeros(n)
+            return [out]
+        crops = []
+        potential = np.random.rand(n) * 1e-3
+        covered = np.zeros(n, bool)
+        while not covered.all():
+            center = coord[np.argmin(potential)]
+            d2 = np.sum((coord - center) ** 2, axis=1)
+            idx_crop = np.argsort(d2)[:point_max]
+            crop = _index_points(dict(data_dict), idx_crop)
+            crop["weight"] = d2[idx_crop]
+            crops.append(crop)
+            potential[idx_crop] += np.square(1 - d2[idx_crop] / d2[idx_crop].max())
+            covered[idx_crop] = True
+        return crops
+
+
+@TRANSFORMS.register_module()
+class ShufflePoint:
+    def __call__(self, data_dict):
+        idx = np.random.permutation(len(data_dict["coord"]))
+        return _index_points(data_dict, idx)

@@ -1,8 +1,10 @@
 """Collation: variable-size scenes -> fixed-capacity padded batches.
 
 A copy of ``collate_fn`` from ``ponderv2_tpu/datasets/utils.py`` with only
-the import lines changed (see ``transform.py`` for why it is a copy). Rows
-come out sorted by (batch, voxel key), padding last.
+the import lines changed (see ``transform.py`` for why it is a copy), and
+its train-loader alias ``point_collate_fn`` with the single-shard branch
+only (the sharded collate belongs to the data-parallel trainer, not ported
+yet). Rows come out sorted by (batch, voxel key), padding last.
 """
 
 from __future__ import annotations
@@ -125,3 +127,13 @@ def collate_fn(
     out["offset"] = np.cumsum(np.asarray(sizes, dtype=np.int64))
     out["batch_size"] = scene_budget if scene_budget is not None else batch_size
     return out
+
+
+def point_collate_fn(batch, point_budget=None, mix_prob=0.0, scene_budget=None,
+                     num_shards=1):
+    """Reference-named alias used by train loaders."""
+    if num_shards > 1:
+        raise NotImplementedError("sharded collate (num_shards > 1) is not ported")
+    return collate_fn(
+        batch, point_budget=point_budget, mix_prob=mix_prob, scene_budget=scene_budget
+    )

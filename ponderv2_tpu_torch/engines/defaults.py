@@ -31,8 +31,16 @@ def default_config_parser(file_path: str, options: Optional[dict]) -> Config:
         cfg.merge_from_dict(options)
     if cfg.get("seed", None) is None:
         cfg.seed = 0
-    os.makedirs(cfg.save_path, exist_ok=True)
-    cfg.dump(os.path.join(cfg.save_path, "config.py"))
+
+    # epoch rebasing: run `eval_epoch` outer epochs of `loop`-repeated data
+    # (reference defaults.py:125: data.train.loop = epoch // eval_epoch)
+    cfg.setdefault("eval_epoch", cfg.get("epoch", 1))
+    if "data" in cfg and "train" in cfg.data:
+        cfg.data.train.loop = max(cfg.get("epoch", 1) // cfg.eval_epoch, 1)
+
+    os.makedirs(os.path.join(cfg.save_path, "model"), exist_ok=True)
+    if not cfg.get("resume", False):
+        cfg.dump(os.path.join(cfg.save_path, "config.py"))
     return cfg
 
 

@@ -9,11 +9,15 @@ is the JAX package's ``kernel``.
 
 - ``band-attached`` / ``band-inline``: the band conv (``ops.band_conv``),
   with the level's shared plan, or with a plan built inline from a plain
-  rulebook when ``cin > 64``;
+  rulebook when ``cin > 64`` (with the attached plans' budget retry, which
+  the JAX package's inline plans lack);
 - ``slab``: where the JAX package takes its slab conv (a ``SubmPlan`` and
   ``cin <= 64``), the port computes that function with the plain gather conv,
   zeroed when the plan's ``sorted_ok`` is False as the slab conv is;
 - ``plain``: the plain gather conv over the rulebook.
+
+Both gather routes run ``subm_conv_symmetric`` (mirrored-gather backward);
+the band routes run the differentiable ``band_subm_conv``.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from ...ops.band_conv import (
     WINDOW as BAND_WINDOW,
     band_eligible,
     band_subm_conv,
-    build_band_plan,
+    build_band_plan_auto,
 )
 from ...ops.sparse import SparseTensor, make_sparse_tensor
 from ...ops.spconv import (
@@ -40,6 +44,7 @@ from ...ops.spconv import (
     build_subm_rulebook,
     inverse_conv_packed,
     strided_conv_packed,
+    subm_conv_symmetric,
 )
 
 
@@ -105,15 +110,15 @@ class SubMConv(_SparseConvBase):
         w = self.taps()
         legacy = rulebook.legacy if isinstance(rulebook, SubmPlan) else rulebook
         if route.startswith("band"):
-            plan = rulebook.band if route == "band-attached" else build_band_plan(
-                legacy, 3)
+            plan = (rulebook.band if route == "band-attached"
+                    else build_band_plan_auto(legacy, 3))
             if flags is not None:
                 flags.append(plan.ok)
             out = band_subm_conv((3, BAND_BLOCK, BAND_WINDOW), st.features, plan,
                                  w, st.mask, self.compute_dtype)
         else:
-            out = apply_sparse_conv(st.features, legacy, w, st.mask,
-                                    self.compute_dtype)
+            out = subm_conv_symmetric(st.features, legacy, w, st.mask,
+                                      self.compute_dtype)
             if route == "slab":
                 out = out * rulebook.sorted_ok.to(out.dtype)
         return st.replace(features=out)

@@ -17,7 +17,7 @@ from typing import Any, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ...ops import hashing as _hashing
-from ...ops.band_conv import ENTRY_BUDGET, PAIR_BUDGET, band_eligible
+from ...ops.band_conv import ENTRY_BUDGET, MAX_DOUBLINGS, PAIR_BUDGET, band_eligible
 from ...ops.spconv import (
     SubmPlan,
     attach_band_plan,
@@ -132,9 +132,6 @@ def band_ok_flags(plans: SpUNetPlans):
         if band is not None:
             flags.append(band.ok)
     return flags
-
-
-MAX_DOUBLINGS = 4
 
 
 def build_spunet_plans_auto(coords, spatial_shape, batch_size, capacities,

@@ -1,4 +1,4 @@
-"""Block-banded windowed submanifold conv (forward) and its Hopper kernel.
+"""Block-banded windowed submanifold conv and its Hopper kernels.
 
 Counterpart of ``ponderv2_tpu/ops/band_conv.py``. Voxel rows are sorted by
 ravel key and a tap's query key is the row key plus a constant, so over a
@@ -8,11 +8,14 @@ an 8-aligned window start ``w0``; entries that fall outside their window go
 to a budgeted overflow list (``ov_i/ov_j/ov_t``) that ``_overflow_residual``
 adds back, and ``ok`` zero-gates the conv when a budget overflows.
 
-The forward core (``band_fwd_core``) is the TPU kernel K1. On a CUDA tensor
-it launches ``csrc/band_conv.cu`` (built with nvcc at first use) or raises;
-on a CPU tensor it runs ``band_fwd_core_plain``, a per-tap masked gather +
-matmul of the same function. The backward kernels (K2, K3) are not ported
-yet, so the CUDA path refuses tensors that require grad.
+Three cores carry the TPU kernels: ``band_fwd_core`` (K1, the forward and
+the split backward's dx), ``band_dxdw_core`` (K2, the fused dx + dW) and
+``band_dw_core`` (K3, the split dW). On a CUDA tensor each launches its
+kernel (``csrc/band_conv.cu``, ``csrc/band_conv_bwd.cu``, built with nvcc at
+first use) or raises; on a CPU tensor it runs its ``*_plain`` version, a
+per-tap masked gather + matmuls of the same function. ``band_subm_conv`` is
+a ``torch.autograd.Function`` over them, with the JAX package's backward
+routing (``fused_bwd_fits``).
 """
 
 from __future__ import annotations
@@ -33,8 +36,8 @@ def _cdiv(a: int, b: int) -> int:
 
 
 class BandPlan(NamedTuple):
-    """Banded rulebook (fields as in the JAX ``BandPlan``, minus ``rbt3``,
-    which only the dW kernel K3 reads).
+    """Banded rulebook (fields as in the JAX ``BandPlan``, minus ``rbt3``:
+    the dW kernel K3 reads a tap-column's taps from ``rbt`` with a stride).
 
     - ``rbt``: (Npad, K^3) int32 - input row feeding output i via tap t.
     - ``w0``: (ncols, nblocks) int32 - 8-aligned window start per
@@ -142,14 +145,43 @@ def build_band_plan(
                     ov_order=ov_order, ov_counts=ov_counts)
 
 
-# ------------------------------------------------------------------ K1
+# The budget retry of the JAX input pipeline (``host_build_spunet_plans``):
+# a plan whose budgets overflowed is rebuilt with both budgets doubled, up
+# to this many times.
+MAX_DOUBLINGS = 4
+
+
+def build_band_plan_auto(rulebook: torch.Tensor, kz: int) -> BandPlan:
+    """``build_band_plan`` at the default budgets, doubled (up to
+    ``MAX_DOUBLINGS`` times) while ``ok`` is False, so that a dense batch
+    gets a bigger overflow residual instead of a zeroed conv. The JAX
+    package applies this retry to the attached plans only; its inline plans
+    keep the default budgets, which a 12-scene ScanNet batch overflows at
+    L0 and L1 (ROADMAP Queue 3). ``build_band_plan`` syncs with the host, so
+    reading ``ok`` costs nothing more."""
+    pair, entry = PAIR_BUDGET, ENTRY_BUDGET
+    for attempt in range(MAX_DOUBLINGS + 1):
+        plan = build_band_plan(rulebook, kz, pair_budget=pair, entry_budget=entry)
+        if bool(plan.ok) or attempt == MAX_DOUBLINGS:
+            return plan
+        pair, entry = pair * 2, entry * 2
+
+
+# ------------------------------------------------------------------ kernels
 
 
 class _CudaKernel:
-    """ctypes handle and launch count of one CUDA kernel of ``csrc/``."""
+    """ctypes entry points (``<symbol>_f32``, ``<symbol>_bf16``) and launch
+    count of one CUDA kernel of ``csrc/<source>.cu``. ``launches`` grows by
+    one each time the wrapper launches the kernel, and nowhere else."""
 
-    def __init__(self, source: str):
+    def __init__(self, source: str, symbol: str, n_ptrs: int, n_ints: int,
+                 error_symbol: str):
         self.source = source
+        self.symbol = symbol
+        self.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                         + [ctypes.c_void_p])
+        self.error_symbol = error_symbol
         self.launches = 0
         self._lib = None
 
@@ -158,17 +190,89 @@ class _CudaKernel:
             from .cuda_build import load_library
 
             lib = load_library(self.source)
-            args = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-            for fn in (lib.band_fwd_f32, lib.band_fwd_bf16):
-                fn.argtypes = args
+            for suffix in ("f32", "bf16"):
+                fn = getattr(lib, f"{self.symbol}_{suffix}")
+                fn.argtypes = self.argtypes
                 fn.restype = ctypes.c_int
-            lib.band_error_string.argtypes = [ctypes.c_int]
-            lib.band_error_string.restype = ctypes.c_char_p
+            err = getattr(lib, self.error_symbol)
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
             self._lib = lib
         return self._lib
 
+    def launch(self, dtype: torch.dtype, device: torch.device, *args) -> None:
+        """Launch on the device's current stream; raise if the launch failed."""
+        lib = self.lib()
+        fn = getattr(lib, f"{self.symbol}_{'f32' if dtype == torch.float32 else 'bf16'}")
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{self.symbol}: launch failed: "
+                               + getattr(lib, self.error_symbol)(err).decode())
+        self.launches += 1
 
-BAND_FWD = _CudaKernel("band_conv")
+
+BAND_FWD = _CudaKernel("band_conv", "band_fwd", 5, 8, "band_error_string")
+BAND_DXDW = _CudaKernel("band_conv_bwd", "band_dxdw", 8, 10,
+                        "band_bwd_error_string")
+BAND_DW = _CudaKernel("band_conv_bwd", "band_dw", 6, 10, "band_bwd_error_string")
+KERNELS = (BAND_FWD, BAND_DXDW, BAND_DW)
+
+
+def build_kernels() -> None:
+    """Build (one nvcc per source, in parallel) and bind every band kernel."""
+    from .cuda_build import load_libraries
+
+    load_libraries(*sorted({k.source for k in KERNELS}))
+    for k in KERNELS:
+        k.lib()
+
+
+def _on_cuda(name: str, features: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises on other devices."""
+    if features.device.type == "cpu":
+        return False
+    if features.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {features.device}")
+    return True
+
+
+def _check(name: str, n: int, feats, rbt, w0, weights, kz: int, block: int,
+           others=()) -> None:
+    """What the kernels take: f32 or bf16 operands of one dtype, int32
+    (Npad, K^3) ``rbt`` and (ncols, nblocks) ``w0``, one device, contiguous."""
+    k3 = rbt.shape[1] if rbt.dim() == 2 else -1
+    npad = rbt.shape[0]
+    if feats.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: dtype {feats.dtype}")
+    if any(t.dtype != feats.dtype for t in (weights, *others)):
+        raise TypeError(f"{name}: operand dtypes differ")
+    if rbt.dtype != torch.int32 or w0.dtype != torch.int32:
+        raise TypeError(f"{name}: rbt and w0 must be int32")
+    if npad < n or k3 <= 0 or k3 % kz or npad % block:
+        raise ValueError(f"{name}: rbt shape {tuple(rbt.shape)} for {n} rows")
+    if w0.shape != (k3 // kz, npad // block):
+        raise ValueError(f"{name}: w0 shape {tuple(w0.shape)}")
+    tensors = (feats, rbt, w0, weights, *others)
+    if any(t.device != feats.device for t in tensors):
+        raise ValueError(f"{name}: tensors on different devices")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def _tap_rows(src: torch.Tensor, rbt: torch.Tensor, w0: torch.Tensor, t: int,
+              n: int, kz: int, block: int, window: int) -> torch.Tensor:
+    """Rows ``src[rbt[i, t]]`` for i < n, zero where the entry is inactive or
+    outside its window: the plain versions' masked gather."""
+    j = rbt[:n, t].to(torch.int64)
+    blk = torch.div(torch.arange(n, device=src.device), block, rounding_mode="floor")
+    pos = j - w0[t // kz][blk]
+    live = (j >= 0) & (pos >= 0) & (pos < window)
+    zero = torch.zeros((), dtype=src.dtype, device=src.device)
+    return torch.where(live[:, None], src[j.clamp(min=0)], zero)
+
+
+# ------------------------------------------------------------------ K1
 
 
 def band_fwd_core(features: torch.Tensor, rbt: torch.Tensor, w0: torch.Tensor,
@@ -179,48 +283,21 @@ def band_fwd_core(features: torch.Tensor, rbt: torch.Tensor, w0: torch.Tensor,
     Entries outside their window are dropped (the caller adds the overflow
     residual). CPU tensors take ``band_fwd_core_plain``; CUDA tensors launch
     ``csrc/band_conv.cu`` and raise on anything it does not take."""
-    if features.device.type == "cpu":
+    if not _on_cuda("band_fwd_core", features):
         return band_fwd_core_plain(features, rbt, w0, weights, kz, block, window)
-    if features.device.type != "cuda":
-        raise ValueError(f"band_fwd_core: unsupported device {features.device}")
-    if torch.is_grad_enabled() and (features.requires_grad
-                                    or weights.requires_grad):
-        raise NotImplementedError(
-            "band_fwd_core: the CUDA band conv has no backward yet (K2/K3)")
     n, cin = features.shape
+    _check("band_fwd_core", n, features, rbt, w0, weights, kz, block)
     k3, cin_w, cout = weights.shape
-    npad = rbt.shape[0]
-    if features.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"band_fwd_core: features dtype {features.dtype}")
-    if weights.dtype != features.dtype:
-        raise TypeError("band_fwd_core: weights and features dtypes differ")
-    if rbt.dtype != torch.int32 or w0.dtype != torch.int32:
-        raise TypeError("band_fwd_core: rbt and w0 must be int32")
-    if cin_w != cin or rbt.shape != (npad, k3) or npad < n or k3 % kz:
-        raise ValueError("band_fwd_core: inconsistent shapes "
-                         f"{tuple(features.shape)} {tuple(rbt.shape)} "
-                         f"{tuple(weights.shape)}")
-    if w0.shape != (k3 // kz, npad // block) or npad % block:
-        raise ValueError(f"band_fwd_core: w0 shape {tuple(w0.shape)}")
-    tensors = (features, rbt, w0, weights)
-    if any(t.device != features.device for t in tensors):
-        raise ValueError("band_fwd_core: tensors on different devices")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("band_fwd_core: tensors must be contiguous")
+    if cin_w != cin or k3 != rbt.shape[1]:
+        raise ValueError(f"band_fwd_core: weights {tuple(weights.shape)} for "
+                         f"features {tuple(features.shape)}")
     out = torch.empty((n, cout), dtype=torch.float32, device=features.device)
     if n == 0 or cout == 0:
         return out
-    lib = BAND_FWD.lib()
-    fn = lib.band_fwd_f32 if features.dtype == torch.float32 else lib.band_fwd_bf16
-    with torch.cuda.device(features.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(features.data_ptr(), rbt.data_ptr(), w0.data_ptr(),
-                 weights.data_ptr(), out.data_ptr(), n, cin, cout, k3, kz,
-                 npad // block, block, window, stream)
-    if err != 0:
-        raise RuntimeError("band_fwd_core: launch failed: "
-                           + lib.band_error_string(err).decode())
-    BAND_FWD.launches += 1
+    BAND_FWD.launch(features.dtype, features.device, features.data_ptr(),
+                    rbt.data_ptr(), w0.data_ptr(), weights.data_ptr(),
+                    out.data_ptr(), n, cin, cout, k3, kz, rbt.shape[0] // block,
+                    block, window)
     return out
 
 
@@ -232,17 +309,144 @@ def band_fwd_core_plain(features: torch.Tensor, rbt: torch.Tensor,
     would materialize 27 x N x Cin."""
     n = features.shape[0]
     k3, _, cout = weights.shape
-    rows = torch.arange(n, device=features.device)
-    blk = torch.div(rows, block, rounding_mode="floor")
-    zero = torch.zeros((), dtype=features.dtype, device=features.device)
     out = torch.zeros((n, cout), dtype=torch.float32, device=features.device)
     for t in range(k3):
-        j = rbt[:n, t].to(torch.int64)
-        pos = j - w0[t // kz][blk]
-        live = (j >= 0) & (pos >= 0) & (pos < window)
-        g = torch.where(live[:, None], features[j.clamp(min=0)], zero)
-        out += (g @ weights[t]).float()
+        rows = _tap_rows(features, rbt, w0, t, n, kz, block, window)
+        out += (rows @ weights[t]).float()
     return out
+
+
+# ------------------------------------------------------------------ K2, K3
+
+# dW is reduced over row chunks in two passes (csrc/band_conv_bwd.cu): the
+# chunk count aims at about this many dW CTAs per launch (~30 per SM of an
+# H100), with chunks of at least MIN_DW_CHUNK rows.
+DW_TARGET_CTAS = 4096
+MIN_DW_CHUNK = 1024
+
+
+def _dw_chunks(n: int, cin: int, cout: int, k3: int) -> Tuple[int, int]:
+    """(rows per chunk, number of chunks) of the dW reduction; chunks are
+    multiples of the kernel's 32-row step."""
+    per_chunk = k3 * _cdiv(cin, 64) * _cdiv(cout, 64)
+    nchunks = max(1, min(_cdiv(DW_TARGET_CTAS, per_chunk), _cdiv(n, MIN_DW_CHUNK)))
+    chunk = _cdiv(_cdiv(n, nchunks), 32) * 32
+    return chunk, _cdiv(n, chunk)
+
+
+def band_dxdw_core(g: torch.Tensor, features: torch.Tensor, rbt: torch.Tensor,
+                   w0: torch.Tensor, w_mirT: torch.Tensor, kz: int, block: int,
+                   window: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2: fused backward core. ``g`` (N, Cout) cotangent, ``features`` (N,
+    Cin), ``w_mirT`` (K^3, Cout, Cin) = ``W[mirror t]^T``. Over in-window
+    entries j = rbt[i, t]:
+
+        dx[i]  += g[j] @ w_mirT[t]       -> (N, Cin) f32
+        dwr[t] += features[i]^T g[j]     -> (K^3, Cin, Cout) f32
+
+    ``dwr[t]`` holds dW[mirror t]. CPU tensors take ``band_dxdw_core_plain``;
+    CUDA tensors launch ``csrc/band_conv_bwd.cu`` or raise."""
+    if not _on_cuda("band_dxdw_core", g):
+        return band_dxdw_core_plain(g, features, rbt, w0, w_mirT, kz, block,
+                                    window)
+    n, cout = g.shape
+    _check("band_dxdw_core", n, g, rbt, w0, w_mirT, kz, block, (features,))
+    cin = features.shape[1]
+    k3 = rbt.shape[1]
+    if features.shape[0] != n or w_mirT.shape != (k3, cout, cin):
+        raise ValueError(f"band_dxdw_core: shapes g {tuple(g.shape)} features "
+                         f"{tuple(features.shape)} w_mirT {tuple(w_mirT.shape)}")
+    dev = g.device
+    if n == 0 or cin == 0 or cout == 0:
+        return (torch.zeros((n, cin), dtype=torch.float32, device=dev),
+                torch.zeros((k3, cin, cout), dtype=torch.float32, device=dev))
+    dx = torch.empty((n, cin), dtype=torch.float32, device=dev)
+    dwr = torch.empty((k3, cin, cout), dtype=torch.float32, device=dev)
+    chunk, nchunks = _dw_chunks(n, cin, cout, k3)
+    partial = torch.empty((nchunks, k3, cin, cout), dtype=torch.float32, device=dev)
+    BAND_DXDW.launch(g.dtype, dev, g.data_ptr(), features.data_ptr(),
+                     rbt.data_ptr(), w0.data_ptr(), w_mirT.data_ptr(),
+                     dx.data_ptr(), partial.data_ptr(), dwr.data_ptr(), n, cin,
+                     cout, k3, kz, rbt.shape[0] // block, block, window, chunk,
+                     nchunks)
+    return dx, dwr
+
+
+def band_dxdw_core_plain(g: torch.Tensor, features: torch.Tensor,
+                         rbt: torch.Tensor, w0: torch.Tensor,
+                         w_mirT: torch.Tensor, kz: int, block: int,
+                         window: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2: per tap, one masked gather of ``g``
+    through ``rbt`` serves both matmuls."""
+    n, cin = features.shape
+    k3, cout, _ = w_mirT.shape
+    dx = torch.zeros((n, cin), dtype=torch.float32, device=g.device)
+    dwr = torch.empty((k3, cin, cout), dtype=torch.float32, device=g.device)
+    for t in range(k3):
+        rows = _tap_rows(g, rbt, w0, t, n, kz, block, window)
+        dx += (rows @ w_mirT[t]).float()
+        dwr[t] = (features.T @ rows).float()
+    return dx, dwr
+
+
+def band_dw_core(features: torch.Tensor, g: torch.Tensor, rbt: torch.Tensor,
+                 w0: torch.Tensor, kz: int, block: int,
+                 window: int) -> torch.Tensor:
+    """K3: split dW core, ``dwr[t] += features[i]^T g[rbt[i, t]]`` over
+    in-window entries -> (K^3, Cin, Cout) f32, ``dwr[t]`` = dW[mirror t].
+    A tap-column's taps are read from ``rbt`` with a stride (the TPU kernel's
+    ``rbt3`` layout is not built). CPU tensors take ``band_dw_core_plain``;
+    CUDA tensors launch ``csrc/band_conv_bwd.cu`` or raise."""
+    if not _on_cuda("band_dw_core", features):
+        return band_dw_core_plain(features, g, rbt, w0, kz, block, window)
+    n, cin = features.shape
+    _check("band_dw_core", n, features, rbt, w0, g, kz, block)
+    cout = g.shape[1]
+    k3 = rbt.shape[1]
+    if g.shape[0] != n:
+        raise ValueError(f"band_dw_core: g {tuple(g.shape)} for features "
+                         f"{tuple(features.shape)}")
+    dev = features.device
+    if n == 0 or cin == 0 or cout == 0:
+        return torch.zeros((k3, cin, cout), dtype=torch.float32, device=dev)
+    dwr = torch.empty((k3, cin, cout), dtype=torch.float32, device=dev)
+    chunk, nchunks = _dw_chunks(n, cin, cout, k3)
+    partial = torch.empty((nchunks, k3, cin, cout), dtype=torch.float32, device=dev)
+    BAND_DW.launch(features.dtype, dev, features.data_ptr(), g.data_ptr(),
+                   rbt.data_ptr(), w0.data_ptr(), partial.data_ptr(),
+                   dwr.data_ptr(), n, cin, cout, k3, kz, rbt.shape[0] // block,
+                   block, window, chunk, nchunks)
+    return dwr
+
+
+def band_dw_core_plain(features: torch.Tensor, g: torch.Tensor,
+                       rbt: torch.Tensor, w0: torch.Tensor, kz: int, block: int,
+                       window: int) -> torch.Tensor:
+    """Plain PyTorch version of K3: per tap, a masked gather of ``g`` and one
+    TN matmul."""
+    n, cin = features.shape
+    k3, cout = rbt.shape[1], g.shape[1]
+    dwr = torch.empty((k3, cin, cout), dtype=torch.float32, device=g.device)
+    for t in range(k3):
+        dwr[t] = (features.T @ _tap_rows(g, rbt, w0, t, n, kz, block,
+                                         window)).float()
+    return dwr
+
+
+def fused_bwd_fits(cp: int, cop: int, window: int = WINDOW, block: int = BLOCK,
+                   k3: int = 27, ncols: int = 9) -> bool:
+    """The JAX package's backward routing (``_fused_bwd_fits``, its TPU VMEM
+    estimate over 128-padded widths) without its env var: True takes K2,
+    False K1 on the cotangent plus K3. Kept so that the port runs the same
+    kernels on the same shapes as the reference."""
+    est = (
+        ncols * window * cop * 2
+        + k3 * cop * cp * 2
+        + k3 * cp * cop * 4
+        + block * cp * (2 + 4)
+        + 2 * block * window * 4
+    )
+    return est < 12 * 1024 * 1024
 
 
 # ------------------------------------------------------------------ wrappers
@@ -271,24 +475,96 @@ def _overflow_residual(src, ov_src, ov_dst, order, counts, w_taps, n_out,
     return out.index_add_(0, i, acc)
 
 
+def _overflow_dw(f, g, plan: BandPlan, compute_dtype):
+    """Budgeted overflow dW: ``f[ov_i[e]]^T g[ov_j[e]]`` summed per tap
+    -> (K^3, Cin, Cout) f32, slot t holding dW[mirror t] as the cores' dwr
+    does. Grouped by tap like ``_overflow_residual``."""
+    counts = plan.ov_counts
+    out = torch.zeros((len(counts), f.shape[1], g.shape[1]), dtype=torch.float32,
+                      device=f.device)
+    n_live = sum(counts)
+    if n_live == 0:
+        return out
+    fe = f[plan.ov_i[:n_live][plan.ov_order].to(torch.int64)].to(compute_dtype)
+    ge = g[plan.ov_j[:n_live][plan.ov_order].to(torch.int64)].to(compute_dtype)
+    start = 0
+    for t, c in enumerate(counts):
+        if c:
+            out[t] = (fe[start:start + c].T @ ge[start:start + c]).float()
+            start += c
+    return out
+
+
+def _pad128(c: int) -> int:
+    return _cdiv(c, 128) * 128
+
+
+class _BandSubmConv(torch.autograd.Function):
+    """The JAX package's ``band_subm_conv`` custom VJP (``_fwd_impl`` /
+    ``_bwd_impl``)."""
+
+    @staticmethod
+    def forward(ctx, features, weights, cfg, plan, out_mask, compute_dtype):
+        kz, block, window = cfg
+        n = features.shape[0]
+        out = band_fwd_core(features.to(compute_dtype).contiguous(), plan.rbt,
+                            plan.w0, weights.to(compute_dtype).contiguous(), kz,
+                            block, window)
+        # out-of-window tail entries, dropped by the core
+        out = out + _overflow_residual(features, plan.ov_j, plan.ov_i,
+                                       plan.ov_order, plan.ov_counts, weights,
+                                       n, compute_dtype)
+        out = out * plan.ok.to(torch.float32)
+        out = torch.where(out_mask[:, None], out,
+                          torch.zeros((), device=out.device))
+        ctx.save_for_backward(features, weights)
+        ctx.cfg, ctx.plan, ctx.out_mask, ctx.cdt = cfg, plan, out_mask, compute_dtype
+        return out.to(features.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        features, weights = ctx.saved_tensors
+        kz, block, window = ctx.cfg
+        plan, cdt = ctx.plan, ctx.cdt
+        n, cin = features.shape
+        k3, _, cout = weights.shape
+        g = torch.where(ctx.out_mask[:, None], g, torch.zeros((), dtype=g.dtype,
+                                                               device=g.device))
+        gate = plan.ok.to(torch.float32)
+        gc = g.to(cdt).contiguous()
+        fc = features.to(cdt).contiguous()
+        # dx: tap t of the cotangent gather pairs with weight tap mirror(t) =
+        # k3-1-t (subm symmetry): the forward's banded product with mirrored,
+        # transposed weights
+        w_mirT = weights.flip(0).transpose(1, 2)
+        wmt = w_mirT.to(cdt).contiguous()
+        if fused_bwd_fits(_pad128(cin), _pad128(cout), window, block, k3,
+                          k3 // kz):
+            dx, dwr = band_dxdw_core(gc, fc, plan.rbt, plan.w0, wmt, kz, block,
+                                     window)
+        else:
+            dx = band_fwd_core(gc, plan.rbt, plan.w0, wmt, kz, block, window)
+            dwr = band_dw_core(fc, gc, plan.rbt, plan.w0, kz, block, window)
+        # dropped mirrored entries: dx[i] += g[rbt[i, t]] @ W[mirror t]^T
+        dx = dx + _overflow_residual(g, plan.ov_j, plan.ov_i, plan.ov_order,
+                                     plan.ov_counts, w_mirT, n, cdt)
+        dx = dx * gate
+        # slot t holds dW[mirror t], the overflow entries' included
+        dw = (dwr + _overflow_dw(features, g, plan, cdt)).flip(0) * gate
+        return (dx.to(features.dtype), dw.to(weights.dtype), None, None, None,
+                None)
+
+
 def band_subm_conv(cfg, features: torch.Tensor, plan: BandPlan,
                    weights: torch.Tensor, out_mask: torch.Tensor,
                    compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Banded windowed submanifold conv forward. ``cfg`` = (kz, block,
-    window); ``weights`` (K^3, Cin, Cout). Same contract as the plain subm
-    conv over rows sorted by key; a plan whose budgets overflowed
-    (``plan.ok`` False) gives all-zero output."""
-    kz, block, window = cfg
-    cdt = compute_dtype or features.dtype
-    n = features.shape[0]
-    out = band_fwd_core(features.to(cdt).contiguous(), plan.rbt, plan.w0,
-                        weights.to(cdt).contiguous(), kz, block, window)
-    out = out + _overflow_residual(features, plan.ov_j, plan.ov_i,
-                                   plan.ov_order, plan.ov_counts, weights, n,
-                                   cdt)
-    out = out * plan.ok.to(torch.float32)
-    out = torch.where(out_mask[:, None], out, torch.zeros((), device=out.device))
-    return out.to(features.dtype)
+    """Banded windowed submanifold conv, differentiable in ``features`` and
+    ``weights``. ``cfg`` = (kz, block, window); ``weights`` (K^3, Cin, Cout).
+    Same contract as the plain subm conv over rows sorted by key; a plan
+    whose budgets overflowed (``plan.ok`` False) gives all-zero output and
+    all-zero gradients."""
+    return _BandSubmConv.apply(features, weights, tuple(cfg), plan, out_mask,
+                               compute_dtype or features.dtype)
 
 
 def band_eligible(cin: int, cout: int, kernel_size) -> bool:

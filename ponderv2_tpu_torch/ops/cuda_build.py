@@ -2,13 +2,16 @@
 
 Each ``csrc/<name>.cu`` exports a plain C interface and is compiled for
 Hopper (``sm_90a``) into ``csrc/_build/lib<name>-<hash>.so``; the hash of
-the source keys the cache, so an edited source rebuilds. Nothing here runs
-at import time, and nothing needs PyTorch's C++ headers.
+the source, the shared ``csrc/*.cuh`` headers and the flags keys the cache,
+so an edited source rebuilds. Several sources build in parallel, one
+``nvcc`` each. Nothing here runs at import time, and nothing needs
+PyTorch's C++ headers.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -36,28 +39,56 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` unless a build of this exact source exists,
-    then load it. Raises with the compiler's output if the build fails."""
-    if name in _LIBS:
-        return _LIBS[name]
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
-    if not os.path.isfile(out):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                                  capture_output=True, text=True)
-            BUILD_LOGS[name] = proc.stdout + proc.stderr
+def _lib_path(name: str) -> str:
+    digest = hashlib.sha256()
+    for path in [os.path.join(CSRC, f"{name}.cu")] + sorted(
+            glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
+def load_libraries(*names: str) -> Dict[str, ctypes.CDLL]:
+    """Compile every ``csrc/<name>.cu`` that has no build of its exact source
+    yet, all at once, then load them. Raises with the compiler's output if a
+    build fails."""
+    pending = {}
+    try:
+        for name in names:
+            out = _lib_path(name)
+            if name in _LIBS or os.path.isfile(out) or name in pending:
+                continue
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            src = os.path.join(CSRC, f"{name}.cu")
+            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            pending[name] = (proc, tmp, out)
+        failed = []
+        for name, (proc, tmp, out) in pending.items():
+            BUILD_LOGS[name] = proc.communicate()[0]
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src}:\n{BUILD_LOGS[name]}")
-            os.replace(tmp, out)  # atomic: a reader never sees a partial file
-        finally:
+                failed.append(f"nvcc failed on csrc/{name}.cu:\n{BUILD_LOGS[name]}")
+            else:
+                os.replace(tmp, out)  # atomic: a reader never sees a partial file
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    finally:
+        for proc, tmp, _ in pending.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
             if os.path.exists(tmp):
                 os.remove(tmp)
-    _LIBS[name] = ctypes.CDLL(out)
-    return _LIBS[name]
+    for name in names:
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(_lib_path(name))
+    return {name: _LIBS[name] for name in names}
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """``load_libraries`` for one source."""
+    return load_libraries(name)[name]

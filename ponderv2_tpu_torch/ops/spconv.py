@@ -10,7 +10,10 @@ memory order of a dense ``(kx, ky, kz)`` kernel.
 The JAX package's slab layout (``SubmPlan.r0/selp``, ``subm_conv_slab``) is
 a TPU gather-count layout. The port keeps ``SubmPlan`` as the carrier of a
 level's rulebook, its ``sorted_ok`` contract flag and its band plan, and
-computes the slab conv's function with the plain gather conv.
+computes the slab conv's function with the plain gather conv
+(``subm_conv_symmetric``, with the mirrored-gather backward). The packed
+strided/inverse convs differentiate through plain autograd, as the JAX
+package leaves them to XLA's autodiff.
 """
 
 from __future__ import annotations
@@ -325,6 +328,56 @@ def apply_sparse_conv(
         out += (g @ w[k]).float()
     out = torch.where(out_mask[:, None], out, torch.zeros((), device=out.device))
     return out.to(features.dtype)
+
+
+class _SubmConvSymmetric(torch.autograd.Function):
+    """The JAX package's ``subm_conv_symmetric`` custom VJP
+    (``ponderv2_tpu/ops/spconv.py:1131-1201``): the plain gather conv forward
+    with a gather-only backward. For a subm rulebook the adjoint of tap k's
+    gather is tap (K^3-1-k)'s gather, so one mirrored gather of the
+    cotangent per tap serves both cotangents:
+
+        dW[k] = x^T @ gather_{rb[K3-1-k]}(g),  dx += gather_{rb[K3-1-k]}(g) @ W[k]^T
+
+    and autograd saves only the inputs, not every tap's gathered rows."""
+
+    @staticmethod
+    def forward(ctx, features, weights, rulebook, out_mask, compute_dtype):
+        ctx.save_for_backward(features, weights)
+        ctx.rulebook, ctx.out_mask, ctx.cdt = rulebook, out_mask, compute_dtype
+        return apply_sparse_conv(features, rulebook, weights, out_mask,
+                                 compute_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        features, weights = ctx.saved_tensors
+        rulebook, cdt = ctx.rulebook, ctx.cdt
+        k3 = rulebook.shape[0]
+        g = torch.where(ctx.out_mask[:, None], g,
+                        torch.zeros((), dtype=g.dtype, device=g.device))
+        gc = g.to(cdt)
+        fc = features.to(cdt)
+        zero = torch.zeros((), dtype=cdt, device=g.device)
+        dx = torch.zeros(features.shape, dtype=torch.float32, device=g.device)
+        dw = torch.empty(weights.shape, dtype=torch.float32, device=g.device)
+        for k in range(k3):
+            midx = rulebook[k3 - 1 - k]
+            gg = torch.where((midx >= 0)[:, None],
+                             gc[midx.clamp(min=0).to(torch.int64)], zero)
+            dw[k] = (fc.T @ gg).float()
+            dx += (gg @ weights[k].to(cdt).T).float()
+        return dx.to(features.dtype), dw.to(weights.dtype), None, None, None
+
+
+def subm_conv_symmetric(features: torch.Tensor, rulebook: torch.Tensor,
+                        weights: torch.Tensor, out_mask: torch.Tensor,
+                        precision_dtype: Optional[torch.dtype] = None
+                        ) -> torch.Tensor:
+    """``apply_sparse_conv`` over a submanifold (mirror-symmetric) rulebook,
+    differentiable in ``features`` and ``weights`` with the mirrored-gather
+    backward."""
+    return _SubmConvSymmetric.apply(features, weights, rulebook, out_mask,
+                                    precision_dtype or features.dtype)
 
 
 def _packed_tap_matmul(features, tap, weights, compute_dtype):

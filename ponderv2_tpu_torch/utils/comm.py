@@ -34,3 +34,17 @@ def gather(data: Any, dst: int = 0) -> List[Any]:
     out = [None] * get_world_size() if get_rank() == dst else None
     dist.gather_object(data, out, dst=dst)
     return out if get_rank() == dst else []
+
+
+def reduce_dict(input_dict: dict, average: bool = True) -> dict:
+    """Reduce scalar dict values across processes (mean by default)."""
+    world = get_world_size()
+    if world == 1:
+        return dict(input_dict)
+    gathered = [None] * world
+    dist.all_gather_object(gathered, input_dict)
+    out = {}
+    for k in sorted(input_dict.keys()):
+        vals = [float(g[k]) for g in gathered]
+        out[k] = sum(vals) / world if average else sum(vals)
+    return out

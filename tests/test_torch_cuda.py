@@ -1,4 +1,5 @@
-"""K1 (the CUDA band conv kernel) against its plain PyTorch version, on a GPU.
+"""The CUDA band conv kernels (K1, K2, K3) against their plain PyTorch
+versions, on a GPU.
 
 Marked ``requires_cuda``: each test skips where there is no CUDA device (the
 kernel has no CPU or interpret mode). The file imports no JAX, so it also
@@ -10,6 +11,8 @@ The f32 comparisons run with TF32 off; the kernel and the plain version sum
 the same f32 products in another order, hence the 1e-5 relative bound. bf16
 inputs accumulate in f32 in the kernel while the plain version rounds each
 tap's product to bf16: 3e-2 of max|ref| (the bound bench.py:227 uses).
+dW is reduced over row chunks in a fixed order (no atomics), so K2/K3 are
+deterministic; their bounds are K1's, for the same reasons.
 """
 
 import numpy as np
@@ -66,6 +69,34 @@ def test_k1_matches_plain(cuda, block, window, cin, cout, dtype):
     assert _rel_err(out, ref.float()) <= (1e-5 if dtype == torch.float32 else 3e-2)
 
 
+@pytest.mark.parametrize("block,window", [(8, 32), (32, 8), (256, 384)])
+@pytest.mark.parametrize("cin,cout", [(5, 7), (40, 24), (96, 96), (130, 70)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_k3_match_plain(cuda, block, window, cin, cout, dtype):
+    coords = _scene(3000, (24, 24, 24)).to(cuda)
+    rb = build_subm_rulebook(coords, (24, 24, 24), 2, 3)
+    plan = bc.build_band_plan(rb, 3, block=block, window=window)
+    gen = torch.Generator(device=cuda).manual_seed(cin * cout)
+    n = rb.shape[1]
+    f = torch.randn(n, cin, device=cuda, generator=gen).to(dtype)
+    g = torch.randn(n, cout, device=cuda, generator=gen).to(dtype)
+    wmt = (torch.randn(27, cout, cin, device=cuda, generator=gen)
+           / cout ** 0.5).to(dtype)
+    args = (plan.rbt, plan.w0)
+    tail = (3, block, window)
+    dx, dwr = bc.band_dxdw_core(g, f, *args, wmt, *tail)
+    rdx, rdwr = bc.band_dxdw_core_plain(g, f, *args, wmt, *tail)
+    dw3 = bc.band_dw_core(f, g, *args, *tail)
+    rdw3 = bc.band_dw_core_plain(f, g, *args, *tail)
+    torch.cuda.synchronize()
+    bound = 1e-5 if dtype == torch.float32 else 3e-2
+    for out, ref in [(dx, rdx), (dwr, rdwr), (dw3, rdw3)]:
+        assert out.dtype == torch.float32 and out.shape == ref.shape
+        assert _rel_err(out, ref.float()) <= bound
+    # deterministic: the same launch gives the same bits
+    assert torch.equal(bc.band_dw_core(f, g, *args, *tail), dw3)
+
+
 def test_band_subm_conv_cuda_equals_plain_conv(cuda):
     """The whole wrapper on CUDA (K1 + overflow residual + gate + mask) is the
     plain subm conv, with and without window overflow; a plan whose budget
@@ -83,9 +114,28 @@ def test_band_subm_conv_cuda_equals_plain_conv(cuda):
         assert bool(plan.ok)
         out = bc.band_subm_conv((3, block, window), f, plan, w, mask)
         assert _rel_err(out, ref) <= 1e-5
+        for fused in (True, False):  # K2, and K1 on the cotangent + K3
+            fb, wb = f.clone().requires_grad_(), w.clone().requires_grad_()
+            fp, wp = f.clone().requires_grad_(), w.clone().requires_grad_()
+            route = bc.fused_bwd_fits
+            bc.fused_bwd_fits = lambda *a, **k: fused
+            try:
+                before = (bc.BAND_DXDW.launches, bc.BAND_DW.launches)
+                bc.band_subm_conv((3, block, window), fb, plan, wb, mask).square().sum().backward()
+            finally:
+                bc.fused_bwd_fits = route
+            assert (bc.BAND_DXDW.launches - before[0], bc.BAND_DW.launches - before[1]) == (
+                (1, 0) if fused else (0, 1))
+            apply_sparse_conv(fp, rb, wp, mask).square().sum().backward()
+            assert _rel_err(fb.grad, fp.grad) <= 1e-5
+            assert _rel_err(wb.grad, wp.grad) <= 1e-5
     gated = bc.build_band_plan(rb, 3, block=32, window=8, pair_budget=0)
     assert not bool(gated.ok)
-    assert bc.band_subm_conv((3, 32, 8), f, gated, w, mask).abs().sum().item() == 0.0
+    fz, wz = f.clone().requires_grad_(), w.clone().requires_grad_()
+    zero = bc.band_subm_conv((3, 32, 8), fz, gated, wz, mask)
+    assert zero.abs().sum().item() == 0.0
+    zero.sum().backward()
+    assert fz.grad.abs().sum().item() == 0.0 and wz.grad.abs().sum().item() == 0.0
 
 
 def test_k1_counts_launches_and_rejects_bad_input(cuda):
@@ -98,16 +148,28 @@ def test_k1_counts_launches_and_rejects_bad_input(cuda):
     before = bc.BAND_FWD.launches
     bc.band_fwd_core(f, *args, w, 3, bc.BLOCK, bc.WINDOW)
     assert bc.BAND_FWD.launches == before + 1
-    with pytest.raises(NotImplementedError):  # no backward kernel yet
-        bc.band_fwd_core(f.requires_grad_(), *args, w, 3, bc.BLOCK, bc.WINDOW)
-    f = f.detach()
+    # a backward through the autograd wrapper launches K1 once more for the
+    # forward and one K2 (16 -> 8 fits the fused route)
+    mask = coords[:, 0] >= 0
+    fused_before = bc.BAND_DXDW.launches
+    out = bc.band_subm_conv((3, bc.BLOCK, bc.WINDOW), f.clone().requires_grad_(),
+                            plan, w, mask)
+    out.sum().backward()
+    assert bc.BAND_FWD.launches == before + 2
+    assert bc.BAND_DXDW.launches == fused_before + 1
+    before = bc.BAND_FWD.launches
     with pytest.raises(TypeError):
         bc.band_fwd_core(f.half(), *args, w.half(), 3, bc.BLOCK, bc.WINDOW)
     with pytest.raises(ValueError):
         bc.band_fwd_core(f.t().contiguous().t(), *args, w, 3, bc.BLOCK, bc.WINDOW)
     with pytest.raises(ValueError):
         bc.band_fwd_core(f, *args, w[:, :8], 3, bc.BLOCK, bc.WINDOW)
-    assert bc.BAND_FWD.launches == before + 1
+    with pytest.raises(ValueError):
+        bc.band_dw_core(f, f[:-1], *args, 3, bc.BLOCK, bc.WINDOW)
+    with pytest.raises(TypeError):
+        bc.band_dxdw_core(f.half(), f.half(), *args, w.half().transpose(1, 2),
+                          3, bc.BLOCK, bc.WINDOW)
+    assert bc.BAND_FWD.launches == before
 
 
 def test_segmentor_cuda_matches_cpu(cuda):

@@ -125,6 +125,102 @@ class TestDataPath:
             assert_same(bj[k], bt[k], k)
 
 
+SCANNET_TRAIN_CFG = os.path.join(
+    ROOT, "configs/_test_/semseg_spunet_scannet_synthetic_train.py")
+SCANNET_BASE_CFG = os.path.join(ROOT, "configs/scannet/semseg-spunet-v1m1-0-base.py")
+
+
+class TestTrainDataPath:
+    def test_synthetic_train_config_keeps_scannet_train_path(self):
+        """The synthetic training config is the ScanNet one with only the
+        train/val scenes swapped and one epoch with one evaluation."""
+        base = TConfig.fromfile(SCANNET_BASE_CFG)
+        cfg = TConfig.fromfile(SCANNET_TRAIN_CFG)
+        for key in ("model", "optimizer", "scheduler", "batch_size",
+                    "point_budget", "point_budget_val", "mix_prob", "num_worker"):
+            assert cfg[key] == base[key], key
+        assert tuple(cfg.sparse_shape) == tuple(base.sparse_shape)
+        for split in ("train", "val"):
+            assert cfg.data[split].transform == base.data[split].transform, split
+            assert cfg.data[split].type == "SyntheticDataset"
+        assert (cfg.data.train.num_scenes, cfg.data.val.num_scenes) == (36, 2)
+        assert cfg.epoch == cfg.eval_epoch == 1
+
+    def test_copied_sources_are_the_jax_ones(self):
+        """Every function and class the port copied for the training slice
+        has the JAX package's source, byte for byte."""
+        import inspect
+
+        import ponderv2_tpu.datasets.dataloader as jdl
+        import ponderv2_tpu.datasets.transform as jtr
+        import ponderv2_tpu.utils.env as jenv
+        import ponderv2_tpu.utils.events as jev
+        import ponderv2_tpu.utils.timer as jtm
+        import ponderv2_tpu_torch.datasets.dataloader as tdl
+        import ponderv2_tpu_torch.datasets.transform as ttr
+        import ponderv2_tpu_torch.utils.env as tenv
+        import ponderv2_tpu_torch.utils.events as tev
+        import ponderv2_tpu_torch.utils.timer as ttm
+
+        copies = [
+            (jtr, ttr, ["RandomScale", "RandomFlip", "RandomJitter", "RandomDropout",
+                        "ElasticDistortion", "ChromaticAutoContrast",
+                        "ChromaticTranslation", "ChromaticJitter", "SphereCrop",
+                        "ShufflePoint"]),
+            (jdl, tdl, ["_worker_init", "build_dataloader", "_TorchDatasetAdapter"]),
+            (jenv, tenv, ["derive_seed", "set_seed"]),
+            (jev, tev, ["get_event_storage", "HistoryBuffer", "EventStorage",
+                        "EventWriter", "JSONWriter", "TensorboardWriter",
+                        "CommonMetricPrinter"]),
+            (jtm, ttm, ["Timer"]),
+        ]
+        for jmod, tmod, names in copies:
+            for name in names:
+                assert inspect.getsource(getattr(tmod, name)) == inspect.getsource(
+                    getattr(jmod, name)), f"{tmod.__name__}.{name}"
+
+    def test_scannet_train_batches_match_jax(self, np_global_seed):
+        """The ScanNet train transform (every random augmentation) and the
+        train loader's Mix3D collate give byte-equal batches."""
+        import random
+
+        from ponderv2_tpu.datasets.dataloader import build_dataloader as jloader
+        from ponderv2_tpu_torch.datasets import build_dataloader as tloader
+
+        cfg = dict(TConfig.fromfile(SCANNET_TRAIN_CFG).data.train)
+        cfg.update(num_scenes=4, points_per_scene=3000)
+        batches = {}
+        for name, build, loader in [("jax", jbuild_dataset, jloader),
+                                    ("torch", tbuild_dataset, tloader)]:
+            np_global_seed()
+            random.seed(0)  # the Mix3D draw
+            batches[name] = list(loader(
+                build(dict(cfg)), batch_size=2, shuffle=False, drop_last=True,
+                point_budget=8192, scene_budget=2, mix_prob=0.8))
+        assert len(batches["jax"]) == len(batches["torch"]) == 2
+        mixed = 0
+        for bj, bt in zip(batches["jax"], batches["torch"]):
+            assert sorted(bj) == sorted(bt)
+            for k in bj:
+                assert_same(bj[k], bt[k], k)
+            mixed += int(bt["batch"].max() == 0)
+        assert mixed >= 1  # Mix3D merged a pair at least once
+
+    def test_config_parser_rebases_epochs_like_jax(self, tmp_path):
+        """The ScanNet config (epoch 800, eval_epoch 100) through both
+        parsers: 100 outer epochs of 8 data loops, and save_path/model made."""
+        from ponderv2_tpu.engines.defaults import default_config_parser as jparse
+        from ponderv2_tpu_torch.engines.defaults import default_config_parser as tparse
+
+        cfgs = {}
+        for name, parse in [("jax", jparse), ("torch", tparse)]:
+            save = tmp_path / name
+            cfgs[name] = parse(SCANNET_BASE_CFG, {"save_path": str(save)})
+            assert (save / "model").is_dir() and (save / "config.py").is_file()
+        for cfg in cfgs.values():
+            assert cfg.eval_epoch == 100 and cfg.data.train.loop == 8
+
+
 def _oracle_logits(feat):
     """Deterministic logits of the features, the same for both testers."""
     w = np.random.RandomState(3).randn(feat.shape[1], 20).astype(np.float32)
@@ -186,9 +282,11 @@ sys.path[:0] = [root, root + "/tools"]
 import numpy as np
 import torch
 import ponderv2_tpu_torch.engines.test
+import ponderv2_tpu_torch.engines.hooks
+import ponderv2_tpu_torch.engines.train
 import ponderv2_tpu_torch.ops.band_conv
 import ponderv2_tpu_torch.utils.convert
-import chip_smoke, test_torch
+import chip_smoke, test_torch, train_torch
 from ponderv2_tpu_torch.datasets import build_dataset, collate_fn
 from ponderv2_tpu_torch.models import build_model
 from ponderv2_tpu_torch.utils.config import Config
@@ -212,8 +310,8 @@ print("NO_JAX_OK")
 
 
 def test_port_imports_and_runs_without_jax():
-    """``ponderv2_tpu_torch``, ``chip_smoke.py`` and ``tools/test_torch.py``
-    import, and a CPU forward runs, with jax/jaxlib/flax/optax/ponderv2_tpu
+    """``ponderv2_tpu_torch``, ``chip_smoke.py``, ``tools/test_torch.py`` and
+    ``tools/train_torch.py`` import, and a CPU forward runs, with jax/jaxlib/flax/optax/ponderv2_tpu
     blocked; no port source names them in an import statement."""
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT_CHECK, ROOT],
@@ -222,7 +320,8 @@ def test_port_imports_and_runs_without_jax():
     assert "NO_JAX_OK" in proc.stdout
     pattern = re.compile(r"^\s*(import|from) (jax|jaxlib|flax|optax|ponderv2_tpu)\b")
     sources = [os.path.join(ROOT, "chip_smoke.py"),
-               os.path.join(ROOT, "tools", "test_torch.py")]
+               os.path.join(ROOT, "tools", "test_torch.py"),
+               os.path.join(ROOT, "tools", "train_torch.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "ponderv2_tpu_torch")):
         sources += [os.path.join(d, f) for f in files if f.endswith(".py")]
     for path in sources:

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""GPU smoke run of the PyTorch port: build the band kernels, check them,
-serve ScanNet-scale scenes and train SpUNet-v1m1 at ScanNet's batch.
+"""GPU smoke run of the PyTorch port: build the band and windowed conv
+kernels, check them, serve ScanNet-scale scenes, train SpUNet-v1m1 at
+ScanNet's batch and pretrain PonderIndoor-v2 at bench.py's workload.
 
     python3 chip_smoke.py
 
@@ -8,9 +9,10 @@ Needs one CUDA GPU (Hopper: the kernels are built for sm_90a) and runs in
 phases; any failure exits non-zero:
 
 1. print the card's name and power limit; refuse to run without CUDA;
-2. build the band conv kernels with nvcc, one process per source in
-   parallel: K1 (``ponderv2_tpu_torch/csrc/band_conv.cu``), K2 and K3
-   (``csrc/band_conv_bwd.cu``); print ptxas registers and spills;
+2. build every kernel with nvcc, one process per source in parallel: K1
+   (``ponderv2_tpu_torch/csrc/band_conv.cu``), K2 and K3
+   (``csrc/band_conv_bwd.cu``), K4 and K5 (``csrc/windowed_gather.cu``);
+   print ptxas registers and spills;
 3. compare K1 with its plain PyTorch version on the card at every distinct
    (level, Cin, Cout) band conv of the serving slice, at the level row
    counts of a real fragment, in f32 (TF32 off) and bf16, plus a
@@ -29,14 +31,35 @@ phases; any failure exits non-zero:
    counts against the routing, and that the checkpoint loads;
 7. compare K1, K2 and K3 with their plain versions at every distinct
    (level, Cin, Cout) band conv of that training batch, in f32 and bf16,
-   time each where the step runs it, and run the backward through the
-   autograd wrapper with window overflow and with ``pair_budget=0``;
-8. run one step's forward and backward from the saved state twice with the
-   kernels, then twice with all three replaced by their plain versions, and
-   compare the loss and every parameter's gradient (within 1e-3 of its
-   max|ref| plus 3x the measured run-to-run spread);
-9. print times and peak memory, a JSON line of the kernels, and last
-   ``{"ok": true, "device": {...}}``.
+   time each in f32 where the step runs it, and run the backward through
+   the autograd wrapper with window overflow and with ``pair_budget=0``;
+8. run one step's forward and backward from the saved state three times
+   with the kernels, then three times with all three replaced by their
+   plain versions (and once more with the plain versions summing in
+   another order: taps reversed, dW rows in two halves), and compare the
+   loss and every parameter's gradient
+   (within 1e-3 of its max|ref| plus 3x the measured spread);
+9. pretrain ``configs/_test_/pretrain_bench_torch.py`` (bench.py's
+   workload: PonderIndoor-v2 with SpUNet-v1m1, UNet3D-v1m2 and NeuS at full
+   width, bf16, batch 2 of 100k-point RGB-D scenes) through
+   ``tools/train_torch.py:main_worker`` for 3 steps; check every step's
+   loss, ``contract_ok``, lr and K1/K2/K3 launches against the routing;
+10. compare K1, K2 and K3 with their plain versions at every distinct
+    (level, Cin, Cout) band conv of that pretrain batch, in f32 and bf16,
+    and time each in bf16 (the step's dtype) where the step runs it;
+11. run one pretrain step's forward and backward from the seeded state
+    (the same random draws each time) three times with the kernels and
+    three times with the plain versions, and compare the loss and every
+    gradient (within 3e-2, the bf16 bound of bench.py:227, of its max|ref|
+    plus 3x the spread measured in bf16);
+12. run the windowed conv entry point
+    (``tools/experiments/probe_windowed_torch.py:windowed_conv``, K4 and
+    K5) in bf16 at the probe's four shapes and on two rulebooks of the
+    pretrain batch (the k5 stem's, 6->32, and L0's k3 at 32->32), count
+    its launches, compare each kernel with its plain version in f32 and
+    bf16, time both, and report the share of covered windows;
+13. print times and peak memory, a JSON line of the kernels, and last
+    ``{"ok": true, "device": {...}}``.
 """
 
 import gc
@@ -51,6 +74,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs/_test_/semseg_spunet_scannet_synthetic.py")
 TRAIN_CONFIG = os.path.join(ROOT, "configs/_test_/semseg_spunet_scannet_synthetic_train.py")
+PRETRAIN_CONFIG = os.path.join(ROOT, "configs/_test_/pretrain_bench_torch.py")
 SEED = 0
 # band convs per forward of SpUNet-v1m1 at ScanNet's sparse_shape, from the
 # routing (models/sparse_unet/layers.py:subm_route): L0 runs the last decoder
@@ -65,7 +89,16 @@ KERNEL_SOURCES = {
                        "ponderv2_tpu/ops/band_conv.py:278"),
     "band_dw_core": ("ponderv2_tpu_torch/csrc/band_conv_bwd.cu",
                      "ponderv2_tpu/ops/band_conv.py:222"),
+    "windowed_conv_fwd": ("ponderv2_tpu_torch/csrc/windowed_gather.cu",
+                          "ponderv2_tpu/ops/pallas_gather.py:147"),
+    "windowed_conv_dw": ("ponderv2_tpu_torch/csrc/windowed_gather.cu",
+                         "ponderv2_tpu/ops/pallas_gather.py:197"),
 }
+BAND_CORES = ("band_fwd_core", "band_dxdw_core", "band_dw_core")
+# H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s; FLOP/s of bf16
+# on the tensor cores and of f32 on the CUDA cores
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
 def check(cond, msg):
@@ -129,15 +162,173 @@ def band_convs(spunet, level_rb):
 
 def level_plans(spunet, st):
     """The conv plans of ``st`` as the backbone builds them: per level the
-    k3 plan (SubmPlan or plain rulebook) and the level's coords."""
+    k3 plan (SubmPlan or plain rulebook) and the level's coords, and the k5
+    stem's plan."""
     from ponderv2_tpu_torch.models.sparse_unet.plans import (
         build_spunet_plans_auto, capacity_schedule)
 
     plans = build_spunet_plans_auto(
         st.coords, st.spatial_shape, st.batch_size,
-        capacity_schedule(st.capacity, spunet.num_stages), spunet.channels)
+        spunet.capacities or capacity_schedule(st.capacity, spunet.num_stages),
+        spunet.channels)
     return ([plans.l0] + list(plans.subm),
-            [st.coords] + [s[0] for s in plans.strided])
+            [st.coords] + [s[0] for s in plans.strided], plans.stem)
+
+
+def band_routing(spunet, level_rb):
+    """The band convs of one forward and their backward route: ({(level,
+    cin, cout): count}, {key: fused}, K1/K2/K3 launches per train step)."""
+    from ponderv2_tpu_torch.ops import band_conv as bc
+
+    convs = band_convs(spunet, level_rb)
+    fused = {key: bc.fused_bwd_fits(-(-key[1] // 128) * 128, -(-key[2] // 128) * 128)
+             for key in convs}
+    n_band = sum(convs.values())
+    n_fused = sum(c for key, c in convs.items() if fused[key])
+    return convs, fused, [n_band + (n_band - n_fused), n_fused, n_band - n_fused]
+
+
+def bound_ms(moved_bytes, flops, dtype):
+    """The least time an H100 SXM could take: (max(bytes / 3.35 TB/s,
+    FLOPs / peak of the dtype) in ms, the bytes-time, the FLOP-time)."""
+    t_bytes = moved_bytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(dtype).rsplit(".", 1)[-1]] * 1e3
+    return max(t_bytes, t_ops), t_bytes, t_ops
+
+
+def band_live_entries(plan, n, kz=3):
+    """In-window entries of a band plan over its first ``n`` rows: the ones
+    K1-K3 multiply (overflow entries go to the plain residual)."""
+    import torch
+
+    from ponderv2_tpu_torch.ops import band_conv as bc
+
+    rbt = plan.rbt[:n].to(torch.int64)
+    i = torch.arange(n, device=rbt.device)
+    cols = torch.arange(rbt.shape[1], device=rbt.device) // kz
+    pos = rbt - plan.w0.to(torch.int64)[cols[None, :], (i // bc.BLOCK)[:, None]]
+    return int(((rbt >= 0) & (pos >= 0) & (pos < bc.WINDOW)).sum())
+
+
+def band_op_bound(op, plan, n, cin, cout, dtype):
+    """``bound_ms`` of one band-conv kernel call: each input read once,
+    each output written once; 2 FLOPs per in-window entry and channel pair
+    (twice that for K2's dx + dW)."""
+    import torch
+
+    elt = 2 if dtype == torch.bfloat16 else 4
+    idx = 4 * (plan.rbt.numel() + plan.w0.numel())
+    wts = 27 * cin * cout * elt
+    fin, gin, dx, dw = n * cin * elt, n * cout * elt, n * cin * 4, 27 * cin * cout * 4
+    moved = {"fwd": fin + idx + wts + n * cout * 4, "dx": gin + idx + wts + dx,
+             "dxdw": gin + fin + idx + wts + dx + dw, "dw": fin + gin + idx + dw}[op]
+    flops = 2.0 * band_live_entries(plan, n) * cin * cout * (2 if op == "dxdw" else 1)
+    return bound_ms(moved, flops, dtype)
+
+
+def compare_band_kernels(convs, fused, level_rb, level_coords, gen, dtype, stats):
+    """K1, K2 and K3 against their plain versions at every band conv of
+    ``convs`` ({(level, cin, cout): count per forward}), in f32 (1e-4 of
+    max(|ref|, 1)) and bf16 (3e-2 of max|ref|); each op the train step runs
+    on a conv is timed in ``dtype`` and added, times its count, to
+    ``stats[core]`` (ms, plain_ms, bound_ms, bytes_ms, ops_ms, err, err_bf16)."""
+    import torch
+
+    from ponderv2_tpu_torch.ops import band_conv as bc
+
+    dev = level_coords[0].device
+    owner = {"fwd": "band_fwd_core", "dx": "band_fwd_core",
+             "dxdw": "band_dxdw_core", "dw": "band_dw_core"}
+    for (level, cin, cout), count in sorted(convs.items()):
+        legacy, plan = band_plan_of(level_rb[level])
+        n = legacy.shape[1]
+        valid = (level_coords[level][:, 0] >= 0)[:, None]
+        f = torch.randn(n, cin, device=dev, generator=gen) * valid
+        g = torch.randn(n, cout, device=dev, generator=gen) * valid
+        w = torch.randn(27, cin, cout, device=dev, generator=gen) / (27 * cin) ** 0.5
+        wmt = w.flip(0).transpose(1, 2).contiguous()
+        args, tail = (plan.rbt, plan.w0), (3, bc.BLOCK, bc.WINDOW)
+        calls = {
+            "fwd": (lambda a, b, c, d: bc.band_fwd_core(a, *args, c, *tail),
+                    lambda a, b, c, d: bc.band_fwd_core_plain(a, *args, c, *tail)),
+            "dx": (lambda a, b, c, d: bc.band_fwd_core(b, *args, d, *tail),
+                   lambda a, b, c, d: bc.band_fwd_core_plain(b, *args, d, *tail)),
+            "dxdw": (lambda a, b, c, d: bc.band_dxdw_core(b, a, *args, d, *tail),
+                     lambda a, b, c, d: bc.band_dxdw_core_plain(b, a, *args, d, *tail)),
+            "dw": (lambda a, b, c, d: bc.band_dw_core(a, b, *args, *tail),
+                   lambda a, b, c, d: bc.band_dw_core_plain(a, b, *args, *tail)),
+        }
+        low = (f.bfloat16(), g.bfloat16(), w.bfloat16(), wmt.bfloat16())
+        timed = low if dtype == torch.bfloat16 else (f, g, w, wmt)
+        line = []
+        for op, (kern, plain) in calls.items():
+            def pairs(outs, refs):
+                return list(zip(outs, refs)) if op == "dxdw" else [(outs, refs)]
+
+            errs = [max_err(o, r) for o, r in pairs(kern(f, g, w, wmt), plain(f, g, w, wmt))]
+            torch.cuda.synchronize()
+            check(all(e <= 1e-4 * max(s, 1.0) for e, s in errs),
+                  f"{op} f32 L{level} {cin}->{cout}: {errs}")
+            errs_b = [max_err(o, r) for o, r in pairs(kern(*low), plain(*low))]
+            check(all(e <= 3e-2 * s for e, s in errs_b),
+                  f"{op} bf16 L{level} {cin}->{cout}: {errs_b}")
+            st = stats[owner[op]]
+            st["err"] = max(st["err"], max(e for e, _ in errs))
+            st["err_bf16"] = max(st["err_bf16"], max(e for e, _ in errs_b))
+            # time where the step runs it: the forward on every band conv,
+            # K2 on the fused ones, K1 (dx) + K3 on the split ones
+            runs = {"fwd": True, "dx": not fused[(level, cin, cout)],
+                    "dxdw": fused[(level, cin, cout)],
+                    "dw": not fused[(level, cin, cout)]}[op]
+            timing = ""
+            if runs:
+                t_k = cuda_ms(lambda: kern(*timed), 5)
+                t_p = cuda_ms(lambda: plain(*timed), 3)
+                b, b_bytes, b_ops = band_op_bound(op, plan, n, cin, cout, dtype)
+                for key, v in (("ms", t_k), ("plain_ms", t_p), ("bound_ms", b),
+                               ("bytes_ms", b_bytes), ("ops_ms", b_ops)):
+                    st[key] += count * v
+                timing = f" {t_k:.3f}/{t_p:.3f} ms (bound {b:.4f})"
+            line.append(f"{op} err {max(e for e, _ in errs):.2e} "
+                        f"bf16 {max(e for e, _ in errs_b):.2e}{timing}")
+        print(f"[band] L{level} rows {n} {cin}->{cout} x{count} "
+              f"{'fused' if fused[(level, cin, cout)] else 'split'}: " + "; ".join(line))
+        del f, g, w, wmt, low, timed
+
+
+def reordered_fwd(f, rbt, w0, w, kz, block, window):
+    """K1's function as its plain version computes it, but with the taps
+    summed in reverse: another f32 order, for the spread of a grads check."""
+    from ponderv2_tpu_torch.ops import band_conv as bc
+
+    n = f.shape[0]
+    out = 0.0
+    for t in reversed(range(w.shape[0])):
+        out = out + bc._tap_rows(f, rbt, w0, t, n, kz, block, window).float() @ w[t].float()
+    return out
+
+
+def reordered_dw(f, g, rbt, w0, kz, block, window):
+    """K3's function with the rows summed in two halves, the second first."""
+    import torch
+
+    from ponderv2_tpu_torch.ops import band_conv as bc
+
+    n = f.shape[0]
+    h = n // 2
+    ff = f.float()
+    dwr = []
+    for t in range(rbt.shape[1]):
+        rows = bc._tap_rows(g, rbt, w0, t, n, kz, block, window).float()
+        dwr.append(ff[h:].T @ rows[h:] + ff[:h].T @ rows[:h])
+    return torch.stack(dwr)
+
+
+def reordered_dxdw(g, f, rbt, w0, wmt, kz, block, window):
+    """K2's function summed in another order (``reordered_fwd``,
+    ``reordered_dw``)."""
+    return (reordered_fwd(g, rbt, w0, wmt, kz, block, window),
+            reordered_dw(f, g, rbt, w0, kz, block, window))
 
 
 def band_plan_of(rb):
@@ -160,6 +351,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tools"))
+    sys.path.insert(0, os.path.join(ROOT, "tools", "experiments"))
     import numpy as np
 
     from ponderv2_tpu_torch.datasets import build_dataset, collate_fn
@@ -170,12 +362,14 @@ def main() -> int:
     from ponderv2_tpu_torch.models.default import batch_to_sparse_tensor
     from ponderv2_tpu_torch.models.sparse_unet.layers import SubMConv
     from ponderv2_tpu_torch.ops import band_conv as bc
-    from ponderv2_tpu_torch.ops.cuda_build import BUILD_LOGS
+    from ponderv2_tpu_torch.ops import windowed_gather as wg
+    from ponderv2_tpu_torch.ops.cuda_build import BUILD_LOGS, load_libraries
     from ponderv2_tpu_torch.ops.sparse import make_sparse_tensor, maybe_sort_by_key
     from ponderv2_tpu_torch.ops.spconv import SubmPlan, apply_sparse_conv
     from ponderv2_tpu_torch.utils.config import Config
     from test_torch import main_worker
     from train_torch import main_worker as train_main_worker
+    import probe_windowed_torch as probe
 
     phase_s = {}
     tic = time.perf_counter()
@@ -201,16 +395,25 @@ def main() -> int:
           "TF32 off for matmul and cuDNN")
     phase_done("1 card")
 
-    # ---- 2. build K1, K2, K3
+    # ---- 2. build K1-K5: one nvcc per source, all started together
+    sources = sorted({k.source for k in bc.KERNELS + wg.KERNELS})
+    load_libraries(*sources)
     bc.build_kernels()
-    for name in ("band_conv", "band_conv_bwd"):
+    wg.build_kernels()
+    for name in sources:
         for ln in BUILD_LOGS.get(name, "").splitlines():
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
                 print(f"[build] {name}: {ln.strip()}")
     phase_done("2 build")
 
-    # per kernel: max f32 error vs plain, and ms per training step (kernel, plain)
-    stats = {name: dict(err=0.0, ms=0.0, plain_ms=0.0) for name in KERNEL_SOURCES}
+    # per kernel and path: max error vs plain (f32, bf16), and the ms of the
+    # kernel, its plain version and its bound over one train step (or, for
+    # K4/K5, one run of the windowed conv entry point)
+    def new_stats():
+        return {name: dict(err=0.0, err_bf16=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                           bytes_ms=0.0, ops_ms=0.0) for name in KERNEL_SOURCES}
+
+    stats, pstats = new_stats(), new_stats()  # fine-tune path; pretrain path
 
     cfg = Config.fromfile(CONFIG)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -236,7 +439,7 @@ def main() -> int:
         coords = torch.cat([inputs["batch"][:, None].int(),
                             inputs["grid_coord"].int()], 1)
         st = make_sparse_tensor(inputs["feat"], coords, cfg.sparse_shape, 1)
-        level_rb, level_coords = level_plans(spunet, st)
+        level_rb, level_coords, _ = level_plans(spunet, st)
         convs = band_convs(spunet, level_rb)
         check(sum(convs.values()) == BAND_CONVS_PER_FORWARD,
               f"routing gives {sum(convs.values())} band convs per forward")
@@ -261,8 +464,8 @@ def main() -> int:
             fb, wb = f.bfloat16(), w.bfloat16()
             errb, _ = max_err(bc.band_fwd_core(fb, *args, wb, *tail),
                               bc.band_fwd_core_plain(fb, *args, wb, *tail))
-            # bf16 inputs, f32 accumulation; the plain version rounds each
-            # tap's product to bf16 (the bench's 3e-2 bound, bench.py:227)
+            # bf16 inputs, f32 products and sums in both, in another order;
+            # held to the bench's bf16 bound, 3e-2 (bench.py:227)
             check(errb <= 3e-2 * scale, f"K1 bf16 L{level} {cin}->{cout}: err {errb:.3e}")
             t_k = cuda_ms(lambda: bc.band_fwd_core(f, *args, w, *tail), 10)
             t_p = cuda_ms(lambda: bc.band_fwd_core_plain(f, *args, w, *tail), 10)
@@ -375,28 +578,30 @@ def main() -> int:
         phase_done("5 serving kernel vs plain")
 
         # ---- 6. the training slice: 3 steps + one evaluation via main_worker
+        def step_probe(records):
+            class StepProbe(HookBase):
+                """Per step: the synced metrics, the step's K1-K5 launches
+                and the lr the schedule gives; keeps the first batch."""
+
+                def before_step(self):
+                    self.before = [k.launches for k in bc.KERNELS + wg.KERNELS]
+
+                def after_step(self):
+                    trainer = self.trainer
+                    metrics = trainer.sync_metrics()
+                    metrics["launches"] = [k.launches - b for k, b
+                                           in zip(bc.KERNELS + wg.KERNELS, self.before)]
+                    metrics["schedule_lr"] = trainer.schedule(trainer.step - 1)
+                    records["steps"].append(metrics)
+                    records.setdefault("batch", trainer.comm_info["input_dict"])
+
+            return StepProbe
+
         records = {"steps": []}
-
-        class StepProbe(HookBase):
-            """Per step: the synced metrics, the step's kernel launches and
-            the lr the schedule gives; keeps the first batch."""
-
-            def before_step(self):
-                self.before = [k.launches for k in bc.KERNELS]
-
-            def after_step(self):
-                trainer = self.trainer
-                metrics = trainer.sync_metrics()
-                metrics["launches"] = [k.launches - b for k, b
-                                       in zip(bc.KERNELS, self.before)]
-                metrics["schedule_lr"] = trainer.schedule(trainer.step - 1)
-                records["steps"].append(metrics)
-                records.setdefault("batch", trainer.comm_info["input_dict"])
-
         tcfg = default_config_parser(TRAIN_CONFIG, {"save_path": os.path.join(tmp, "train")})
         tcfg.seed = SEED
         tcfg.device = "cuda"
-        tcfg.hooks = list(tcfg.hooks) + [dict(type=StepProbe)]
+        tcfg.hooks = list(tcfg.hooks) + [dict(type=step_probe(records))]
         torch.cuda.reset_peak_memory_stats(dev)
         for k in bc.KERNELS:
             k.launches = 0
@@ -421,16 +626,9 @@ def main() -> int:
         b_inputs.update(trainer.static_ctx)
         st12, _ = maybe_sort_by_key(batch_to_sparse_tensor(b_inputs))
         spunet = trainer.model.backbone
-        level_rb, level_coords = level_plans(spunet, st12)
-        tconvs = band_convs(spunet, level_rb)
-        def pad128(c):
-            return -(-c // 128) * 128
-
-        fused = {key: bc.fused_bwd_fits(pad128(key[1]), pad128(key[2]))
-                 for key in tconvs}
-        n_band = sum(tconvs.values())
-        n_fused = sum(c for key, c in tconvs.items() if fused[key])
-        per_step = [n_band + (n_band - n_fused), n_fused, n_band - n_fused]
+        level_rb, level_coords, _ = level_plans(spunet, st12)
+        tconvs, fused, per_step = band_routing(spunet, level_rb)
+        n_band, n_fused = sum(tconvs.values()), per_step[1]
         live = int((b_inputs["batch"] >= 0).sum())
         print(f"[train] routing at batch {tcfg.batch_size}: {n_band} band convs per "
               f"forward ({sum(isinstance(rb, SubmPlan) for rb in level_rb)} of 5 "
@@ -444,7 +642,7 @@ def main() -> int:
             check(np.isfinite(m["loss"]), f"step {i} loss {m['loss']}")
             check(m["contract_ok"] == 1.0, f"step {i} contract_ok False")
             check(m["lr"] == m["schedule_lr"], f"step {i} lr {m['lr']} != schedule")
-            check(m["launches"] == per_step,
+            check(m["launches"] == per_step + [0, 0],
                   f"step {i} launches {m['launches']} != routing {per_step}")
         check(val_band == BAND_CONVS_PER_FORWARD,
               f"val forward ran {val_band} band convs")
@@ -483,63 +681,8 @@ def main() -> int:
         def bound32(err, scale):
             return err <= 1e-4 * max(scale, 1.0)
 
-        for (level, cin, cout), count in sorted(tconvs.items()):
-            legacy, plan = band_plan_of(level_rb[level])
-            n = legacy.shape[1]
-            valid = (level_coords[level][:, 0] >= 0)[:, None]
-            f = torch.randn(n, cin, device=dev, generator=gen) * valid
-            g = torch.randn(n, cout, device=dev, generator=gen) * valid
-            w = torch.randn(27, cin, cout, device=dev, generator=gen) / (27 * cin) ** 0.5
-            wmt = w.flip(0).transpose(1, 2).contiguous()
-            args, tail = (plan.rbt, plan.w0), (3, bc.BLOCK, bc.WINDOW)
-            calls = {
-                "fwd": (lambda a, b, c, d: bc.band_fwd_core(a, *args, c, *tail),
-                        lambda a, b, c, d: bc.band_fwd_core_plain(a, *args, c, *tail)),
-                "dx": (lambda a, b, c, d: bc.band_fwd_core(b, *args, d, *tail),
-                       lambda a, b, c, d: bc.band_fwd_core_plain(b, *args, d, *tail)),
-                "dxdw": (lambda a, b, c, d: bc.band_dxdw_core(b, a, *args, d, *tail),
-                         lambda a, b, c, d: bc.band_dxdw_core_plain(b, a, *args, d, *tail)),
-                "dw": (lambda a, b, c, d: bc.band_dw_core(a, b, *args, *tail),
-                       lambda a, b, c, d: bc.band_dw_core_plain(a, b, *args, *tail)),
-            }
-            owner = {"fwd": "band_fwd_core", "dx": "band_fwd_core",
-                     "dxdw": "band_dxdw_core", "dw": "band_dw_core"}
-            line = []
-            for op, (kern, plain) in calls.items():
-                outs = kern(f, g, w, wmt)
-                refs = plain(f, g, w, wmt)
-                torch.cuda.synchronize()
-                pairs = list(zip(outs, refs)) if op == "dxdw" else [(outs, refs)]
-                errs = [max_err(o, r) for o, r in pairs]
-                check(all(bound32(e, s) for e, s in errs),
-                      f"{op} f32 L{level} {cin}->{cout}: {errs}")
-                low = (f.bfloat16(), g.bfloat16(), w.bfloat16(), wmt.bfloat16())
-                outs_b, refs_b = kern(*low), plain(*low)
-                pairs_b = (list(zip(outs_b, refs_b)) if op == "dxdw"
-                           else [(outs_b, refs_b)])
-                errs_b = [max_err(o, r) for o, r in pairs_b]
-                check(all(e <= 3e-2 * s for e, s in errs_b),
-                      f"{op} bf16 L{level} {cin}->{cout}: {errs_b}")
-                err = max(e for e, _ in errs)
-                st_k = stats[owner[op]]
-                st_k["err"] = max(st_k["err"], err)
-                # time where the step runs it: the forward on every band conv,
-                # K2 on the fused ones, K1 (dx) + K3 on the split ones
-                runs = {"fwd": True, "dx": not fused[(level, cin, cout)],
-                        "dxdw": fused[(level, cin, cout)],
-                        "dw": not fused[(level, cin, cout)]}[op]
-                timing = ""
-                if runs:
-                    t_k = cuda_ms(lambda: kern(f, g, w, wmt), 5)
-                    t_p = cuda_ms(lambda: plain(f, g, w, wmt), 3)
-                    st_k["ms"] += count * t_k
-                    st_k["plain_ms"] += count * t_p
-                    timing = f" {t_k:.3f}/{t_p:.3f} ms"
-                line.append(f"{op} err {err:.2e} bf16 {max(e for e, _ in errs_b):.2e}{timing}")
-            print(f"[bwd] L{level} rows {n} {cin}->{cout} x{count} "
-                  f"{'fused' if fused[(level, cin, cout)] else 'split'}: "
-                  + "; ".join(line))
-            del f, g, w, wmt
+        compare_band_kernels(tconvs, fused, level_rb, level_coords, gen, torch.float32,
+                             stats)
 
         # the autograd wrapper's backward with window overflow and gating
         legacy4 = level_rb[4].legacy if isinstance(level_rb[4], SubmPlan) else level_rb[4]
@@ -583,87 +726,295 @@ def main() -> int:
         phase_done("7 K1/K2/K3 vs plain, training shapes")
 
         # ---- 8. one step's grads from the saved state: kernels vs plain
-        gmodel = build_model(dict(tcfg.model)).to(dev)
-        gmodel.load_state_dict(state)
-        gmodel.train()
-        plain_cores = {"band_fwd_core": bc.band_fwd_core_plain,
-                       "band_dxdw_core": bc.band_dxdw_core_plain,
-                       "band_dw_core": bc.band_dw_core_plain}
+        plain_cores = {name: getattr(bc, f"{name}_plain") for name in BAND_CORES}
+        reordered_cores = {"band_fwd_core": reordered_fwd,
+                           "band_dxdw_core": reordered_dxdw,
+                           "band_dw_core": reordered_dw}
 
-        def step_grads(plain):
-            saved = {name: getattr(bc, name) for name in plain_cores}
-            if plain:
-                for name, fn in plain_cores.items():
+        def step_grads(gmodel, inputs, cores=None):
+            saved = {name: getattr(bc, name) for name in BAND_CORES}
+            if cores:
+                for name, fn in cores.items():
                     setattr(bc, name, fn)
             try:
                 gmodel.zero_grad(set_to_none=True)
                 before = [k.launches for k in bc.KERNELS]
                 torch.cuda.synchronize()
                 t = time.perf_counter()
-                out = gmodel(b_inputs)
+                out = gmodel(inputs)
                 out["loss"].backward()
                 torch.cuda.synchronize()
                 secs = time.perf_counter() - t
                 launched = [k.launches - b for k, b in zip(bc.KERNELS, before)]
-                grads = {n: p.grad.detach().clone() for n, p in gmodel.named_parameters()}
+                grads = {n: p.grad.detach().clone() for n, p in gmodel.named_parameters()
+                         if p.grad is not None}
                 return float(out["loss"].detach()), grads, launched, secs
             finally:
                 for name, fn in saved.items():
                     setattr(bc, name, fn)
 
-        # two runs of each path: the step's grads are not bitwise reproducible
-        # (index_add_ and the backward of row gathers accumulate with
-        # atomics), and the deepest encoder convs' dW, summed over ~1M rows
-        # into a BN-centred cotangent, cancel to ~1e-4, so f32 order noise
-        # reaches ~1e-2 of their max|grad| between two runs of the SAME path.
-        # Each tensor is held to 1e-3 of its max|ref| plus 3x that measured
-        # run-to-run spread.
-        loss_k, grads_k, launched_k, secs_k = step_grads(False)
-        _, grads_k2, _, _ = step_grads(False)
-        loss_p, grads_p, launched_p, secs_p = step_grads(True)
-        _, grads_p2, _, _ = step_grads(True)
-        check(launched_k == per_step and launched_p == [0, 0, 0],
-              f"launches kernel path {launched_k}, plain path {launched_p}")
-        check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p),
-              f"loss kernel {loss_k} vs plain {loss_p}")
-        rows = []
-        for name, ref in grads_p.items():
-            scale = ref.abs().max().item()
-            err = (grads_k[name] - ref).abs().max().item()
-            spread = max((grads_p2[name] - ref).abs().max().item(),
-                         (grads_k2[name] - grads_k[name]).abs().max().item())
-            rows.append((err / max(scale, 1e-30), spread / max(scale, 1e-30), name))
-            check(err <= 1e-3 * scale + 3 * spread,
-                  f"grad {name}: err {err:.3e} > 1e-3 x {scale:.3e} + 3 x spread "
-                  f"{spread:.3e}")
-        rows.sort()
-        strict = sum(r[0] <= 1e-3 for r in rows)
-        print(f"[grad] one step from the trained state: loss kernel {loss_k:.7f} plain "
-              f"{loss_p:.7f}; {strict} of {len(rows)} grads within 1e-3 of their "
-              f"max|ref|; worst {rows[-1][2]} at {rows[-1][0]:.3e} (run-to-run "
-              f"spread {rows[-1][1]:.3e}); largest spread "
-              f"{max(r[1] for r in rows):.3e}; forward+backward {1e3 * secs_k:.1f} ms "
-              f"with the kernels, {1e3 * secs_p:.1f} ms plain")
-        for ratio, spread, name in rows[-5:]:
-            print(f"[grad]   {name}: kernel vs plain {ratio:.3e}, spread {spread:.3e} "
-                  "(of max|ref|)")
+        def grads_kernel_vs_plain(tag, gmodel, inputs, expect, loss_rel, grad_rel,
+                                  loss_spread, runs=2):
+            """``runs`` runs of each path, and one of the plain path summing
+            in another order (``reordered_fwd``): a step's grads are not bitwise
+            reproducible (index_add_ and the backward of row gathers
+            accumulate with atomics), the kernels sum in another order than
+            the plain versions, and the deepest encoder convs' dW, summed
+            over up to ~1M rows into a BN-centred cotangent, cancel, so
+            order noise reaches ~1e-2 of their max|grad| between two runs of
+            the SAME path. Each tensor is held to ``grad_rel`` of its
+            max|ref| plus 3x that measured spread (the largest difference
+            from the first run of its path: later runs of both paths, and
+            the reordered plain run); the loss to ``loss_rel`` (plus 3x
+            its spread if ``loss_spread``)."""
+            kern = [step_grads(gmodel, inputs) for _ in range(runs)]
+            plain = [step_grads(gmodel, inputs, plain_cores) for _ in range(runs)]
+            plain.append(step_grads(gmodel, inputs, reordered_cores))
+            (loss_k, grads_k, launched_k, secs_k), (loss_p, grads_p, launched_p, secs_p) = (
+                kern[0], plain[0])
+            check(launched_k == expect and launched_p == [0, 0, 0],
+                  f"{tag}: launches kernel path {launched_k}, plain path {launched_p}")
+            spread_l = max(abs(r[0] - first[0]) for first, rest in ((kern[0], kern[1:]),
+                                                                     (plain[0], plain[1:]))
+                           for r in rest)
+            check(abs(loss_k - loss_p) <= loss_rel * abs(loss_p)
+                  + (3 * spread_l if loss_spread else 0.0),
+                  f"{tag}: loss kernel {loss_k} vs plain {loss_p} (spread {spread_l})")
+            check(sorted(grads_k) == sorted(grads_p), f"{tag}: grads of other params")
+            rows = []
+            for name, ref in grads_p.items():
+                scale = ref.abs().max().item()
+                err = (grads_k[name] - ref).abs().max().item()
+                spread = max((r[1][name] - first[1][name]).abs().max().item()
+                             for first, rest in ((kern[0], kern[1:]), (plain[0], plain[1:]))
+                             for r in rest)
+                rows.append((err / max(scale, 1e-30), spread / max(scale, 1e-30), name))
+                check(err <= grad_rel * scale + 3 * spread,
+                      f"{tag}: grad {name}: err {err:.3e} > {grad_rel} x {scale:.3e} + "
+                      f"3 x spread {spread:.3e}")
+            rows.sort()
+            strict = sum(r[0] <= 1e-3 for r in rows)
+            print(f"[grad] {tag}: loss kernel {loss_k:.7f} plain {loss_p:.7f} (run-to-run "
+                  f"spread {spread_l:.3e}); {strict} of {len(rows)} grads within 1e-3 of "
+                  f"their max|ref|; worst {rows[-1][2]} at {rows[-1][0]:.3e} (run-to-run "
+                  f"spread {rows[-1][1]:.3e}); largest spread "
+                  f"{max(r[1] for r in rows):.3e}; forward+backward {1e3 * secs_k:.1f} ms "
+                  f"with the kernels, {1e3 * secs_p:.1f} ms plain")
+            for ratio, spread, name in rows[-5:]:
+                print(f"[grad]   {name}: kernel vs plain {ratio:.3e}, spread {spread:.3e} "
+                      "(of max|ref|)")
+
+        gmodel = build_model(dict(tcfg.model)).to(dev)
+        gmodel.load_state_dict(state)
+        gmodel.train()
+        grads_kernel_vs_plain("fine-tune step from the trained state", gmodel, b_inputs,
+                              per_step, 1e-5, 1e-3, False, runs=3)
+        del gmodel, state, b_inputs, level_rb, level_coords, st12
+        gc.collect()
+        torch.cuda.empty_cache()
         phase_done("8 grads kernel vs plain")
 
-        # ---- 9. output
-        print(f"[time] per training step at batch {tcfg.batch_size}: "
-              + "; ".join(f"{name} {s['ms']:.3f} ms vs plain {s['plain_ms']:.3f} ms"
-                          for name, s in stats.items()))
+        # ---- 9. the pretrain step: 3 steps of bench.py's workload
+        precords = {"steps": []}
+        pcfg = default_config_parser(PRETRAIN_CONFIG,
+                                     {"save_path": os.path.join(tmp, "pretrain")})
+        pcfg.seed = SEED
+        pcfg.device = "cuda"
+        pcfg.hooks = list(pcfg.hooks) + [dict(type=step_probe(precords))]
+        torch.cuda.reset_peak_memory_stats(dev)
+        for k in bc.KERNELS + wg.KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        trainer = train_main_worker(pcfg)
+        torch.cuda.synchronize()
+        pretrain_s = time.perf_counter() - t0
+        pretrain_launches = [k.launches for k in bc.KERNELS + wg.KERNELS]
+        pretrain_peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        psteps = precords["steps"]
+        p_inputs = {k: torch.as_tensor(v, device=dev)
+                    for k, v in split_batch(precords["batch"])[0].items()}
+        p_inputs.update(trainer.static_ctx)
+        st2, _ = maybe_sort_by_key(batch_to_sparse_tensor(p_inputs))
+        spunet = trainer.model.backbone
+        level_rb, level_coords, stem = level_plans(spunet, st2)
+        pconvs, pfused, p_step = band_routing(spunet, level_rb)
+        n_attached = sum(isinstance(rb, SubmPlan) and rb.band is not None
+                         for rb in level_rb)
+        live = int((p_inputs["batch"] >= 0).sum())
+        print(f"[pretrain] {len(psteps)} steps in {pretrain_s:.2f} s; launches (K1..K5) "
+              f"{pretrain_launches}; peak memory {pretrain_peak_gib:.3f} GiB")
+        print(f"[pretrain] routing at batch {pcfg.batch_size}: {sum(pconvs.values())} band "
+              f"convs per forward ({n_attached} of 5 levels with attached band plans), "
+              f"{p_step[1]} fused backward (K2), {p_step[2]} split (K1 + K3): launches "
+              f"per step {p_step}; {live} live rows of {st2.capacity}; stem route "
+              f"{'slab' if isinstance(stem, SubmPlan) else 'plain'}")
+        check(len(psteps) == len(trainer.train_loader) == 3, f"{len(psteps)} pretrain steps")
+        check(n_attached == 5, f"{n_attached} of 5 levels with attached band plans")
+        for i, m in enumerate(psteps):
+            print(f"[pretrain] step {i}: loss {m['loss']:.6f} lr {m['lr']:.6e} contract_ok "
+                  f"{m['contract_ok']} launches {m['launches']} "
+                  + " ".join(f"{k} {m[k]:.4f}" for k in pcfg.metric_keys if k in m))
+            check(np.isfinite(m["loss"]), f"pretrain step {i} loss {m['loss']}")
+            check(m["contract_ok"] == 1.0, f"pretrain step {i} contract_ok False")
+            check(m["lr"] == m["schedule_lr"], f"pretrain step {i} lr != schedule")
+            check(m["launches"] == p_step + [0, 0],
+                  f"pretrain step {i} launches {m['launches']} != routing {p_step}")
+        check(pretrain_launches == [3 * c for c in p_step] + [0, 0],
+              f"pretrain launches {pretrain_launches}")
+        ckpt = torch.load(os.path.join(pcfg.save_path, "model", "model_last.pth"),
+                          map_location="cpu", weights_only=True)
+        check(ckpt["step"] == 3, "pretrain checkpoint step")
+        batch_times = [v for v, _ in trainer.storage.history("batch_time").values()]
+        data_times = [v for v, _ in trainer.storage.history("data_time").values()]
+        pstep_times = [b - d for b, d in zip(batch_times, data_times)]
+        print(f"[time] pretrain step (host clock, batch to device .. metrics synced): "
+              f"{', '.join(f'{1e3 * t:.1f}' for t in pstep_times)} ms, median of the "
+              f"last 2 {1e3 * float(np.median(pstep_times[1:])):.1f} ms; data wait "
+              f"{', '.join(f'{1e3 * t:.1f}' for t in data_times)} ms")
+        print(f"[memory] pretrain peak {pretrain_peak_gib:.3f} GiB")
+        del trainer, ckpt
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_done("9 pretrain steps")
+
+        # ---- 10. K1, K2, K3 vs plain at the pretrain batch's shapes, timed in bf16
+        compare_band_kernels(pconvs, pfused, level_rb, level_coords, gen, torch.bfloat16,
+                             pstats)
+        phase_done("10 K1/K2/K3 vs plain, pretrain shapes")
+
+        # ---- 11. one pretrain step's grads: kernels vs plain, same draws,
+        # from the seeded initial state (the trained state of phase 9 has
+        # taken a step at the peak lr and is further from smooth)
+        gmodel = build_model(dict(pcfg.model))
+        gmodel.reset_parameters(torch.Generator().manual_seed(SEED))
+        gmodel.to(dev).train()
+        B, V, H, W = p_inputs["depth"].shape
+        draws = gmodel.draw_noise(torch.Generator(device=dev).manual_seed(SEED), B, V, H * W)
+        grads_kernel_vs_plain("pretrain step from the seeded state (bf16)", gmodel,
+                              {**p_inputs, "draws": draws}, p_step, 3e-2, 3e-2, True, runs=3)
+
+        del gmodel, draws
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_done("11 pretrain grads kernel vs plain")
+
+        # ---- 12. the windowed conv entry point (K4, K5): the probe's shapes
+        # and two rulebooks of the pretrain batch
+        check([k.launches for k in wg.KERNELS] == [0, 0],
+              "K4/K5 launched outside the windowed conv entry point")
+        cases = [(f"probe {label}", group, torch.from_numpy(rb).to(dev), cin, cout)
+                 for label, group, rb, cin, cout in probe.cases(np.random.RandomState(SEED))]
+        stem_rb = stem.legacy if isinstance(stem, SubmPlan) else stem
+        l0_rb = level_rb[0].legacy if isinstance(level_rb[0], SubmPlan) else level_rb[0]
+        cases += [("pretrain stem k5 6->32", 25, stem_rb.contiguous(), 6, 32),
+                  ("pretrain L0 k3 32->32", 9, l0_rb.contiguous(), 32, 32)]
+        inputs_w = [probe.case_inputs(rb, cin, cout, SEED + i, dev)
+                    for i, (_, _, rb, cin, cout) in enumerate(cases)]
+        bf16 = torch.bfloat16
+        for k in wg.KERNELS:
+            k.launches = 0
+        path = [probe.windowed_conv(rb, *inputs_w[i], probe.BLOCK, probe.WB, group, bf16)
+                for i, (_, group, rb, _, _) in enumerate(cases)]
+        torch.cuda.synchronize()
+        windowed_launches = [k.launches for k in wg.KERNELS]
+        check(windowed_launches == [len(cases)] * 2,
+              f"windowed conv launches {windowed_launches} for {len(cases)} convs")
+        for i, (label, group, rb, cin, cout) in enumerate(cases):
+            geom, out, dw = path[i]
+            feats, w, g = inputs_w[i]
+            _, out_p, dw_p = probe.windowed_conv(rb, feats, w, g, probe.BLOCK, probe.WB,
+                                                 group, bf16, plain=True)
+            _, out32, dw32 = probe.windowed_conv(rb, feats, w, g, probe.BLOCK, probe.WB,
+                                                 group, torch.float32)
+            _, out32p, dw32p = probe.windowed_conv(rb, feats, w, g, probe.BLOCK, probe.WB,
+                                                   group, torch.float32, plain=True)
+            torch.cuda.synchronize()
+            # the plain versions sum the same products (bf16 values, f32
+            # accumulation) in another order: 1e-4 of max(|ref|, 1) in both
+            errs = {}
+            for kname, o, r in (("windowed_conv_fwd", out, out_p),
+                                ("windowed_conv_dw", dw, dw_p),
+                                ("windowed_conv_fwd", out32, out32p),
+                                ("windowed_conv_dw", dw32, dw32p)):
+                e, sc = max_err(o, r)
+                check(e <= 1e-4 * max(sc, 1.0), f"{kname} {label}: err {e:.3e} at {sc:.3e}")
+                errs.setdefault(kname, []).append(e)
+            n = rb.shape[1]
+            f = wg.pad_features(feats, wg.padded_rows(n, probe.WB), bf16)
+            wc = w.to(bf16).contiguous()
+            gc_ = torch.zeros((geom.rbb.shape[1] * probe.BLOCK, cout), dtype=bf16,
+                              device=dev)
+            gc_[:n] = g.to(bf16)
+            calls = {
+                "windowed_conv_fwd": (
+                    lambda: wg.windowed_conv_fwd(f, geom, wc, probe.WB, group),
+                    lambda: wg.windowed_conv_fwd_plain(f, geom, wc, probe.WB, group),
+                    probe.bound_ms(geom, probe.WB, cin, cout, n, bf16, weights=True)),
+                "windowed_conv_dw": (
+                    lambda: wg.windowed_conv_dw(f, geom, gc_, probe.WB, group),
+                    lambda: wg.windowed_conv_dw_plain(f, geom, gc_, probe.WB, group),
+                    probe.bound_ms(geom, probe.WB, cin, cout, n, bf16, weights=False)),
+            }
+            line = []
+            for kname, (kern, plain, (b, term)) in calls.items():
+                t_k, t_p = cuda_ms(kern, 5), cuda_ms(plain, 3)
+                st = pstats[kname]
+                st["err_bf16"] = max(st["err_bf16"], errs[kname][0])
+                st["err"] = max(st["err"], errs[kname][1])
+                st["ms"] += t_k
+                st["plain_ms"] += t_p
+                st["bound_ms"] += b
+                st["bytes_ms" if term == "bytes" else "ops_ms"] += b
+                line.append(f"{'K4' if kname.endswith('fwd') else 'K5'} {t_k:.3f} ms vs "
+                            f"plain {t_p:.3f} ms (bound {b:.4f} ms, {term}), err bf16 "
+                            f"{errs[kname][0]:.2e} f32 {errs[kname][1]:.2e}")
+            print(f"[windowed] {label} ({n} rows, group {group}): covered "
+                  f"{bool(geom.covered)} (share {probe.covered_share(geom, probe.WB):.4f}, "
+                  f"{probe.live_entries(geom, probe.WB)} in-window entries); "
+                  + "; ".join(line))
+            del f, wc, gc_
+        del path, inputs_w, cases, level_rb, level_coords, stem
+        phase_done("12 windowed conv K4/K5")
+
+        # ---- 13. output
+        print(f"[time] per fine-tune step at batch {tcfg.batch_size} (f32): "
+              + "; ".join(f"{name} {stats[name]['ms']:.3f} ms vs plain "
+                          f"{stats[name]['plain_ms']:.3f} ms (bound "
+                          f"{stats[name]['bound_ms']:.3f} ms)" for name in BAND_CORES))
+        print(f"[time] per pretrain step at batch {pcfg.batch_size} (bf16): "
+              + "; ".join(f"{name} {pstats[name]['ms']:.3f} ms vs plain "
+                          f"{pstats[name]['plain_ms']:.3f} ms (bound "
+                          f"{pstats[name]['bound_ms']:.3f} ms)" for name in BAND_CORES))
         print(f"[time] phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
-        print(json.dumps({"kernels": [{
-            "name": name,
-            "route": "cuda",
-            "source": KERNEL_SOURCES[name][0],
-            "replaces": KERNEL_SOURCES[name][1],
-            "launches": launches,
-            "max_abs_err": stats[name]["err"],
-            "ms": stats[name]["ms"],
-            "plain_ms": stats[name]["plain_ms"],
-        } for name, launches in zip(KERNEL_SOURCES, train_launches)]}))
+
+        def entry(name, launches, st):
+            return {
+                "launches": launches,
+                "max_abs_err": st["err"],
+                "ms": st["ms"],
+                "plain_ms": st["plain_ms"],
+                "bound_ms": st["bound_ms"],
+                "bound_by": "bytes" if st["bytes_ms"] >= st["ops_ms"] else "operations",
+                "library_ms": None,
+            }
+
+        # the main path of K1-K3 is the pretrain step (bf16; launches over its
+        # 3 steps, times per step); the fine-tune step's numbers (f32) and the
+        # serving launches ride along. K4/K5: one run of the windowed conv
+        # entry point over its convs
+        main_launches = dict(zip(KERNEL_SOURCES, pretrain_launches[:3] + windowed_launches))
+        kernels = []
+        for name in KERNEL_SOURCES:
+            row = {"name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
+                   "replaces": KERNEL_SOURCES[name][1]}
+            row.update(entry(name, main_launches[name], pstats[name]))
+            row["max_abs_err_bf16"] = pstats[name]["err_bf16"]
+            if name in BAND_CORES:
+                i = BAND_CORES.index(name)
+                row["fine_tune"] = entry(name, train_launches[i], stats[name])
+                row["serving_launches"] = serve_launches[i]
+            kernels.append(row)
+        print(json.dumps({"kernels": kernels}))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,7 @@
 // 128-1024 B rows, served mostly by L2 because rows of nearby outputs are
 // nearby in the key-sorted input) and the CUDA-core FMA rate: this first
 // version uses no tensor cores. Design: one CTA per 64 output rows x 64
-// output channels (band_conv_tile.cuh:fwd_tile).
+// output channels (band_conv_tile.cuh:fwd_tile over BandRows).
 //
 // Plain C interface for ctypes: every launcher returns the cudaError_t of
 // cudaGetLastError() right after the launch.
@@ -34,8 +34,9 @@ band_fwd_kernel(const T* __restrict__ feats, const int* __restrict__ rbt,
                 const int* __restrict__ w0, const T* __restrict__ wts,
                 float* __restrict__ out, int n, int cin, int cout, int k3,
                 int kz, int nblocks, int block, int window) {
-  band::fwd_tile<T>(feats, rbt, w0, wts, out, n, cin, cout, k3, kz, nblocks,
-                    block, window, blockIdx.x * band::BM, blockIdx.y * band::BN);
+  const band::BandRows rows{rbt, w0, n, k3, kz, nblocks, block, window};
+  band::fwd_tile<T>(feats, rows, wts, out, n, cin, cout, k3,
+                    blockIdx.x * band::BM, blockIdx.y * band::BN);
 }
 
 template <typename T>

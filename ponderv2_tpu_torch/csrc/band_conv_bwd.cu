@@ -5,7 +5,7 @@
 // (K2, the fused backward, call at :478) and :_dw_kernel (K3, the split dW,
 // call at :510). With the subm tap symmetry (tap t on outputs is tap
 // mirror(t) = k3-1-t on inputs) both are sums over the same in-window
-// entries (i, t), j = rbt[i, t], as K1 (band_conv_tile.cuh:window_row):
+// entries (i, t), j = rbt[i, t], as K1 (band_conv_tile.cuh:BandRows):
 //
 //     dx[i]  += g[j] @ Wm[t]            Wm[t] = W[mirror t]^T  (K2 only)
 //     dwr[t] += f[i]^T g[j]             dwr[t] = dW[mirror t]  (K2 and K3)
@@ -17,7 +17,7 @@
 // accumulator. Here blocks run in parallel, so dW is a two-pass reduction:
 // each dW CTA owns (row chunk s, tap t, 64 input x 64 output channels),
 // accumulates over its chunk's rows in registers, and writes a partial to
-// (S, k3, cin, cout) f32 scratch; band_dw_reduce sums the S partials. No
+// (S, k3, cin, cout) f32 scratch; reduce_partials sums the S partials. No
 // atomics, so dW is deterministic. The TPU fused dx and dW into one kernel
 // so that one one-hot extraction of g served both; on Hopper a gather is a
 // direct read, so K2 is one launch whose CTAs split into two ranges: the
@@ -42,87 +42,6 @@ using band::BM;
 using band::BN;
 using band::THREADS;
 
-// part[ci0 : ci0 + 64, co0 : co0 + 64] = sum over rows i in [r_begin, r_end)
-// of f[i]^T g[rbt[i, t]] (in-window entries), staged 32 rows at a time.
-template <typename T>
-__device__ __forceinline__ void dw_tile(
-    const T* __restrict__ f, const T* __restrict__ g,
-    const int* __restrict__ rbt, const int* __restrict__ w0,
-    float* __restrict__ part, int n, int cin, int cout, int k3, int kz,
-    int nblocks, int block, int window, int t, int ci0, int co0, int r_begin,
-    int r_end) {
-  __shared__ float Fs[BK][BM];  // feature rows, row-major
-  __shared__ float Gs[BK][BN];  // gathered cotangent rows
-  __shared__ int rows[BK];      // cotangent row per feature row, -1 = none
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-
-  for (int r0 = r_begin; r0 < r_end; r0 += BK) {
-    int live = 0;
-    if (tid < BK) {
-      const int i = r0 + tid;
-      const int j = i < r_end ? band::window_row(rbt, w0, i, t, n, k3, kz,
-                                                 nblocks, block, window)
-                              : -1;
-      rows[tid] = j;
-      live = j >= 0;
-    }
-    // uniform across the CTA: skip 32-row steps with no live entry
-    if (!__syncthreads_or(live)) continue;
-
-    for (int e = tid; e < BK * BM; e += THREADS) {
-      const int r = e / BM;
-      const int c = e % BM;
-      float v = 0.f;
-      if (rows[r] >= 0 && ci0 + c < cin)
-        v = band::to_float(f[(size_t)(r0 + r) * cin + ci0 + c]);
-      Fs[r][c] = v;
-    }
-    for (int e = tid; e < BK * BN; e += THREADS) {
-      const int r = e / BN;
-      const int c = e % BN;
-      const int j = rows[r];
-      float v = 0.f;
-      if (j >= 0 && co0 + c < cout)
-        v = band::to_float(g[(size_t)j * cout + co0 + c]);
-      Gs[r][c] = v;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int r = 0; r < BK; ++r) {
-      float a[4], b[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) a[q] = Fs[r][ty + 16 * q];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) b[q] = Gs[r][tx + 16 * q];
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[p][q] = fmaf(a[p], b[q], acc[p][q]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int ci = ci0 + ty + 16 * p;
-    if (ci >= cin) continue;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int co = co0 + tx + 16 * q;
-      if (co < cout) part[(size_t)ci * cout + co] = acc[p][q];
-    }
-  }
-}
-
 // dW CTA number b of nchunks * k3 * ceil(cin / 64) * ceil(cout / 64):
 // consecutive CTAs share (s, t) and so read the same g rows from L2.
 template <typename T>
@@ -141,9 +60,10 @@ __device__ __forceinline__ void dw_cta(
   const int s = b / k3;
   const int r_begin = s * chunk;
   const int r_end = min(n, r_begin + chunk);
-  dw_tile<T>(f, g, rbt, w0, partial + ((size_t)s * k3 + t) * cin * cout, n, cin,
-             cout, k3, kz, nblocks, block, window, t, tci * BM, tco * BN,
-             r_begin, r_end);
+  const band::BandRows rows{rbt, w0, n, k3, kz, nblocks, block, window};
+  band::dw_tile<T, false>(f, g, rows,
+                          partial + ((size_t)s * k3 + t) * cin * cout, cin,
+                          cout, t, tci * BM, tco * BN, r_begin, r_end);
 }
 
 template <typename T>
@@ -169,33 +89,19 @@ band_dxdw_kernel(const T* __restrict__ g, const T* __restrict__ f,
   const int ndx = ((n + BM - 1) / BM) * dx_cols;
   const int b = blockIdx.x;
   if (b < ndx) {
-    band::fwd_tile<T>(g, rbt, w0, wmt, dx, n, cout, cin, k3, kz, nblocks, block,
-                      window, (b / dx_cols) * BM, (b % dx_cols) * BN);
+    const band::BandRows rows{rbt, w0, n, k3, kz, nblocks, block, window};
+    band::fwd_tile<T>(g, rows, wmt, dx, n, cout, cin, k3, (b / dx_cols) * BM,
+                      (b % dx_cols) * BN);
   } else {
     dw_cta<T>(f, g, rbt, w0, partial, n, cin, cout, k3, kz, nblocks, block,
               window, chunk, b - ndx);
   }
 }
 
-// dwr[e] = sum_s partial[s, e] over the nchunks partials, in chunk order.
-__global__ void __launch_bounds__(THREADS)
-band_dw_reduce(const float* __restrict__ partial, float* __restrict__ dwr,
-               long long total, int nchunks) {
-  for (long long e = (long long)blockIdx.x * THREADS + threadIdx.x; e < total;
-       e += (long long)gridDim.x * THREADS) {
-    float s = 0.f;
-    for (int c = 0; c < nchunks; ++c) s += partial[(size_t)c * total + e];
-    dwr[e] = s;
-  }
-}
-
 int reduce(const float* partial, float* dwr, int k3, int cin, int cout,
            int nchunks, cudaStream_t stream) {
-  const long long total = (long long)k3 * cin * cout;
-  const long long want = (total + THREADS - 1) / THREADS;
-  const int grid = (int)(want < 65535 ? want : 65535);
-  band_dw_reduce<<<grid, THREADS, 0, stream>>>(partial, dwr, total, nchunks);
-  return static_cast<int>(cudaGetLastError());
+  return band::launch_reduce(partial, dwr, (long long)k3 * cin * cout, nchunks,
+                             stream);
 }
 
 long long dw_ctas(int cin, int cout, int k3, int nchunks) {

@@ -1,8 +1,10 @@
-"""SyntheticDataset: procedurally generated scenes, no disk assets.
+"""SyntheticDataset and SyntheticRGBDDataset: procedurally generated
+scenes (with RGB-D views for pretraining), no disk assets.
 
-A copy of ``SyntheticDataset`` from ``ponderv2_tpu/datasets/defaults.py``
-with only the import lines changed (see ``transform.py`` for why it is a
-copy).
+Copies of ``SyntheticDataset``, ``_lookat_world2cam`` and
+``SyntheticRGBDDataset`` from ``ponderv2_tpu/datasets/defaults.py`` with
+only the import lines changed (see ``transform.py`` for why they are
+copies).
 """
 
 from __future__ import annotations
@@ -115,3 +117,89 @@ class SyntheticDataset:
 
     def __len__(self):
         return self.num_scenes * self.loop
+
+
+def _lookat_world2cam(eye, target, up=(0.0, 0.0, 1.0)):
+    """CV-convention world->cam: x right, y down, z forward."""
+    eye = np.asarray(eye, np.float64)
+    fwd = np.asarray(target, np.float64) - eye
+    fwd /= np.linalg.norm(fwd) + 1e-12
+    right = np.cross(fwd, np.asarray(up, np.float64))
+    if np.linalg.norm(right) < 1e-6:
+        right = np.array([1.0, 0.0, 0.0])
+    right /= np.linalg.norm(right) + 1e-12
+    down = np.cross(fwd, right)
+    R = np.stack([right, down, fwd], axis=0)
+    t = -R @ eye
+    E = np.eye(4)
+    E[:3, :3] = R
+    E[:3, 3] = t
+    return E.astype(np.float32)
+
+
+@DATASETS.register_module()
+class SyntheticRGBDDataset(SyntheticDataset):
+    """Synthetic scenes + geometrically consistent RGB-D views for pretraining.
+
+    Views are rendered by z-buffered point projection (nearest point wins), so
+    depth/color/semantic images agree exactly with the point cloud — enough to
+    validate the whole render-pretraining path without disk assets. Mirrors the
+    data contract of ScanNetRGBDDataset (reference ponder/datasets/scannet.py:
+    212-599): per scene ``rgb/depth/semantic2d (V,H,W[,3])``, ``intrinsic
+    (V,3,3)``, ``extrinsic (V,4,4)`` world2cam.
+    """
+
+    def __init__(self, num_cameras: int = 3, image_size: int = 48,
+                 render_semantic: bool = True, **kwargs):
+        super().__init__(**kwargs)
+        self.num_cameras = num_cameras
+        self.image_size = image_size
+        self.render_semantic = render_semantic
+
+    def make_scene(self, idx):
+        data = super().make_scene(idx)
+        rng = np.random.RandomState(self.seed + 10000 + idx % self.num_scenes)
+        coord, color, segment = data["coord"], data["color"], data["segment"]
+        center = (coord.min(0) + coord.max(0)) / 2
+        radius = np.linalg.norm(coord.max(0) - coord.min(0)) / 2
+        H = W = self.image_size
+        f = 0.8 * W
+        K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+
+        rgbs, depths, sems, intrs, extrs = [], [], [], [], []
+        for v in range(self.num_cameras):
+            ang = rng.uniform(0, 2 * np.pi)
+            eye = center + np.array(
+                [np.cos(ang) * radius * 1.2, np.sin(ang) * radius * 1.2,
+                 rng.uniform(0.5, 1.5)]
+            )
+            E = _lookat_world2cam(eye, center)
+            cam = coord @ E[:3, :3].T + E[:3, 3]
+            z = cam[:, 2]
+            valid = z > 0.05
+            u = np.round(K[0, 0] * cam[:, 0] / np.maximum(z, 1e-6) + K[0, 2]).astype(int)
+            vv = np.round(K[1, 1] * cam[:, 1] / np.maximum(z, 1e-6) + K[1, 2]).astype(int)
+            valid &= (u >= 0) & (u < W) & (vv >= 0) & (vv < H)
+            order = np.argsort(-z)  # far first; near overwrites
+            ui, vi, zi = u[order][valid[order]], vv[order][valid[order]], z[order][valid[order]]
+            ci = color[order][valid[order]]
+            si = segment[order][valid[order]]
+            depth = np.zeros((H, W), np.float32)
+            rgb = np.zeros((H, W, 3), np.float32)
+            sem = np.full((H, W), -1, np.int64)
+            depth[vi, ui] = zi
+            rgb[vi, ui] = ci
+            sem[vi, ui] = si
+            rgbs.append(rgb)
+            depths.append(depth)
+            sems.append(sem)
+            intrs.append(K)
+            extrs.append(E)
+
+        data["rgb"] = np.stack(rgbs)
+        data["depth"] = np.stack(depths)
+        if self.render_semantic:
+            data["semantic2d"] = np.stack(sems)
+        data["intrinsic"] = np.stack(intrs)
+        data["extrinsic"] = np.stack(extrs)
+        return data

@@ -24,13 +24,13 @@ from ..utils import comm
 from ..utils.logger import get_root_logger
 from ..utils.misc import AverageMeter, intersection_and_union
 from ..utils.registry import Registry
-from .common import split_batch
+from .common import resolve_device, split_batch
 
 TESTERS = Registry("testers")
 
 
 class TesterBase:
-    """Runs on ``cfg.device``, else on CUDA when present. Weights come from
+    """Runs on ``cfg.device``, else on CUDA (raising without it). Weights come from
     ``cfg.weight``: a file holding the port's ``state_dict`` (or a dict with
     it under ``state_dict``), e.g. written from a JAX checkpoint through
     ``utils.convert.state_dict_from_jax_spunet``."""
@@ -41,8 +41,7 @@ class TesterBase:
             if cfg.get("save_path") else None
         )
         self.cfg = cfg
-        self.device = torch.device(cfg.get("device") or (
-            "cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = resolve_device(cfg)
         self.model = self.build_model().to(self.device).eval()
         self.test_dataset = self.build_test_dataset()
         self.static_ctx = dict(

@@ -5,9 +5,11 @@ Counterpart of ``ponderv2_tpu/engines/train.py`` (``TrainerBase``,
 function of its TrainState; here the state is the model (parameters and BN
 running stats), the ``torch.optim`` optimizer and the step count, and
 ``run_step`` is: batch to the device, forward, ``loss.backward()``,
-``optimizer.step()`` at ``schedule(step)``, ``zero_grad``. Not ported yet:
-the data-parallel mesh branch, the host plan prefetch
-(``engines/plan_prefetch.py``) and ``MultiDatasetTrainer``.
+``optimizer.step()`` at ``schedule(step)``, ``zero_grad``. Conv plans are
+built on the device inside the step; a config's ``host_plans`` key is
+accepted and has no effect. Not ported yet: the data-parallel mesh branch,
+the host plan prefetch (``engines/plan_prefetch.py``) and
+``MultiDatasetTrainer``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from ..utils.logger import get_root_logger
 from ..utils.optimizer import build_optimizer, set_lr
 from ..utils.registry import Registry
 from ..utils.scheduler import build_scheduler
-from .common import split_batch
+from .common import resolve_device, split_batch
 
 TRAINERS = Registry("trainers")
 
@@ -90,13 +92,14 @@ class TrainerBase:
 
 @TRAINERS.register_module("Trainer")
 class Trainer(TrainerBase):
-    """Runs on ``cfg.device``, else on CUDA when present. Parameters are
+    """Runs on ``cfg.device``, else on CUDA (raising without it). Parameters are
     initialized from ``cfg.seed`` (``reset_parameters``); a ``weight``
     checkpoint replaces them through the ``CheckpointLoader`` hook."""
 
     def __init__(self, cfg: Config):
         super().__init__()
         self.cfg = cfg
+        self.device = resolve_device(cfg)
         self.max_epoch = cfg.eval_epoch  # loop-rebased epochs (engines/defaults.py)
         self.best_metric_value = -float("inf")
         self.logger = get_root_logger(
@@ -104,8 +107,6 @@ class Trainer(TrainerBase):
         )
         self.logger.info(f"Save path: {cfg.get('save_path')}")
         self.logger.info(f"Config:\n{cfg.pretty_text}")
-        self.device = torch.device(cfg.get("device") or (
-            "cuda" if torch.cuda.is_available() else "cpu"))
 
         self.logger.info("=> Building model ...")
         self.model = build_model(dict(cfg.model))
@@ -179,12 +180,20 @@ class Trainer(TrainerBase):
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                 for k, v in arrays.items()}
 
+    def step_generator(self) -> torch.Generator:
+        """The generator of this step's random draws (ray picks, sampler
+        jitter, mask salt), seeded from ``cfg.seed`` and the step, as the JAX
+        step folds the step into its key. Models without draws ignore it."""
+        seed = (int(self.cfg.get("seed") or 0) << 32) | self.step
+        return torch.Generator(device=self.device).manual_seed(seed)
+
     def run_step(self):
         inputs = self._to_device(self.comm_info["input_dict"])
         lr = float(self.schedule(self.step))
         set_lr(self.optimizer, lr)
         self.model.train()
-        out = self.model({**inputs, **self.static_ctx})
+        out = self.model({**inputs, **self.static_ctx,
+                          "generator": self.step_generator()})
         out["loss"].backward()
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
@@ -197,10 +206,12 @@ class Trainer(TrainerBase):
         self.comm_info["metrics"] = metrics
 
     def eval_step(self, input_dict) -> Dict[str, torch.Tensor]:
-        """Eval-mode forward of one val batch (BN on its running stats)."""
+        """Eval-mode forward of one val batch (BN on its running stats).
+        ``no_grad`` and not ``inference_mode``: a render field takes the
+        sdf's spatial gradient at eval too."""
         inputs = self._to_device(input_dict)
         self.model.eval()
-        with torch.inference_mode():
+        with torch.no_grad():
             return self.model({**inputs, **self.val_static_ctx})
 
     def sync_metrics(self) -> Dict[str, float]:

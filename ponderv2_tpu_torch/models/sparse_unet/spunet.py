@@ -20,6 +20,7 @@ from torch import nn
 
 from ...ops.sparse import SparseTensor
 from ...ops.spconv import StridedPlan, plan_contract_flags
+from ...utils.misc import as_dtype
 from ..builder import MODELS
 from ..norm import MaskedBatchNorm
 from .layers import InverseConv, StridedConv, SubMConv
@@ -121,7 +122,7 @@ class SpUNet(nn.Module):
         self.capacities = tuple(capacities) if capacities is not None else None
         num_stages = len(layers) // 2
         self.num_stages = num_stages
-        eps, mom, cdt = bn_eps, bn_momentum, compute_dtype
+        eps, mom, cdt = bn_eps, bn_momentum, as_dtype(compute_dtype)
 
         self.conv_input = ConvBNRelu(
             SubMConv(in_channels, base_channels, 5, cdt),

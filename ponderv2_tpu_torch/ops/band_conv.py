@@ -304,15 +304,16 @@ def band_fwd_core(features: torch.Tensor, rbt: torch.Tensor, w0: torch.Tensor,
 def band_fwd_core_plain(features: torch.Tensor, rbt: torch.Tensor,
                         w0: torch.Tensor, weights: torch.Tensor, kz: int,
                         block: int, window: int) -> torch.Tensor:
-    """Plain PyTorch version of K1: per tap, a masked row gather and a matmul.
-    The loop keeps the transient at (N, Cin); a batched gather over all taps
+    """Plain PyTorch version of K1: per tap, a masked row gather and a matmul
+    of the compute-dtype values in f32, as K1 multiplies and sums them. The
+    loop keeps the transient at (N, Cin); a batched gather over all taps
     would materialize 27 x N x Cin."""
     n = features.shape[0]
     k3, _, cout = weights.shape
+    wf = weights.float()
     out = torch.zeros((n, cout), dtype=torch.float32, device=features.device)
     for t in range(k3):
-        rows = _tap_rows(features, rbt, w0, t, n, kz, block, window)
-        out += (rows @ weights[t]).float()
+        out += _tap_rows(features, rbt, w0, t, n, kz, block, window).float() @ wf[t]
     return out
 
 
@@ -377,15 +378,16 @@ def band_dxdw_core_plain(g: torch.Tensor, features: torch.Tensor,
                          w_mirT: torch.Tensor, kz: int, block: int,
                          window: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K2: per tap, one masked gather of ``g``
-    through ``rbt`` serves both matmuls."""
+    through ``rbt`` serves both matmuls, in f32 as in K2."""
     n, cin = features.shape
     k3, cout, _ = w_mirT.shape
+    ff, wf = features.float(), w_mirT.float()
     dx = torch.zeros((n, cin), dtype=torch.float32, device=g.device)
     dwr = torch.empty((k3, cin, cout), dtype=torch.float32, device=g.device)
     for t in range(k3):
-        rows = _tap_rows(g, rbt, w0, t, n, kz, block, window)
-        dx += (rows @ w_mirT[t]).float()
-        dwr[t] = (features.T @ rows).float()
+        rows = _tap_rows(g, rbt, w0, t, n, kz, block, window).float()
+        dx += rows @ wf[t]
+        dwr[t] = ff.T @ rows
     return dx, dwr
 
 
@@ -423,13 +425,13 @@ def band_dw_core_plain(features: torch.Tensor, g: torch.Tensor,
                        rbt: torch.Tensor, w0: torch.Tensor, kz: int, block: int,
                        window: int) -> torch.Tensor:
     """Plain PyTorch version of K3: per tap, a masked gather of ``g`` and one
-    TN matmul."""
+    TN matmul, in f32 as in K3."""
     n, cin = features.shape
     k3, cout = rbt.shape[1], g.shape[1]
+    ff = features.float()
     dwr = torch.empty((k3, cin, cout), dtype=torch.float32, device=g.device)
     for t in range(k3):
-        dwr[t] = (features.T @ _tap_rows(g, rbt, w0, t, n, kz, block,
-                                         window)).float()
+        dwr[t] = ff.T @ _tap_rows(g, rbt, w0, t, n, kz, block, window).float()
     return dwr
 
 

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 class AverageMeter:
@@ -49,3 +50,14 @@ def intersection_and_union(
     area_target, _ = np.histogram(target, bins=np.arange(num_classes + 1))
     area_union = area_output + area_target - area_intersection
     return area_intersection, area_union, area_target
+
+
+def as_dtype(dtype):
+    """A config's compute dtype: None, a ``torch.dtype``, or its name
+    (``"bfloat16"``), so configs name it without importing a framework."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    out = getattr(torch, str(dtype), None)
+    if not isinstance(out, torch.dtype):
+        raise ValueError(f"unknown dtype {dtype!r}")
+    return out

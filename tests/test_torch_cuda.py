@@ -1,5 +1,5 @@
-"""The CUDA band conv kernels (K1, K2, K3) against their plain PyTorch
-versions, on a GPU.
+"""The CUDA band conv kernels (K1, K2, K3) and windowed gather-GEMM kernels
+(K4, K5) against their plain PyTorch versions, on a GPU.
 
 Marked ``requires_cuda``: each test skips where there is no CUDA device (the
 kernel has no CPU or interpret mode). The file imports no JAX, so it also
@@ -9,10 +9,12 @@ runs on a machine without it:
 
 The f32 comparisons run with TF32 off; the kernel and the plain version sum
 the same f32 products in another order, hence the 1e-5 relative bound. bf16
-inputs accumulate in f32 in the kernel while the plain version rounds each
-tap's product to bf16: 3e-2 of max|ref| (the bound bench.py:227 uses).
+inputs are multiplied and summed in f32 by both, in another order; they are
+held to 3e-2 of max|ref| (the bound bench.py:227 uses).
 dW is reduced over row chunks in a fixed order (no atomics), so K2/K3 are
-deterministic; their bounds are K1's, for the same reasons.
+deterministic; their bounds are K1's, for the same reasons. K4/K5's plain
+versions multiply the same bf16 values in f32, as the kernels do, so both
+dtypes are held to 1e-5; K5 is deterministic too.
 """
 
 import numpy as np
@@ -21,6 +23,7 @@ import torch
 
 from ponderv2_tpu_torch.models import build_model
 from ponderv2_tpu_torch.ops import band_conv as bc
+from ponderv2_tpu_torch.ops import windowed_gather as wg
 from ponderv2_tpu_torch.ops.spconv import apply_sparse_conv, build_subm_rulebook
 
 pytestmark = pytest.mark.requires_cuda
@@ -192,3 +195,62 @@ def test_segmentor_cuda_matches_cpu(cuda):
     assert bc.BAND_FWD.launches - before == 16
     assert bool(gpu["contract_ok"]) and bool(ref["contract_ok"])
     assert _rel_err(gpu["seg_logits"].cpu(), ref["seg_logits"]) <= 1e-4
+
+
+def _monotone_rulebook(n, k3, group, spread, seed=0):
+    """Group-coherent per-tap shifts, as sorted rulebooks have; 30% absent."""
+    rng = np.random.RandomState(seed)
+    rbs = []
+    for t in range(k3):
+        shift = rng.randint(-spread, spread) if t % group == 0 else shift
+        idx = np.arange(n) + shift + t % group * 3 + rng.randint(-8, 8, n)
+        idx = np.clip(np.sort(idx), 0, n - 1)
+        rbs.append(np.where(rng.rand(n) < 0.3, -1, idx))
+    return torch.from_numpy(np.stack(rbs).astype(np.int32))
+
+
+@pytest.mark.parametrize("k3,cin,cout,group", [(27, 32, 32, 9), (27, 70, 130, 9),
+                                               (125, 6, 32, 25)])
+@pytest.mark.parametrize("block,wb", [(64, 256), (128, 32)], ids=["covered", "uncovered"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_k5_match_plain(cuda, k3, cin, cout, group, block, wb, dtype):
+    n = 3000
+    rb = _monotone_rulebook(n, k3, group, 40).to(cuda)
+    geom = wg.prepare_geometry(rb, n, block, wb, group)
+    assert bool(geom.covered) == (wb == 256)
+    gen = torch.Generator(device=cuda).manual_seed(cin * cout)
+    f = wg.pad_features(torch.randn(n, cin, device=cuda, generator=gen),
+                        wg.padded_rows(n, wb), dtype)
+    w = (torch.randn(k3, cin, cout, device=cuda, generator=gen) / cin ** 0.5).to(dtype)
+    g = torch.randn(geom.rbb.shape[1] * block, cout, device=cuda, generator=gen).to(dtype)
+    before = (wg.WINDOWED_FWD.launches, wg.WINDOWED_DW.launches)
+    out = wg.windowed_conv_fwd(f, geom, w, wb, group)
+    dw = wg.windowed_conv_dw(f, geom, g, wb, group)
+    assert (wg.WINDOWED_FWD.launches, wg.WINDOWED_DW.launches) == (before[0] + 1,
+                                                                  before[1] + 1)
+    ref = wg.windowed_conv_fwd_plain(f, geom, w, wb, group)
+    rdw = wg.windowed_conv_dw_plain(f, geom, g, wb, group)
+    torch.cuda.synchronize()
+    assert out.dtype == dw.dtype == torch.float32
+    assert out.shape == ref.shape and dw.shape == rdw.shape
+    assert _rel_err(out, ref) <= 1e-5 and _rel_err(dw, rdw) <= 1e-5
+    assert torch.equal(wg.windowed_conv_dw(f, geom, g, wb, group), dw)
+
+
+def test_k4_k5_reject_bad_input(cuda):
+    n, wb, group = 500, 64, 9
+    rb = _monotone_rulebook(n, 27, group, 10).to(cuda)
+    geom = wg.prepare_geometry(rb, n, 64, wb, group)
+    f = wg.pad_features(torch.randn(n, 8, device=cuda), wg.padded_rows(n, wb),
+                        torch.float32)
+    w = torch.randn(27, 8, 4, device=cuda)
+    before = (wg.WINDOWED_FWD.launches, wg.WINDOWED_DW.launches)
+    with pytest.raises(TypeError):
+        wg.windowed_conv_fwd(f.half(), geom, w.half(), wb, group)
+    with pytest.raises(ValueError):
+        wg.windowed_conv_fwd(f[:-1], geom, w, wb, group)
+    with pytest.raises(ValueError):
+        wg.windowed_conv_fwd(f, geom, w[:, :4], wb, group)
+    with pytest.raises(ValueError):
+        wg.windowed_conv_dw(f, geom, torch.randn(7, 4, device=cuda), wb, group)
+    assert (wg.WINDOWED_FWD.launches, wg.WINDOWED_DW.launches) == before

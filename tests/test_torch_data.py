@@ -152,12 +152,16 @@ class TestTrainDataPath:
         import inspect
 
         import ponderv2_tpu.datasets.dataloader as jdl
+        import ponderv2_tpu.datasets.defaults as jdef
         import ponderv2_tpu.datasets.transform as jtr
+        import ponderv2_tpu.utils.clip_text as jclip
         import ponderv2_tpu.utils.env as jenv
         import ponderv2_tpu.utils.events as jev
         import ponderv2_tpu.utils.timer as jtm
         import ponderv2_tpu_torch.datasets.dataloader as tdl
+        import ponderv2_tpu_torch.datasets.defaults as tdef
         import ponderv2_tpu_torch.datasets.transform as ttr
+        import ponderv2_tpu_torch.utils.clip_text as tclip
         import ponderv2_tpu_torch.utils.env as tenv
         import ponderv2_tpu_torch.utils.events as tev
         import ponderv2_tpu_torch.utils.timer as ttm
@@ -173,6 +177,10 @@ class TestTrainDataPath:
                         "EventWriter", "JSONWriter", "TensorboardWriter",
                         "CommonMetricPrinter"]),
             (jtm, ttm, ["Timer"]),
+            # the pretrain slice
+            (jdef, tdef, ["_lookat_world2cam", "SyntheticRGBDDataset"]),
+            (jclip, tclip, ["_fallback_embeddings", "_find_committed_asset",
+                            "get_text_embeddings"]),
         ]
         for jmod, tmod, names in copies:
             for name in names:
@@ -285,8 +293,12 @@ import ponderv2_tpu_torch.engines.test
 import ponderv2_tpu_torch.engines.hooks
 import ponderv2_tpu_torch.engines.train
 import ponderv2_tpu_torch.ops.band_conv
+import ponderv2_tpu_torch.ops.windowed_gather
+import ponderv2_tpu_torch.models.ponder.ponder_indoor
+import ponderv2_tpu_torch.utils.clip_text
 import ponderv2_tpu_torch.utils.convert
-import chip_smoke, test_torch, train_torch
+sys.path.insert(0, root + "/tools/experiments")
+import chip_smoke, probe_windowed_torch, test_torch, train_torch
 from ponderv2_tpu_torch.datasets import build_dataset, collate_fn
 from ponderv2_tpu_torch.models import build_model
 from ponderv2_tpu_torch.utils.config import Config
@@ -304,15 +316,32 @@ with torch.inference_mode():
     out = model({**inputs, "spatial_shape": tuple(cfg.sparse_shape), "batch_size": 1})
 assert out["seg_logits"].shape == (2048, 20)
 assert bool(torch.isfinite(out["seg_logits"]).all()) and bool(out["contract_ok"])
+
+# the pretrain slice: its configs load, and a PonderIndoor-v2 training
+# forward and backward run on the CPU
+bench = Config.fromfile(root + "/configs/_test_/pretrain_bench_torch.py")
+assert bench.model.backbone.compute_dtype == "bfloat16"
+pcfg = Config.fromfile(root + "/configs/_test_/pretrain_synthetic.py")
+ds = build_dataset(dict(pcfg.data.train))
+pb = collate_fn([ds[0], ds[1]], point_budget=pcfg.point_budget, scene_budget=2)
+pmodel = build_model(dict(pcfg.model)).train()
+pout = pmodel({**{k: torch.as_tensor(v) for k, v in pb.items() if isinstance(v, np.ndarray)},
+               "spatial_shape": tuple(pcfg.sparse_shape), "batch_size": 2,
+               "generator": torch.Generator().manual_seed(0)})
+pout["loss"].backward()
+assert bool(torch.isfinite(pout["loss"])) and bool(pout["contract_ok"])
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("NO_JAX_OK")
 """
 
 
 def test_port_imports_and_runs_without_jax():
-    """``ponderv2_tpu_torch``, ``chip_smoke.py``, ``tools/test_torch.py`` and
-    ``tools/train_torch.py`` import, and a CPU forward runs, with jax/jaxlib/flax/optax/ponderv2_tpu
-    blocked; no port source names them in an import statement."""
+    """``ponderv2_tpu_torch``, ``chip_smoke.py``, ``tools/test_torch.py``,
+    ``tools/train_torch.py`` and ``tools/experiments/probe_windowed_torch.py``
+    import, the pretrain configs load, and a segmentor forward and a
+    PonderIndoor-v2 training step's forward and backward run on the CPU,
+    with jax/jaxlib/flax/optax/ponderv2_tpu blocked; no port source names
+    them in an import statement."""
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT_CHECK, ROOT],
         capture_output=True, text=True, timeout=300, cwd=ROOT)
@@ -321,7 +350,10 @@ def test_port_imports_and_runs_without_jax():
     pattern = re.compile(r"^\s*(import|from) (jax|jaxlib|flax|optax|ponderv2_tpu)\b")
     sources = [os.path.join(ROOT, "chip_smoke.py"),
                os.path.join(ROOT, "tools", "test_torch.py"),
-               os.path.join(ROOT, "tools", "train_torch.py")]
+               os.path.join(ROOT, "tools", "train_torch.py"),
+               os.path.join(ROOT, "tools", "experiments", "probe_windowed_torch.py"),
+               os.path.join(ROOT, "tools", "profile_pretrain_torch.py"),
+               os.path.join(ROOT, "configs", "_test_", "pretrain_bench_torch.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "ponderv2_tpu_torch")):
         sources += [os.path.join(d, f) for f in files if f.endswith(".py")]
     for path in sources:

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port: build the band and windowed conv
-kernels, check them, serve ScanNet-scale scenes, train SpUNet-v1m1 at
-ScanNet's batch and pretrain PonderIndoor-v2 at bench.py's workload.
+kernels and the probe kernels, check them, serve ScanNet-scale scenes,
+train SpUNet-v1m1 at ScanNet's batch, pretrain PonderIndoor-v2 at bench.py's
+workload and run every probe kernel at its probe's shape.
 
     python3 chip_smoke.py
 
@@ -11,8 +12,10 @@ phases; any failure exits non-zero:
 1. print the card's name and power limit; refuse to run without CUDA;
 2. build every kernel with nvcc, one process per source in parallel: K1
    (``ponderv2_tpu_torch/csrc/band_conv.cu``), K2 and K3
-   (``csrc/band_conv_bwd.cu``), K4 and K5 (``csrc/windowed_gather.cu``);
-   print ptxas registers and spills;
+   (``csrc/band_conv_bwd.cu``), K4, K5 and the P7 ablations' forward
+   (``csrc/windowed_gather.cu``), the row gather-sum
+   (``csrc/row_gather.cu``) and the window-read and grouped-construct
+   kernels (``csrc/probe_kernels.cu``); print ptxas registers and spills;
 3. compare K1 with its plain PyTorch version on the card at every distinct
    (level, Cin, Cout) band conv of the serving slice, at the level row
    counts of a real fragment, in f32 (TF32 off) and bf16, plus a
@@ -58,7 +61,17 @@ phases; any failure exits non-zero:
     pretrain batch (the k5 stem's, 6->32, and L0's k3 at 32->32), count
     its launches, compare each kernel with its plain version in f32 and
     bf16, time both, and report the share of covered windows;
-13. print times and peak memory, a JSON line of the kernels, and last
+13. run every ported probe function (P1-P5, P7 V2-V5; PERF.md's kernel
+    table) through its entry point (``tools/experiments/
+    probe_{gather,bisect,windowed}_torch.py``) at its probe's shape and on
+    its inputs, with the counts set to 0 before each and read after: its
+    kernel launched once and no other; hold each against its plain version
+    on the card (equal, or within 1e-5 of max|ref| where the products are
+    summed in another order: P3 ``k2`` through K4, P5 ``kd``, P7 V2-V4) and
+    time kernel, plain version and library call on the device (replayed
+    from a CUDA graph, the L2 flushed before each call; the kernel with it
+    warm too) and per call issued from Python;
+14. print times and peak memory, a JSON line of the kernels, and last
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -99,6 +112,9 @@ BAND_CORES = ("band_fwd_core", "band_dxdw_core", "band_dw_core")
 # on the tensor cores and of f32 on the CUDA cores
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# what "ms" of a K1-K5 row is (the probe rows say theirs)
+EAGER_TIMING = ("CUDA events around calls issued one by one from Python after a "
+                "warm-up, L2 not flushed")
 
 
 def check(cond, msg):
@@ -362,6 +378,8 @@ def main() -> int:
     from ponderv2_tpu_torch.models.default import batch_to_sparse_tensor
     from ponderv2_tpu_torch.models.sparse_unet.layers import SubMConv
     from ponderv2_tpu_torch.ops import band_conv as bc
+    from ponderv2_tpu_torch.ops import probe_kernels as pk
+    from ponderv2_tpu_torch.ops import row_gather as rg
     from ponderv2_tpu_torch.ops import windowed_gather as wg
     from ponderv2_tpu_torch.ops.cuda_build import BUILD_LOGS, load_libraries
     from ponderv2_tpu_torch.ops.sparse import make_sparse_tensor, maybe_sort_by_key
@@ -369,6 +387,8 @@ def main() -> int:
     from ponderv2_tpu_torch.utils.config import Config
     from test_torch import main_worker
     from train_torch import main_worker as train_main_worker
+    import probe_bisect_torch
+    import probe_gather_torch
     import probe_windowed_torch as probe
 
     phase_s = {}
@@ -395,11 +415,12 @@ def main() -> int:
           "TF32 off for matmul and cuDNN")
     phase_done("1 card")
 
-    # ---- 2. build K1-K5: one nvcc per source, all started together
-    sources = sorted({k.source for k in bc.KERNELS + wg.KERNELS})
+    # ---- 2. build every kernel: one nvcc per source, all started together
+    all_kernels = bc.KERNELS + wg.KERNELS + wg.PROBE_KERNELS + rg.KERNELS + pk.KERNELS
+    sources = sorted({k.source for k in all_kernels})
     load_libraries(*sources)
-    bc.build_kernels()
-    wg.build_kernels()
+    for module in (bc, wg, rg, pk):
+        module.build_kernels()
     for name in sources:
         for ln in BUILD_LOGS.get(name, "").splitlines():
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
@@ -976,7 +997,25 @@ def main() -> int:
         del path, inputs_w, cases, level_rb, level_coords, stem
         phase_done("12 windowed conv K4/K5")
 
-        # ---- 13. output
+        # ---- 13. the probe kernels: each probe function through its entry
+        # point, at its probe's shape and on its inputs
+        probe_rows = []
+        for v in (probe_gather_torch.variants(dev) + probe_bisect_torch.variants(dev)
+                  + probe.profile_variants(dev)):
+            for k in all_kernels:
+                k.launches = 0
+            out = v.run(False)
+            torch.cuda.synchronize()
+            launched = {k.symbol: k.launches for k in all_kernels if k.launches}
+            check(launched == {v.kernel.symbol: 1}, f"{v.name}: launches {launched}")
+            m = probe.measure(v, out, 20)
+            print("[probe] " + probe.report(v, m), flush=True)
+            check(m["agree"], f"{v.name}: kernel vs plain max_abs_err {m['max_abs_err']}")
+            probe_rows.append((v, m, launched[v.kernel.symbol]))
+            del out
+        phase_done("13 probe kernels")
+
+        # ---- 14. output
         print(f"[time] per fine-tune step at batch {tcfg.batch_size} (f32): "
               + "; ".join(f"{name} {stats[name]['ms']:.3f} ms vs plain "
                           f"{stats[name]['plain_ms']:.3f} ms (bound "
@@ -996,6 +1035,7 @@ def main() -> int:
                 "bound_ms": st["bound_ms"],
                 "bound_by": "bytes" if st["bytes_ms"] >= st["ops_ms"] else "operations",
                 "library_ms": None,
+                "timing": EAGER_TIMING,
             }
 
         # the main path of K1-K3 is the pretrain step (bf16; launches over its
@@ -1014,6 +1054,17 @@ def main() -> int:
                 row["fine_tune"] = entry(name, train_launches[i], stats[name])
                 row["serving_launches"] = serve_launches[i]
             kernels.append(row)
+        # the probe kernels: one row per ported probe function, its launches
+        # from its own run through the entry point
+        for v, m, launches in probe_rows:
+            kernels.append({
+                "name": v.name, "route": "cuda",
+                "source": f"ponderv2_tpu_torch/csrc/{v.kernel.source}.cu",
+                "replaces": v.replaces, "launches": launches,
+                **{key: m[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms", "warm_ms",
+                                           "eager_ms")},
+                "timing": probe.TIMING})
         print(json.dumps({"kernels": kernels}))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

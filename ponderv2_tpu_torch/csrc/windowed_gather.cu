@@ -32,6 +32,20 @@
 // (125, 8 -> 32) is 2 * 0.7 * 125 * N * 8 * 32 = 7.3 GFLOP. As tensor-core
 // work (989 TFLOP/s bf16) all three would be bound by bytes instead.
 //
+// The same forward, over other row functors (SlabRows), replaces the
+// ablations of tools/experiments/probe_pallas_profile.py that kept K4's
+// one-hot window but dropped its per-row pick inside an 8-row slab, so that
+// every live entry reads the head row of its slab: kern_norbc with dynamic
+// windows (P7 V2) and with the windows fixed at the first two blocks (V3:
+// the row is rebased by the window start lo), and kern_lo with one window
+// (V4):
+//
+//     live(t, i) = lo <= r < lo + windows wb,  r = rbb[t, i]
+//     V2, V4: out[i] = sum_t [live] x[8 floor(r / 8)] @ W[t]
+//     V3:     out[i] = sum_t [live] x[8 floor(r / 8) - lo] @ W[t]
+//
+// Its bound and design are K4's: the same tile, a different row per entry.
+//
 // Plain C interface for ctypes: every launcher returns the cudaError_t of
 // cudaGetLastError() after each launch.
 
@@ -57,6 +71,23 @@ struct WindowRows {
   }
 };
 
+// The P7 ablations' entries: the head row of the live entry's 8-row slab
+// (less the window start with ``rebase``), or -1. wb is a multiple of 8 and
+// w0 >= 0, so a live r is >= 0 and lo is slab-aligned.
+struct SlabRows {
+  const int* rbb;  // (k3, nrows) tap-major
+  const int* w0;   // (k3 / group, nrows / block)
+  int nrows, nb, block, wb, group, windows, rebase;
+
+  __device__ __forceinline__ int operator()(int i, int t) const {
+    if (i >= nrows) return -1;
+    const int r = rbb[(size_t)t * nrows + i];
+    const int lo = w0[(t / group) * nb + i / block] * wb;
+    if (r < lo || r >= lo + windows * wb) return -1;
+    return (r & ~7) - (rebase ? lo : 0);
+  }
+};
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 windowed_fwd_kernel(const T* __restrict__ x, const int* __restrict__ rbb,
@@ -66,6 +97,18 @@ windowed_fwd_kernel(const T* __restrict__ x, const int* __restrict__ rbb,
   const WindowRows rows{rbb, w0, nrows, nb, block, wb, group};
   band::fwd_tile<T>(x, rows, wts, out, nrows, cin, cout, k3,
                     blockIdx.x * BM, blockIdx.y * BN);
+}
+
+__global__ void __launch_bounds__(THREADS)
+windowed_slab_fwd_kernel(const __nv_bfloat16* __restrict__ x,
+                         const int* __restrict__ rbb, const int* __restrict__ w0,
+                         const __nv_bfloat16* __restrict__ wts,
+                         float* __restrict__ out, int nrows, int cin, int cout,
+                         int k3, int nb, int block, int wb, int group, int windows,
+                         int rebase) {
+  const SlabRows rows{rbb, w0, nrows, nb, block, wb, group, windows, rebase};
+  band::fwd_tile<__nv_bfloat16>(x, rows, wts, out, nrows, cin, cout, k3,
+                                blockIdx.x * BM, blockIdx.y * BN);
 }
 
 // dW CTA number b of nchunks * k3 * ceil(cin / 64) * ceil(cout / 64):
@@ -158,6 +201,20 @@ int windowed_dw_bf16(const void* x, const void* g, const void* rbb,
   return launch_dw<__nv_bfloat16>(x, g, rbb, w0, partial, dw, nrows, cin, cout,
                                   k3, nb, block, wb, group, chunk, nchunks,
                                   stream);
+}
+
+// The P7 ablations read bf16 only, as the profile probe does.
+int windowed_slab_fwd_bf16(const void* x, const void* rbb, const void* w0,
+                           const void* wts, void* out, int nrows, int cin, int cout,
+                           int k3, int nb, int block, int wb, int group, int windows,
+                           int rebase, void* stream) {
+  const dim3 grid((nrows + BM - 1) / BM, (cout + BN - 1) / BN);
+  windowed_slab_fwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(rbb),
+      static_cast<const int*>(w0), static_cast<const __nv_bfloat16*>(wts),
+      static_cast<float*>(out), nrows, cin, cout, k3, nb, block, wb, group, windows,
+      rebase);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* windowed_error_string(int code) {

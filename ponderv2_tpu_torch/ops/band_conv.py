@@ -170,28 +170,39 @@ def build_band_plan_auto(rulebook: torch.Tensor, kz: int) -> BandPlan:
 # ------------------------------------------------------------------ kernels
 
 
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
 class _CudaKernel:
-    """ctypes entry points (``<symbol>_f32``, ``<symbol>_bf16``) and launch
-    count of one CUDA kernel of ``csrc/<source>.cu``. ``launches`` grows by
-    one each time the wrapper launches the kernel, and nowhere else."""
+    """ctypes entry points and launch count of one CUDA kernel of
+    ``csrc/<source>.cu``: one entry point ``<symbol>_f32`` / ``<symbol>_bf16``
+    per dtype in ``dtypes`` (both, or the one a kernel reads), or the bare
+    ``<symbol>`` for a kernel of int32 inputs (``dtypes=()``; ``launch`` then
+    takes ``dtype=None``).
+    ``launches`` grows by one each time the wrapper launches the kernel, and
+    nowhere else."""
 
     def __init__(self, source: str, symbol: str, n_ptrs: int, n_ints: int,
-                 error_symbol: str):
+                 error_symbol: str, dtypes=(torch.float32, torch.bfloat16)):
         self.source = source
         self.symbol = symbol
         self.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                          + [ctypes.c_void_p])
         self.error_symbol = error_symbol
+        self.dtypes = tuple(dtypes)
         self.launches = 0
         self._lib = None
+
+    def _entry(self, dtype: Optional[torch.dtype]) -> str:
+        return f"{self.symbol}_{_SUFFIX[dtype]}" if self.dtypes else self.symbol
 
     def lib(self) -> ctypes.CDLL:
         if self._lib is None:
             from .cuda_build import load_library
 
             lib = load_library(self.source)
-            for suffix in ("f32", "bf16"):
-                fn = getattr(lib, f"{self.symbol}_{suffix}")
+            for dtype in self.dtypes or (None,):
+                fn = getattr(lib, self._entry(dtype))
                 fn.argtypes = self.argtypes
                 fn.restype = ctypes.c_int
             err = getattr(lib, self.error_symbol)
@@ -200,10 +211,13 @@ class _CudaKernel:
             self._lib = lib
         return self._lib
 
-    def launch(self, dtype: torch.dtype, device: torch.device, *args) -> None:
+    def launch(self, dtype: Optional[torch.dtype], device: torch.device,
+               *args) -> None:
         """Launch on the device's current stream; raise if the launch failed."""
+        if self.dtypes and dtype not in self.dtypes:
+            raise TypeError(f"{self.symbol}: no kernel for {dtype}")
         lib = self.lib()
-        fn = getattr(lib, f"{self.symbol}_{'f32' if dtype == torch.float32 else 'bf16'}")
+        fn = getattr(lib, self._entry(dtype))
         with torch.cuda.device(device):
             err = fn(*args, torch.cuda.current_stream().cuda_stream)
         if err != 0:

@@ -14,7 +14,9 @@ drops it, so a caller checks ``covered`` before it trusts the result.
 run their ``*_plain`` versions. No path of the pretrain step routes a conv
 here (the JAX package keeps its windowed conv off by default, too): the
 probe ``tools/experiments/probe_windowed_torch.py`` and ``chip_smoke.py``
-run them.
+run them. ``windowed_slab_fwd`` is K4's forward over the entries of
+``probe_pallas_profile.py``'s ablations (P7 V2-V4), which read the head row
+of each entry's 8-row slab; the same probe entry point runs it.
 """
 
 from __future__ import annotations
@@ -79,12 +81,15 @@ WINDOWED_FWD = _CudaKernel("windowed_gather", "windowed_fwd", 5, 8,
                            "windowed_error_string")
 WINDOWED_DW = _CudaKernel("windowed_gather", "windowed_dw", 6, 10,
                           "windowed_error_string")
+WINDOWED_SLAB_FWD = _CudaKernel("windowed_gather", "windowed_slab_fwd", 5, 10,
+                                "windowed_error_string", dtypes=(torch.bfloat16,))
 KERNELS = (WINDOWED_FWD, WINDOWED_DW)
+PROBE_KERNELS = (WINDOWED_SLAB_FWD,)
 
 
 def build_kernels() -> None:
-    """Build and bind K4 and K5 (one source)."""
-    for k in KERNELS:
+    """Build and bind K4, K5 and the P7 ablations' forward (one source)."""
+    for k in KERNELS + PROBE_KERNELS:
         k.lib()
 
 
@@ -161,6 +166,77 @@ def windowed_conv_fwd_plain(feats: torch.Tensor, geom: WindowGeometry,
                       device=feats.device)
     for t in range(k3):
         out += _tap_rows(feats, geom, t, wb, group).float() @ weights[t].float()
+    return out
+
+
+# ------------------------------------------------------------------ P7 V2-V4
+
+
+def _slab_rows(feats: torch.Tensor, geom: WindowGeometry, t: int, wb: int,
+               group: int, windows: int, rebase: bool) -> torch.Tensor:
+    """Rows of tap t as ``windowed_slab_fwd`` reads them, zero where the
+    entry is not live: the plain version's masked gather."""
+    k3, nb, _, block = geom.rbb.shape
+    r = geom.rbb[t].reshape(nb, block).to(torch.int64)
+    lo = (geom.w0[t // group].to(torch.int64) * wb)[:, None]
+    live = (r >= lo) & (r < lo + windows * wb)
+    j = (r.clamp(min=0) // 8 * 8 - (lo if rebase else 0)).clamp(0, feats.shape[0] - 1)
+    return torch.where(live.reshape(-1, 1), feats[j.reshape(-1)],
+                       torch.zeros((), dtype=feats.dtype, device=feats.device))
+
+
+def windowed_slab_fwd(feats: torch.Tensor, geom: WindowGeometry,
+                      weights: torch.Tensor, wb: int, group: int, windows: int = 2,
+                      rebase: bool = False) -> torch.Tensor:
+    """The ablations of ``probe_pallas_profile.py`` (P7): K4's forward, but an
+    entry ``r`` is live inside ``windows`` (1 or 2) blocks of ``wb`` rows from
+    its window start ``lo`` and reads the head row of its 8-row slab,
+    ``8 * (r // 8)``, less ``lo`` with ``rebase``:
+
+        V2 (kern_norbc, dynamic windows): windows=2
+        V3 (kern_norbc, static windows):  windows=2, rebase=True
+        V4 (kern_lo, one window):         windows=1
+
+    ``w0`` >= 0 and ``wb`` a multiple of 8, as in the probe. Padded bf16
+    features (n_pad, cin), weights (K3, cin, cout) -> (nb * block, cout) f32
+    (the probe's one dtype: the kernel reads bf16 only). CPU
+    tensors take ``windowed_slab_fwd_plain``; CUDA tensors launch
+    ``csrc/windowed_gather.cu`` or raise."""
+    if windows not in (1, 2) or wb % 8:
+        raise ValueError(f"windowed_slab_fwd: {windows} windows of {wb} rows")
+    if not _on_cuda("windowed_slab_fwd", feats):
+        return windowed_slab_fwd_plain(feats, geom, weights, wb, group, windows, rebase)
+    _check("windowed_slab_fwd", feats, geom, wb, group, weights)
+    if feats.dtype != torch.bfloat16:
+        raise TypeError(f"windowed_slab_fwd: {feats.dtype}, not bfloat16")
+    k3, nb, _, block = geom.rbb.shape
+    cin = feats.shape[1]
+    if weights.shape[:2] != (k3, cin):
+        raise ValueError(f"windowed_slab_fwd: weights {tuple(weights.shape)} for "
+                         f"{k3} taps of {cin} channels")
+    cout = weights.shape[2]
+    nrows = nb * block
+    out = torch.empty((nrows, cout), dtype=torch.float32, device=feats.device)
+    if nrows == 0 or cout == 0:
+        return out
+    WINDOWED_SLAB_FWD.launch(feats.dtype, feats.device, feats.data_ptr(),
+                             geom.rbb.data_ptr(), geom.w0.data_ptr(),
+                             weights.data_ptr(), out.data_ptr(), nrows, cin, cout, k3,
+                             nb, block, wb, group, windows, int(rebase))
+    return out
+
+
+def windowed_slab_fwd_plain(feats: torch.Tensor, geom: WindowGeometry,
+                            weights: torch.Tensor, wb: int, group: int,
+                            windows: int = 2, rebase: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of ``windowed_slab_fwd``: per tap, a masked
+    gather of slab-head rows and an f32 matmul of the compute-dtype values."""
+    k3, nb, _, block = geom.rbb.shape
+    out = torch.zeros((nb * block, weights.shape[2]), dtype=torch.float32,
+                      device=feats.device)
+    for t in range(k3):
+        out += (_slab_rows(feats, geom, t, wb, group, windows, rebase).float()
+                @ weights[t].float())
     return out
 
 

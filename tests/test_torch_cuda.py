@@ -1,5 +1,6 @@
-"""The CUDA band conv kernels (K1, K2, K3) and windowed gather-GEMM kernels
-(K4, K5) against their plain PyTorch versions, on a GPU.
+"""The CUDA band conv kernels (K1, K2, K3), windowed gather-GEMM kernels
+(K4, K5) and probe kernels (P1-P5, P7) against their plain PyTorch
+versions, on a GPU.
 
 Marked ``requires_cuda``: each test skips where there is no CUDA device (the
 kernel has no CPU or interpret mode). The file imports no JAX, so it also
@@ -17,14 +18,22 @@ versions multiply the same bf16 values in f32, as the kernels do, so both
 dtypes are held to 1e-5; K5 is deterministic too.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 from ponderv2_tpu_torch.models import build_model
 from ponderv2_tpu_torch.ops import band_conv as bc
+from ponderv2_tpu_torch.ops import probe_kernels as pk
+from ponderv2_tpu_torch.ops import row_gather as rg
 from ponderv2_tpu_torch.ops import windowed_gather as wg
 from ponderv2_tpu_torch.ops.spconv import apply_sparse_conv, build_subm_rulebook
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                "tools", "experiments"))
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -254,3 +263,149 @@ def test_k4_k5_reject_bad_input(cuda):
     with pytest.raises(ValueError):
         wg.windowed_conv_dw(f, geom, torch.randn(7, 4, device=cuda), wb, group)
     assert (wg.WINDOWED_FWD.launches, wg.WINDOWED_DW.launches) == before
+
+
+# ------------------------------------------------------------------ probe kernels
+# (csrc/row_gather.cu, csrc/probe_kernels.cu, the P7 forward of
+# csrc/windowed_gather.cu). Their plain versions add the same values in the
+# kernels' order, so they are held equal; the slab forward and tile_matmul
+# sum products in another order than the plain matmul, to 1e-5 of max|ref|.
+
+
+@pytest.mark.parametrize("c", [128, 37])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_gather_kernels_match_plain(cuda, c, dtype):
+    """P1/P2 and P3 k1 at a ragged row count and width, with absent entries
+    and a tap with no live entry."""
+    gen = torch.Generator(device=cuda).manual_seed(c)
+    feats = torch.randn(1000, c, device=cuda, generator=gen).to(dtype)
+    idx = torch.randint(-1, 1000, (777,), device=cuda, generator=gen, dtype=torch.int32)
+    before = rg.GATHER_SUM.launches
+    out = rg.row_gather(feats, idx)
+    assert rg.GATHER_SUM.launches == before + 1
+    assert torch.equal(out, rg.row_gather_plain(feats, idx))
+    taps, nb, block, wb = 3, 7, 64, 128
+    rb = torch.randint(-1, 1000, (taps, nb, block), device=cuda, generator=gen,
+                       dtype=torch.int32)
+    rb[1] = -1
+    w0 = torch.randint(0, 1000 // wb, (taps, nb), device=cuda, generator=gen,
+                       dtype=torch.int32)
+    out = rg.window_gather_sum(feats, rb, w0, block, wb)
+    ref = rg.window_gather_sum_plain(feats, rb, w0, block, wb)
+    torch.cuda.synchronize()
+    assert out.shape == (nb * block, c) and torch.equal(out, ref)
+    assert ref.abs().max() > 0
+
+
+@pytest.mark.parametrize("c", [32, 13])
+def test_window_read_kernels_match_plain(cuda, c):
+    """P3 k0 / P4 and P7 V5 with strided window tables (one repeated over the
+    taps), an add table read through a strided view, and windows that run
+    past the features' last row (those rows read as zero)."""
+    gen = torch.Generator(device=cuda).manual_seed(c)
+    rows_x, taps, nb, block, wb = 700, 3, 5, 48, 64
+    x = torch.randn(rows_x, c, device=cuda, generator=gen).bfloat16()
+    w0 = torch.randint(0, rows_x // wb + 1, (taps, nb), device=cuda, generator=gen,
+                       dtype=torch.int32)
+    rb = torch.randint(-5, 5, (taps * nb * block,), device=cuda, generator=gen,
+                       dtype=torch.int32)
+    add = rb.view(taps, nb, block)[:, :, 0]
+    repeated = w0[0].expand(taps, nb)
+    for table, extra in ((w0, None), (repeated, None), (w0, add)):
+        before = pk.WINDOW_COPY_SUM.launches
+        out = pk.window_copy_sum(x, table, wb, block, extra)
+        assert pk.WINDOW_COPY_SUM.launches == before + 1
+        assert torch.equal(out, pk.window_copy_sum_plain(x, table, wb, block, extra))
+    out = pk.window_head_sum(x, repeated, wb, block)
+    ref = pk.window_head_sum_plain(x, repeated, wb, block)
+    torch.cuda.synchronize()
+    assert out.shape == (nb * block, c) and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("windows,rebase", [(2, False), (2, True), (1, False)],
+                         ids=["V2", "V3", "V4"])
+def test_windowed_slab_fwd_matches_plain(cuda, windows, rebase):
+    """P7 V2-V4 at 3000 rows (not a multiple of the 64-row block), 13 -> 19
+    channels, with a tap that has no live entry."""
+    n, block, wb, k3 = 3000, 64, 256, 4
+    rb = _monotone_rulebook(n, k3, 1, 40).to(cuda)
+    rb[2] = -1
+    geom = wg.prepare_geometry(rb, n, block, wb, 1)
+    gen = torch.Generator(device=cuda).manual_seed(windows + rebase)
+    f = wg.pad_features(torch.randn(n, 13, device=cuda, generator=gen),
+                        wg.padded_rows(n, wb), torch.bfloat16)
+    w = (torch.randn(k3, 13, 19, device=cuda, generator=gen) / 4).bfloat16()
+    before = wg.WINDOWED_SLAB_FWD.launches
+    out = wg.windowed_slab_fwd(f, geom, w, wb, 1, windows, rebase)
+    assert wg.WINDOWED_SLAB_FWD.launches == before + 1
+    ref = wg.windowed_slab_fwd_plain(f, geom, w, wb, 1, windows, rebase)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (geom.rbb.shape[1] * block, 19)
+    assert _rel_err(out, ref) <= 1e-5
+
+
+def test_grouped_construct_kernels_match_plain(cuda):
+    """P5 ka, kb, kc2, kd at a ragged width: 333 rows, pieces of 5 columns,
+    a 45-deep product (not a multiple of the tile's 32)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    rb = torch.randint(-1, 333, (16, 333), device=cuda, generator=gen, dtype=torch.int32)
+    x = torch.randn(333, 35, device=cuda, generator=gen).bfloat16()
+    g = torch.randn(333, 45, device=cuda, generator=gen).bfloat16()
+    w = torch.randn(1, 45, 19, device=cuda, generator=gen).bfloat16()
+    assert torch.equal(pk.slab_slots(rb), pk.slab_slots_plain(rb))
+    assert torch.equal(pk.lane_concat(x, 5, 9), pk.lane_concat_plain(x, 5, 9))
+    assert torch.equal(pk.sum_rows(rb, 9), pk.sum_rows_plain(rb, 9))
+    out = pk.tile_matmul(g, w)
+    torch.cuda.synchronize()
+    assert out.shape == (333, 19) and _rel_err(out, pk.tile_matmul_plain(g, w)) <= 1e-5
+
+
+def test_probe_kernels_reject_bad_input(cuda):
+    x = torch.randn(256, 8, device=cuda).bfloat16()
+    w0 = torch.zeros(2, 3, dtype=torch.int32, device=cuda)
+    rb = torch.zeros(2, 3 * 16, dtype=torch.int32, device=cuda)
+    counts = [k.launches for k in rg.KERNELS + pk.KERNELS + wg.PROBE_KERNELS]
+    with pytest.raises(TypeError):
+        rg.row_gather(x.half(), rb[0])
+    with pytest.raises(TypeError):
+        rg.row_gather(x, rb[0].long())
+    with pytest.raises(ValueError):
+        rg.window_gather_sum(x, rb[:, :40], w0, 16, 64)
+    with pytest.raises(ValueError):
+        pk.window_copy_sum(x.t(), w0, 64, 16)
+    with pytest.raises(TypeError):
+        pk.window_copy_sum(x, w0.long(), 64, 16)
+    with pytest.raises(TypeError):  # the probes' kernels read bf16 only
+        pk.window_copy_sum(x.float(), w0, 64, 16)
+    with pytest.raises(TypeError):
+        pk.tile_matmul(x.float(), torch.randn(1, 8, 4, device=cuda))
+    with pytest.raises(ValueError):
+        pk.window_head_sum(x, w0[0], 64, 16)
+    with pytest.raises(ValueError):
+        pk.lane_concat(x, 3, 9)
+    with pytest.raises(ValueError):
+        pk.tile_matmul(x, torch.randn(1, 7, 4, device=cuda))
+    with pytest.raises(ValueError):
+        pk.sum_rows(rb, 9)
+    with pytest.raises(ValueError):
+        wg.windowed_slab_fwd(x, wg.prepare_geometry(rb, 48, 16, 64, 1),
+                             torch.randn(2, 8, 4, device=cuda), 60, 1)
+    assert [k.launches for k in rg.KERNELS + pk.KERNELS + wg.PROBE_KERNELS] == counts
+
+
+def test_probe_entry_points_on_cuda(cuda):
+    """Every probe entry point's variants at the probes' shapes: one launch
+    of its own kernel each, agreeing with the plain version."""
+    import probe_bisect_torch
+    import probe_gather_torch
+    import probe_windowed_torch
+
+    kernels = bc.KERNELS + wg.KERNELS + wg.PROBE_KERNELS + rg.KERNELS + pk.KERNELS
+    for v in (probe_gather_torch.variants(cuda) + probe_bisect_torch.variants(cuda)
+              + probe_windowed_torch.profile_variants(cuda)):
+        before = [k.launches for k in kernels]
+        out = v.run(False)
+        torch.cuda.synchronize()
+        assert [k.launches - b for k, b in zip(kernels, before)] == [
+            int(k is v.kernel) for k in kernels], v.name
+        assert probe_windowed_torch.agree(out, v.run(True), v.tol)[0], v.name

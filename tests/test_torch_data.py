@@ -293,12 +293,15 @@ import ponderv2_tpu_torch.engines.test
 import ponderv2_tpu_torch.engines.hooks
 import ponderv2_tpu_torch.engines.train
 import ponderv2_tpu_torch.ops.band_conv
+import ponderv2_tpu_torch.ops.probe_kernels
+import ponderv2_tpu_torch.ops.row_gather
 import ponderv2_tpu_torch.ops.windowed_gather
 import ponderv2_tpu_torch.models.ponder.ponder_indoor
 import ponderv2_tpu_torch.utils.clip_text
 import ponderv2_tpu_torch.utils.convert
 sys.path.insert(0, root + "/tools/experiments")
 import chip_smoke, probe_windowed_torch, test_torch, train_torch
+import probe_bisect_torch, probe_gather_torch, profile_pretrain_torch, profile_semseg_torch
 from ponderv2_tpu_torch.datasets import build_dataset, collate_fn
 from ponderv2_tpu_torch.models import build_model
 from ponderv2_tpu_torch.utils.config import Config
@@ -337,8 +340,9 @@ print("NO_JAX_OK")
 
 def test_port_imports_and_runs_without_jax():
     """``ponderv2_tpu_torch``, ``chip_smoke.py``, ``tools/test_torch.py``,
-    ``tools/train_torch.py`` and ``tools/experiments/probe_windowed_torch.py``
-    import, the pretrain configs load, and a segmentor forward and a
+    ``tools/train_torch.py``, the two profilers and the probe entry points
+    ``tools/experiments/probe_{windowed,gather,bisect}_torch.py`` import,
+    the pretrain configs load, and a segmentor forward and a
     PonderIndoor-v2 training step's forward and backward run on the CPU,
     with jax/jaxlib/flax/optax/ponderv2_tpu blocked; no port source names
     them in an import statement."""
@@ -352,7 +356,10 @@ def test_port_imports_and_runs_without_jax():
                os.path.join(ROOT, "tools", "test_torch.py"),
                os.path.join(ROOT, "tools", "train_torch.py"),
                os.path.join(ROOT, "tools", "experiments", "probe_windowed_torch.py"),
+               os.path.join(ROOT, "tools", "experiments", "probe_gather_torch.py"),
+               os.path.join(ROOT, "tools", "experiments", "probe_bisect_torch.py"),
                os.path.join(ROOT, "tools", "profile_pretrain_torch.py"),
+               os.path.join(ROOT, "tools", "profile_semseg_torch.py"),
                os.path.join(ROOT, "configs", "_test_", "pretrain_bench_torch.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "ponderv2_tpu_torch")):
         sources += [os.path.join(d, f) for f in files if f.endswith(".py")]

@@ -12,7 +12,8 @@ phases; any failure exits non-zero:
 1. print the card's name and power limit; refuse to run without CUDA;
 2. build every kernel with nvcc, one process per source in parallel: K1
    (``ponderv2_tpu_torch/csrc/band_conv.cu``), K2 and K3
-   (``csrc/band_conv_bwd.cu``), K4, K5 and the P7 ablations' forward
+   (``csrc/band_conv_bwd.cu``; K2 and P5 ``kd`` on the tensor-core tiles of
+   ``csrc/mma_tile.cuh``), K4, K5 and the P7 ablations' forward
    (``csrc/windowed_gather.cu``), the row gather-sum
    (``csrc/row_gather.cu``) and the window-read and grouped-construct
    kernels (``csrc/probe_kernels.cu``); print ptxas registers and spills;
@@ -109,9 +110,12 @@ KERNEL_SOURCES = {
 }
 BAND_CORES = ("band_fwd_core", "band_dxdw_core", "band_dw_core")
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s; FLOP/s of bf16
-# on the tensor cores and of f32 on the CUDA cores
+# on the tensor cores, and of f32 at f32 accuracy: 3xTF32 (K2's f32 route,
+# three TF32 products per f32 product) at a third of the 495 TFLOP/s TF32
+# rate, above the CUDA cores' 67
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
+F32_PEAK = "165 TFLOP/s: 3xTF32, a third of the 495 TFLOP/s TF32 rate"
 # what "ms" of a K1-K5 row is (the probe rows say theirs)
 EAGER_TIMING = ("CUDA events around calls issued one by one from Python after a "
                 "warm-up, L2 not flushed")
@@ -229,7 +233,7 @@ def band_live_entries(plan, n, kz=3):
 def band_op_bound(op, plan, n, cin, cout, dtype):
     """``bound_ms`` of one band-conv kernel call: each input read once,
     each output written once; 2 FLOPs per in-window entry and channel pair
-    (twice that for K2's dx + dW)."""
+    (twice that for K2's dx + dW), f32 at the 3xTF32 rate (``F32_PEAK``)."""
     import torch
 
     elt = 2 if dtype == torch.bfloat16 else 4
@@ -1052,6 +1056,7 @@ def main() -> int:
             if name in BAND_CORES:
                 i = BAND_CORES.index(name)
                 row["fine_tune"] = entry(name, train_launches[i], stats[name])
+                row["fine_tune"]["f32_peak"] = F32_PEAK
                 row["serving_launches"] = serve_launches[i]
             kernels.append(row)
         # the probe kernels: one row per ported probe function, its launches

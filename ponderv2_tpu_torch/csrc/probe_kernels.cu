@@ -18,8 +18,8 @@
 //                the identity-matmul transpose of a row into a column;
 //   lane_concat  out[:, p C : p C + C] = x[:, (p mod (W / C)) C : ...]: kb;
 //   sum_rows     out[0, b] = sum_{t < rows} rb[t, b]: kc2;
-//   tile_matmul  out = g @ w[0]: kd, on the band conv's tile
-//                (band_conv_tile.cuh) with the identity row functor.
+//   tile_matmul  out = g @ w[0]: kd, on the tensor-core gather-GEMM tile
+//                of K2 (mma_tile.cuh) with the identity row functor.
 // Sums run in the order the TPU grid or body added their terms (taps in
 // order, rows in order), so every result but kd's equals the plain version's
 // bit for bit; kd sums its 288 products per output in another order than a
@@ -29,8 +29,11 @@
 // What bounds them on an H100: at the probes' shapes every one moves under
 // 1 MB (P3/P4: an 8192 x 32 f32 output and a few hundred KB of windows) or
 // does under 10 MFLOP (kd), so their bound is a few hundred nanoseconds and
-// their time is the launch's. P7 V5 at N = 163,840 writes 21 MB of output
-// (~6 us at 3.35 TB/s) from 27 x 320 x 2 head rows. Design: one thread per
+// their time is the launch's (kd: one 16-row x 32-column CTA of 4 warps
+// per 16 rows, 32 CTAs at 512 rows, with the 288-deep K in flight at once
+// and no row table or vote, so that one launch, one round of loads and a
+// chain of 18 mma are all it waits on). P7 V5 at
+// N = 163,840 writes 21 MB of output (~6 us at 3.35 TB/s) from 27 x 320 x 2 head rows. Design: one thread per
 // output element (or per column for sum_rows), consecutive threads on
 // consecutive columns so that loads and stores coalesce; window_head_sum
 // first forms a block's 2 x taps head sums in shared memory, one thread
@@ -40,6 +43,7 @@
 // cudaGetLastError() after its launch.
 
 #include "band_conv_tile.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
@@ -139,11 +143,19 @@ struct IdentityRows {
   }
 };
 
-__global__ void __launch_bounds__(band::THREADS)
+// kd's tile: 16 rows x 32 columns per CTA, one warp per 8 columns; one
+// 288-deep stage, the probe's whole K in flight at once (gather_gemm's
+// one-tap path). tools/experiments/probe_mma_variants_torch.py kd times the
+// other shapes tried.
+#define KD_TILE bf16, 32, 1, 4, 288, 2
+using KdTile = mma::GatherGemm<KD_TILE>;
+
+__global__ void __launch_bounds__(KdTile::THREADS)
 tile_matmul_kernel(const bf16* __restrict__ g, const bf16* __restrict__ w,
-                   float* __restrict__ out, int m, int k, int n) {
-  band::fwd_tile<bf16>(g, IdentityRows{m}, w, out, m, k, n, 1, blockIdx.x * band::BM,
-                       blockIdx.y * band::BN);
+                   float* __restrict__ out, int m, int k, int n, int ldb) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  mma::gather_gemm<KD_TILE>(g, IdentityRows{m}, 1, w, k, ldb, out, n, m, n,
+                            blockIdx.x * KdTile::BM, blockIdx.y * KdTile::BN, smem);
 }
 
 }  // namespace
@@ -199,12 +211,18 @@ int sum_rows(const void* rb, void* out, int rows, int b, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// g (m, k) and w (k, ldb) with k and ldb multiples of 8 (the wrapper pads
+// ragged widths with zeros); out (m, n).
 int tile_matmul_bf16(const void* g, const void* w, void* out, int m, int k, int n,
-                     void* stream) {
-  const dim3 grid((m + band::BM - 1) / band::BM, (n + band::BN - 1) / band::BN);
-  tile_matmul_kernel<<<grid, band::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+                     int ldb, void* stream) {
+  const size_t smem = KdTile::smem_bytes(1);
+  const cudaError_t err = cudaFuncSetAttribute(
+      tile_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((m + KdTile::BM - 1) / KdTile::BM, (n + KdTile::BN - 1) / KdTile::BN);
+  tile_matmul_kernel<<<grid, KdTile::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(g), static_cast<const bf16*>(w), static_cast<float*>(out),
-      m, k, n);
+      m, k, n, ldb);
   return static_cast<int>(cudaGetLastError());
 }
 

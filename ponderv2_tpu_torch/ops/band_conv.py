@@ -12,8 +12,9 @@ Three cores carry the TPU kernels: ``band_fwd_core`` (K1, the forward and
 the split backward's dx), ``band_dxdw_core`` (K2, the fused dx + dW) and
 ``band_dw_core`` (K3, the split dW). On a CUDA tensor each launches its
 kernel (``csrc/band_conv.cu``, ``csrc/band_conv_bwd.cu``, built with nvcc at
-first use) or raises; on a CPU tensor it runs its ``*_plain`` version, a
-per-tap masked gather + matmuls of the same function. ``band_subm_conv`` is
+first use; K2 on the tensor-core tiles of ``csrc/mma_tile.cuh``) or raises;
+on a CPU tensor it runs its ``*_plain`` version, a per-tap masked gather +
+matmuls of the same function. ``band_subm_conv`` is
 a ``torch.autograd.Function`` over them, with the JAX package's backward
 routing (``fused_bwd_fits``).
 """
@@ -227,7 +228,7 @@ class _CudaKernel:
 
 
 BAND_FWD = _CudaKernel("band_conv", "band_fwd", 5, 8, "band_error_string")
-BAND_DXDW = _CudaKernel("band_conv_bwd", "band_dxdw", 8, 10,
+BAND_DXDW = _CudaKernel("band_conv_bwd", "band_dxdw", 8, 14,
                         "band_bwd_error_string")
 BAND_DW = _CudaKernel("band_conv_bwd", "band_dw", 6, 10, "band_bwd_error_string")
 KERNELS = (BAND_FWD, BAND_DXDW, BAND_DW)
@@ -333,20 +334,87 @@ def band_fwd_core_plain(features: torch.Tensor, rbt: torch.Tensor,
 
 # ------------------------------------------------------------------ K2, K3
 
-# dW is reduced over row chunks in two passes (csrc/band_conv_bwd.cu): the
-# chunk count aims at about this many dW CTAs per launch (~30 per SM of an
-# H100), with chunks of at least MIN_DW_CHUNK rows.
+# dW is reduced over row chunks in two passes (csrc/band_conv_bwd.cu): for
+# K3 the chunk count aims at about this many dW CTAs per launch (~30 per SM
+# of an H100), with chunks of at least MIN_DW_CHUNK rows.
 DW_TARGET_CTAS = 4096
 MIN_DW_CHUNK = 1024
 
 
 def _dw_chunks(n: int, cin: int, cout: int, k3: int) -> Tuple[int, int]:
-    """(rows per chunk, number of chunks) of the dW reduction; chunks are
-    multiples of the kernel's 32-row step."""
+    """(rows per chunk, number of chunks) of K3's (and K5's) dW reduction;
+    chunks are multiples of the kernel's 32-row step."""
     per_chunk = k3 * _cdiv(cin, 64) * _cdiv(cout, 64)
     nchunks = max(1, min(_cdiv(DW_TARGET_CTAS, per_chunk), _cdiv(n, MIN_DW_CHUNK)))
     chunk = _cdiv(_cdiv(n, nchunks), 32) * 32
     return chunk, _cdiv(n, chunk)
+
+
+# K2's tensor-core tiles (csrc/mma_tile.cuh): a tile is 32, 64, 96 or 128
+# channels wide (at most 96 in f32, whose tiles keep a second accumulator);
+# a dx CTA holds 128 rows (8 warps x 16). Its dW partials
+# (chunks x k3 x cin x cout f32) are capped at DXDW_SCRATCH_BYTES; within
+# that, about DXDW_DW_CTAS dW CTAs (~8 waves of 2 per SM), of at least
+# MIN_DW_CHUNK rows each.
+TILE_WIDTHS = (128, 96, 64, 32)
+DX_ROWS = 128
+DXDW_DW_CTAS = 2048
+DXDW_SCRATCH_BYTES = 128 * 2 ** 20
+
+
+def tile_width(c: int, dtype: torch.dtype) -> int:
+    """The tile width that covers ``c`` channels with the fewest padding
+    columns, the wider on a tie (96 for 96 and 192; 32 for 5; 128 in bf16
+    and 64 in f32 for 128)."""
+    widths = TILE_WIDTHS if dtype == torch.bfloat16 else TILE_WIDTHS[1:]
+    return min(widths, key=lambda w: (_cdiv(c, w) * w, -w))
+
+
+def padded_width(c: int, dtype: torch.dtype) -> int:
+    """``c`` rounded up to whole 16-byte copies: 8 bf16 or 4 f32 elements."""
+    vec = 8 if dtype == torch.bfloat16 else 4
+    return _cdiv(c, vec) * vec
+
+
+class DxdwPlan(NamedTuple):
+    """K2's launch plan: channel tiles, padded widths, CTA ranges (dW
+    first, then dx), row chunks of the dW reduction and its scratch."""
+
+    ci_tile: int
+    co_tile: int
+    cin_p: int
+    cout_p: int
+    ndw: int
+    ndx: int
+    chunk: int
+    nchunks: int
+    scratch_bytes: int
+
+
+def dxdw_plan(n: int, cin: int, cout: int, k3: int, dtype: torch.dtype) -> DxdwPlan:
+    """K2's launch plan for ``n`` rows, ``cin`` -> ``cout`` channels and
+    ``k3`` taps in ``dtype``."""
+    ci, co = tile_width(cin, dtype), tile_width(cout, dtype)
+    tiles = _cdiv(cin, ci) * _cdiv(cout, co)
+    per_chunk = k3 * cin * cout * 4
+    nchunks = max(1, min(_cdiv(DXDW_DW_CTAS, k3 * tiles), _cdiv(n, MIN_DW_CHUNK),
+                         DXDW_SCRATCH_BYTES // per_chunk))
+    chunk = _cdiv(_cdiv(n, nchunks), 16) * 16
+    nchunks = _cdiv(n, chunk)
+    return DxdwPlan(ci_tile=ci, co_tile=co, cin_p=padded_width(cin, dtype),
+                    cout_p=padded_width(cout, dtype), ndw=nchunks * k3 * tiles,
+                    ndx=_cdiv(n, DX_ROWS) * _cdiv(cin, ci), chunk=chunk,
+                    nchunks=nchunks, scratch_bytes=nchunks * per_chunk)
+
+
+def _operand(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` with its last dim zero-padded to ``width``, contiguous and
+    16-byte aligned, as the tensor-core tiles copy it."""
+    if t.shape[-1] != width:
+        t = torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+    if t.data_ptr() % 16:
+        t = t.clone()
+    return t
 
 
 def band_dxdw_core(g: torch.Tensor, features: torch.Tensor, rbt: torch.Tensor,
@@ -360,7 +428,8 @@ def band_dxdw_core(g: torch.Tensor, features: torch.Tensor, rbt: torch.Tensor,
         dwr[t] += features[i]^T g[j]     -> (K^3, Cin, Cout) f32
 
     ``dwr[t]`` holds dW[mirror t]. CPU tensors take ``band_dxdw_core_plain``;
-    CUDA tensors launch ``csrc/band_conv_bwd.cu`` or raise."""
+    CUDA tensors launch ``csrc/band_conv_bwd.cu`` (the tensor-core tiles of
+    ``csrc/mma_tile.cuh``, planned by ``dxdw_plan``) or raise."""
     if not _on_cuda("band_dxdw_core", g):
         return band_dxdw_core_plain(g, features, rbt, w0, w_mirT, kz, block,
                                     window)
@@ -371,19 +440,25 @@ def band_dxdw_core(g: torch.Tensor, features: torch.Tensor, rbt: torch.Tensor,
     if features.shape[0] != n or w_mirT.shape != (k3, cout, cin):
         raise ValueError(f"band_dxdw_core: shapes g {tuple(g.shape)} features "
                          f"{tuple(features.shape)} w_mirT {tuple(w_mirT.shape)}")
+    if k3 > 32:
+        raise ValueError(f"band_dxdw_core: {k3} taps, the kernel takes at most 32")
     dev = g.device
     if n == 0 or cin == 0 or cout == 0:
         return (torch.zeros((n, cin), dtype=torch.float32, device=dev),
                 torch.zeros((k3, cin, cout), dtype=torch.float32, device=dev))
+    p = dxdw_plan(n, cin, cout, k3, g.dtype)
+    gp, fp = _operand(g, p.cout_p), _operand(features, p.cin_p)
+    wp = _operand(w_mirT, p.cin_p)
+    if p.cout_p != cout:
+        wp = torch.nn.functional.pad(wp, (0, 0, 0, p.cout_p - cout))
     dx = torch.empty((n, cin), dtype=torch.float32, device=dev)
     dwr = torch.empty((k3, cin, cout), dtype=torch.float32, device=dev)
-    chunk, nchunks = _dw_chunks(n, cin, cout, k3)
-    partial = torch.empty((nchunks, k3, cin, cout), dtype=torch.float32, device=dev)
-    BAND_DXDW.launch(g.dtype, dev, g.data_ptr(), features.data_ptr(),
-                     rbt.data_ptr(), w0.data_ptr(), w_mirT.data_ptr(),
-                     dx.data_ptr(), partial.data_ptr(), dwr.data_ptr(), n, cin,
-                     cout, k3, kz, rbt.shape[0] // block, block, window, chunk,
-                     nchunks)
+    partial = torch.empty((p.nchunks, k3, cin, cout), dtype=torch.float32, device=dev)
+    BAND_DXDW.launch(g.dtype, dev, gp.data_ptr(), fp.data_ptr(), rbt.data_ptr(),
+                     w0.data_ptr(), wp.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+                     dwr.data_ptr(), n, cin, cout, p.cin_p, p.cout_p, k3, kz,
+                     rbt.shape[0] // block, block, window, p.chunk, p.nchunks,
+                     p.ci_tile, p.co_tile)
     return dx, dwr
 
 

@@ -27,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from .band_conv import _CudaKernel, _on_cuda
+from .band_conv import _CudaKernel, _cdiv, _on_cuda, _operand
 
 _ERR = "probe_error_string"
 # the probes read bf16 features (P3, P4, P5 kb/kd, P7 V5) or int32 rows (P5
@@ -38,7 +38,7 @@ WINDOW_HEAD_SUM = _CudaKernel("probe_kernels", "window_head_sum", 3, 8, _ERR, _B
 SLAB_SLOTS = _CudaKernel("probe_kernels", "slab_slots", 2, 1, _ERR, dtypes=())
 LANE_CONCAT = _CudaKernel("probe_kernels", "lane_concat", 2, 4, _ERR, _BF16)
 SUM_ROWS = _CudaKernel("probe_kernels", "sum_rows", 2, 2, _ERR, dtypes=())
-TILE_MATMUL = _CudaKernel("probe_kernels", "tile_matmul", 3, 3, _ERR, _BF16)
+TILE_MATMUL = _CudaKernel("probe_kernels", "tile_matmul", 3, 4, _ERR, _BF16)
 KERNELS = (WINDOW_COPY_SUM, WINDOW_HEAD_SUM, SLAB_SLOTS, LANE_CONCAT, SUM_ROWS,
            TILE_MATMUL)
 
@@ -243,10 +243,20 @@ def sum_rows_plain(rb: torch.Tensor, rows: int) -> torch.Tensor:
     return acc[None]
 
 
+# kd's tile (csrc/probe_kernels.cu): 16 rows x 32 columns per CTA
+KD_ROWS, KD_COLS = 16, 32
+
+
+def tile_matmul_ctas(m: int, n: int) -> int:
+    """CTAs of one ``tile_matmul`` launch: 32 at the probe's 512 x 32."""
+    return _cdiv(m, KD_ROWS) * _cdiv(n, KD_COLS)
+
+
 def tile_matmul(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """P5 ``kd``: ``g @ w[0]`` of (M, K) ``g`` and the (1, K, N) grouped
     weight block ``w``, bf16 products summed in f32 -> (M, N) f32, on
-    the band conv's tile (one tap, every row its own). CPU tensors take
+    K2's tensor-core tile (``csrc/mma_tile.cuh``; one tap, every row its
+    own; K and N zero-padded to multiples of 8). CPU tensors take
     ``tile_matmul_plain``; CUDA tensors launch ``csrc/probe_kernels.cu`` or
     raise."""
     m, k = g.shape
@@ -258,8 +268,13 @@ def tile_matmul(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     n = w.shape[2]
     out = torch.empty((m, n), dtype=torch.float32, device=g.device)
     if out.numel():
-        TILE_MATMUL.launch(g.dtype, g.device, g.data_ptr(), w.data_ptr(), out.data_ptr(),
-                           m, k, n)
+        kp, np_ = _cdiv(k, 8) * 8, _cdiv(n, 8) * 8
+        gp = _operand(g, kp)
+        wp = _operand(w[0], np_)
+        if kp != k:
+            wp = torch.nn.functional.pad(wp, (0, 0, 0, kp - k))
+        TILE_MATMUL.launch(g.dtype, g.device, gp.data_ptr(), wp.data_ptr(),
+                           out.data_ptr(), m, kp, n, np_)
     return out
 
 

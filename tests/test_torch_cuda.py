@@ -9,7 +9,8 @@ runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 The f32 comparisons run with TF32 off; the kernel and the plain version sum
-the same f32 products in another order, hence the 1e-5 relative bound. bf16
+the same f32 products in another order (K2 as 3xTF32 products, within about
+3 x 2^-22 of each f32 product), hence the 1e-5 relative bound. bf16
 inputs are multiplied and summed in f32 by both, in another order; they are
 held to 3e-2 of max|ref| (the bound bench.py:227 uses).
 dW is reduced over row chunks in a fixed order (no atomics), so K2/K3 are
@@ -81,8 +82,13 @@ def test_k1_matches_plain(cuda, block, window, cin, cout, dtype):
     assert _rel_err(out, ref.float()) <= (1e-5 if dtype == torch.float32 else 3e-2)
 
 
+# every width the fine-tune and pretrain steps route to K2, and ragged ones
+K2_WIDTHS = [(32, 32), (64, 64), (96, 96), (128, 96), (128, 128), (192, 128), (5, 7),
+             (40, 24), (130, 70)]
+
+
 @pytest.mark.parametrize("block,window", [(8, 32), (32, 8), (256, 384)])
-@pytest.mark.parametrize("cin,cout", [(5, 7), (40, 24), (96, 96), (130, 70)])
+@pytest.mark.parametrize("cin,cout", K2_WIDTHS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k2_k3_match_plain(cuda, block, window, cin, cout, dtype):
     coords = _scene(3000, (24, 24, 24)).to(cuda)
@@ -107,6 +113,35 @@ def test_k2_k3_match_plain(cuda, block, window, cin, cout, dtype):
         assert _rel_err(out, ref.float()) <= bound
     # deterministic: the same launch gives the same bits
     assert torch.equal(bc.band_dw_core(f, g, *args, *tail), dw3)
+    dx2, dwr2 = bc.band_dxdw_core(g, f, *args, wmt, *tail)
+    assert torch.equal(dx2, dx) and torch.equal(dwr2, dwr)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_dead_slabs(cuda, dtype):
+    """K2 on a plan whose taps are dead for whole 16-row slabs (the warps'
+    and the dW slabs' skips), with a slab dead in every tap and a tap dead
+    in every row, at 96 -> 96."""
+    coords = _scene(3000, (24, 24, 24)).to(cuda)
+    rb = build_subm_rulebook(coords, (24, 24, 24), 2, 3)
+    plan = bc.build_band_plan(rb, 3)
+    rbt = plan.rbt.clone()
+    rbt[16:32] = -1                   # one slab dead in every tap
+    rbt[48:64, :14] = -1              # one slab dead in half the taps
+    rbt[:, 5] = -1                    # one tap dead everywhere
+    rbt[160:1184, 20:] = -1           # whole dx CTAs and dW windows dead in most taps
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    n = rb.shape[1]
+    f = torch.randn(n, 96, device=cuda, generator=gen).to(dtype)
+    g = torch.randn(n, 96, device=cuda, generator=gen).to(dtype)
+    wmt = (torch.randn(27, 96, 96, device=cuda, generator=gen) / 96 ** 0.5).to(dtype)
+    args, tail = (rbt, plan.w0, wmt), (3, bc.BLOCK, bc.WINDOW)
+    dx, dwr = bc.band_dxdw_core(g, f, *args, *tail)
+    rdx, rdwr = bc.band_dxdw_core_plain(g, f, *args, *tail)
+    torch.cuda.synchronize()
+    bound = 1e-5 if dtype == torch.float32 else 3e-2
+    assert _rel_err(dx, rdx) <= bound and _rel_err(dwr, rdwr) <= bound
+    assert float(dwr[5].abs().max()) == 0.0
 
 
 def test_band_subm_conv_cuda_equals_plain_conv(cuda):
@@ -358,6 +393,21 @@ def test_grouped_construct_kernels_match_plain(cuda):
     out = pk.tile_matmul(g, w)
     torch.cuda.synchronize()
     assert out.shape == (333, 19) and _rel_err(out, pk.tile_matmul_plain(g, w)) <= 1e-5
+
+
+@pytest.mark.parametrize("m,k,n", [(512, 288, 32), (77, 288, 13), (1000, 40, 100)])
+def test_tile_matmul_matches_plain(cuda, m, k, n):
+    """P5 kd at the probe's (512, 288) x (288, 32), and at an M and an N
+    that are not multiples of 16 and 8; one launch each, deterministic."""
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    g = torch.randn(m, k, device=cuda, generator=gen).bfloat16()
+    w = torch.randn(1, k, n, device=cuda, generator=gen).bfloat16()
+    before = pk.TILE_MATMUL.launches
+    out = pk.tile_matmul(g, w)
+    assert pk.TILE_MATMUL.launches == before + 1
+    torch.cuda.synchronize()
+    assert out.shape == (m, n) and _rel_err(out, pk.tile_matmul_plain(g, w)) <= 1e-5
+    assert torch.equal(pk.tile_matmul(g, w), out)
 
 
 def test_probe_kernels_reject_bad_input(cuda):

@@ -12,8 +12,8 @@ phases; any failure exits non-zero:
 1. print the card's name and power limit; refuse to run without CUDA;
 2. build every kernel with nvcc, one process per source in parallel: K1
    (``ponderv2_tpu_torch/csrc/band_conv.cu``), K2 and K3
-   (``csrc/band_conv_bwd.cu``; K2 and P5 ``kd`` on the tensor-core tiles of
-   ``csrc/mma_tile.cuh``), K4, K5 and the P7 ablations' forward
+   (``csrc/band_conv_bwd.cu``; K1-K3 and P5 ``kd`` on the tensor-core tiles
+   of ``csrc/mma_tile.cuh``), K4, K5 and the P7 ablations' forward
    (``csrc/windowed_gather.cu``), the row gather-sum
    (``csrc/row_gather.cu``) and the window-read and grouped-construct
    kernels (``csrc/probe_kernels.cu``); print ptxas registers and spills;
@@ -21,7 +21,9 @@ phases; any failure exits non-zero:
    (level, Cin, Cout) band conv of the serving slice, at the level row
    counts of a real fragment, in f32 (TF32 off) and bf16, plus a
    window-overflow case and a zero-gated (``pair_budget=0``) case, and time
-   both;
+   both; print each conv's live entries and the rows the compacted and the
+   slab tile multiply (K1 runs the first in f32 and the second in bf16, K2's
+   dx the second), counted from the plan;
 4. serve ``configs/_test_/semseg_spunet_scannet_synthetic.py`` through
    ``tools/test_torch.py:main_worker`` with seeded random weights: 2 scenes x
    4 rotations x (6 or 9) fragments = 60 forwards of 78-85k voxels at full
@@ -35,14 +37,17 @@ phases; any failure exits non-zero:
    counts against the routing, and that the checkpoint loads;
 7. compare K1, K2 and K3 with their plain versions at every distinct
    (level, Cin, Cout) band conv of that training batch, in f32 and bf16,
-   time each in f32 where the step runs it, and run the backward through
+   time each in f32 where the step runs it (with the rows K1 and K2's dx
+   multiply), and run the backward through
    the autograd wrapper with window overflow and with ``pair_budget=0``;
-8. run one step's forward and backward from the saved state three times
-   with the kernels, then three times with all three replaced by their
-   plain versions (and once more with the plain versions summing in
-   another order: taps reversed, dW rows in two halves), and compare the
-   loss and every parameter's gradient
-   (within 1e-3 of its max|ref| plus 3x the measured spread);
+8. run one step's forward and backward from the saved state twice with
+   the kernels, then twice with all three replaced by their plain versions
+   (and once more with the plain versions summing in another order: taps
+   reversed, dW rows in two halves); require equal bits between the two
+   runs of each path (loss and every gradient), and hold the kernel path's
+   loss and gradients to the plain path's (each gradient within 1e-3 of its
+   max|ref| plus 3x its difference between the plain and the reordered
+   plain run);
 9. pretrain ``configs/_test_/pretrain_bench_torch.py`` (bench.py's
    workload: PonderIndoor-v2 with SpUNet-v1m1, UNet3D-v1m2 and NeuS at full
    width, bf16, batch 2 of 100k-point RGB-D scenes) through
@@ -50,12 +55,12 @@ phases; any failure exits non-zero:
    loss, ``contract_ok``, lr and K1/K2/K3 launches against the routing;
 10. compare K1, K2 and K3 with their plain versions at every distinct
     (level, Cin, Cout) band conv of that pretrain batch, in f32 and bf16,
-    and time each in bf16 (the step's dtype) where the step runs it;
+    and time each in bf16 (the step's dtype) where the step runs it (with
+    the rows K1 and K2's dx multiply);
 11. run one pretrain step's forward and backward from the seeded state
-    (the same random draws each time) three times with the kernels and
-    three times with the plain versions, and compare the loss and every
-    gradient (within 3e-2, the bf16 bound of bench.py:227, of its max|ref|
-    plus 3x the spread measured in bf16);
+    (the same random draws each time) as in 8: equal bits run to run on
+    each path, and kernel vs plain within 3e-2 (the bf16 bound of
+    bench.py:227) of max|ref| plus 3x the reordered plain run's difference;
 12. run the windowed conv entry point
     (``tools/experiments/probe_windowed_torch.py:windowed_conv``, K4 and
     K5) in bf16 at the probe's four shapes and on two rulebooks of the
@@ -216,18 +221,53 @@ def bound_ms(moved_bytes, flops, dtype):
     return max(t_bytes, t_ops), t_bytes, t_ops
 
 
-def band_live_entries(plan, n, kz=3):
-    """In-window entries of a band plan over its first ``n`` rows: the ones
-    K1-K3 multiply (overflow entries go to the plain residual)."""
+def band_live_mask(plan, n, kz=3, block=None, window=None):
+    """(n, K^3) bool: the in-window entries of a band plan over its first
+    ``n`` rows, the ones K1-K3 multiply (overflow entries go to the plain
+    residual); ``block``/``window`` default to the band conv's."""
     import torch
 
     from ponderv2_tpu_torch.ops import band_conv as bc
 
+    block, window = block or bc.BLOCK, window or bc.WINDOW
     rbt = plan.rbt[:n].to(torch.int64)
     i = torch.arange(n, device=rbt.device)
     cols = torch.arange(rbt.shape[1], device=rbt.device) // kz
-    pos = rbt - plan.w0.to(torch.int64)[cols[None, :], (i // bc.BLOCK)[:, None]]
-    return int(((rbt >= 0) & (pos >= 0) & (pos < bc.WINDOW)).sum())
+    pos = rbt - plan.w0.to(torch.int64)[cols[None, :], (i // block)[:, None]]
+    return (rbt >= 0) & (pos >= 0) & (pos < window)
+
+
+def band_live_entries(plan, n, kz=3):
+    return int(band_live_mask(plan, n, kz).sum())
+
+
+def band_rows_multiplied(plan, n, kz=3, block=None, window=None):
+    """(in-window entries, rows the compacted tile multiplies, rows the slab
+    tile multiplies) of a band plan over its first ``n`` rows, per output
+    column tile, counted from the plan as the tiles decide: the compacted
+    tile (``mma_tile.cuh:compact_gather_gemm``, K1 in f32) multiplies, per
+    tile of ``K1_TILE`` rows and tap, the live entries rounded up to whole
+    16-row slabs; the slab tile (``gather_gemm``: K2's dx, K1 in bf16)
+    every 16-row slab that holds a live entry of the tap."""
+    import torch
+
+    from ponderv2_tpu_torch.ops import band_conv as bc
+
+    live = band_live_mask(plan, n, kz, block, window)
+    k3 = live.shape[1]
+    rows = bc.K1_TILE[0]
+    live = torch.cat([live, live.new_zeros((-n % rows, k3))])
+    per_tile = live.reshape(-1, rows, k3).sum(1)
+    compacted = int(((per_tile + 15) // 16 * 16).sum())
+    slabs = int(live.reshape(-1, 16, k3).any(1).sum()) * 16
+    return int(live.sum()), compacted, slabs
+
+
+def k1_tile(dtype):
+    """Which tile K1 runs in ``dtype`` (``ops/band_conv.py:fwd_plan``)."""
+    from ponderv2_tpu_torch.ops import band_conv as bc
+
+    return "compacted" if bc.fwd_plan(1, 8, 8, 27, dtype).compact else "slabs"
 
 
 def band_op_bound(op, plan, n, cin, cout, dtype):
@@ -311,8 +351,11 @@ def compare_band_kernels(convs, fused, level_rb, level_coords, gen, dtype, stats
                 timing = f" {t_k:.3f}/{t_p:.3f} ms (bound {b:.4f})"
             line.append(f"{op} err {max(e for e, _ in errs):.2e} "
                         f"bf16 {max(e for e, _ in errs_b):.2e}{timing}")
+        live, compacted, slabs = band_rows_multiplied(plan, n)
         print(f"[band] L{level} rows {n} {cin}->{cout} x{count} "
-              f"{'fused' if fused[(level, cin, cout)] else 'split'}: " + "; ".join(line))
+              f"{'fused' if fused[(level, cin, cout)] else 'split'}: " + "; ".join(line)
+              + f"; live entries {live}, rows multiplied per column tile: compacted "
+              f"{compacted}, slabs {slabs} (K1 {k1_tile(dtype)}, K2's dx slabs)")
         del f, g, w, wmt, low, timed
 
 
@@ -497,10 +540,13 @@ def main() -> int:
             k1_serve_err = max(k1_serve_err, err)
             k1_ms += count * t_k
             plain_ms += count * t_p
+            live, compacted, slabs = band_rows_multiplied(plan, n)
             print(f"[K1] L{level} rows {n} {cin}->{cout} x{count}: max_abs_err f32 "
                   f"{err:.3e} (max|ref| {scale:.3e}) bf16 {errb:.3e}; "
-                  f"K1 {t_k:.4f} ms plain {t_p:.4f} ms; band ok {bool(plan.ok)} "
-                  f"overflow entries {sum(plan.ov_counts)}")
+                  f"K1 ({k1_tile(torch.float32)}) {t_k:.4f} ms plain {t_p:.4f} "
+                  f"ms; band ok {bool(plan.ok)} overflow entries {sum(plan.ov_counts)}; live "
+                  f"entries {live}, rows multiplied per column tile: compacted {compacted}, "
+                  f"slabs {slabs}")
 
         # window overflow (block 32 / window 8) and budget gating, through
         # the whole band_subm_conv wrapper against the plain gather conv
@@ -779,61 +825,69 @@ def main() -> int:
                     setattr(bc, name, fn)
 
         def grads_kernel_vs_plain(tag, gmodel, inputs, expect, loss_rel, grad_rel,
-                                  loss_spread, runs=2):
-            """``runs`` runs of each path, and one of the plain path summing
-            in another order (``reordered_fwd``): a step's grads are not bitwise
-            reproducible (index_add_ and the backward of row gathers
-            accumulate with atomics), the kernels sum in another order than
-            the plain versions, and the deepest encoder convs' dW, summed
-            over up to ~1M rows into a BN-centred cotangent, cancel, so
-            order noise reaches ~1e-2 of their max|grad| between two runs of
-            the SAME path. Each tensor is held to ``grad_rel`` of its
-            max|ref| plus 3x that measured spread (the largest difference
-            from the first run of its path: later runs of both paths, and
-            the reordered plain run); the loss to ``loss_rel`` (plus 3x
-            its spread if ``loss_spread``)."""
-            kern = [step_grads(gmodel, inputs) for _ in range(runs)]
-            plain = [step_grads(gmodel, inputs, plain_cores) for _ in range(runs)]
-            plain.append(step_grads(gmodel, inputs, reordered_cores))
+                                  loss_spread):
+            """Two runs of each path, and one of the plain path summing in
+            another order (``reordered_fwd``). The step is reproducible
+            (cuDNN deterministic, every sum in a fixed order), so the two
+            runs of a path must give equal bits, loss and every gradient.
+            The kernels sum in another order than the plain versions, and
+            the deepest encoder convs' dW, summed over up to ~1M rows into a
+            BN-centred cotangent, cancel; so each gradient is held to
+            ``grad_rel`` of its max|ref| plus 3x its difference between the
+            plain run and the reordered plain run (a real change of
+            summation order); the loss to ``loss_rel`` (plus 3x that
+            difference if ``loss_spread``)."""
+            kern = [step_grads(gmodel, inputs) for _ in range(2)]
+            plain = [step_grads(gmodel, inputs, plain_cores) for _ in range(2)]
+            reordered = step_grads(gmodel, inputs, reordered_cores)
             (loss_k, grads_k, launched_k, secs_k), (loss_p, grads_p, launched_p, secs_p) = (
                 kern[0], plain[0])
             check(launched_k == expect and launched_p == [0, 0, 0],
                   f"{tag}: launches kernel path {launched_k}, plain path {launched_p}")
-            spread_l = max(abs(r[0] - first[0]) for first, rest in ((kern[0], kern[1:]),
-                                                                     (plain[0], plain[1:]))
-                           for r in rest)
+            for path, (first, second) in (("kernel", kern), ("plain", plain)):
+                unequal = [n for n, g in first[1].items() if not torch.equal(second[1][n], g)]
+                check(first[0] == second[0] and not unequal,
+                      f"{tag}: two runs of the {path} path differ: loss {first[0]!r} vs "
+                      f"{second[0]!r}, {len(unequal)} grads, e.g. {unequal[:3]}")
+            spread_l = abs(reordered[0] - loss_p)
             check(abs(loss_k - loss_p) <= loss_rel * abs(loss_p)
                   + (3 * spread_l if loss_spread else 0.0),
-                  f"{tag}: loss kernel {loss_k} vs plain {loss_p} (spread {spread_l})")
+                  f"{tag}: loss kernel {loss_k} vs plain {loss_p} (reordered {reordered[0]})")
             check(sorted(grads_k) == sorted(grads_p), f"{tag}: grads of other params")
-            rows = []
+            rows, margins = [], []
             for name, ref in grads_p.items():
                 scale = ref.abs().max().item()
                 err = (grads_k[name] - ref).abs().max().item()
-                spread = max((r[1][name] - first[1][name]).abs().max().item()
-                             for first, rest in ((kern[0], kern[1:]), (plain[0], plain[1:]))
-                             for r in rest)
+                spread = (reordered[1][name] - ref).abs().max().item()
                 rows.append((err / max(scale, 1e-30), spread / max(scale, 1e-30), name))
-                check(err <= grad_rel * scale + 3 * spread,
-                      f"{tag}: grad {name}: err {err:.3e} > {grad_rel} x {scale:.3e} + "
-                      f"3 x spread {spread:.3e}")
+                margins.append((err / max(grad_rel * scale + 3 * spread, 1e-30), name, err,
+                                scale, spread))
+            margins.sort()
+            print(f"[grad] {tag}: the 3 grads closest to their bound (err / (grad_rel "
+                  "x max|ref| + 3 x reordered)): " + "; ".join(
+                      f"{name} {m:.3f} (err {e:.3e}, max|ref| {sc:.3e}, reordered {sp:.3e})"
+                      for m, name, e, sc, sp in margins[-3:]), flush=True)
+            for m, name, err, scale, spread in margins:
+                check(m <= 1.0, f"{tag}: grad {name}: err {err:.3e} > {grad_rel} x "
+                      f"{scale:.3e} + 3 x reordered {spread:.3e}")
             rows.sort()
             strict = sum(r[0] <= 1e-3 for r in rows)
-            print(f"[grad] {tag}: loss kernel {loss_k:.7f} plain {loss_p:.7f} (run-to-run "
-                  f"spread {spread_l:.3e}); {strict} of {len(rows)} grads within 1e-3 of "
-                  f"their max|ref|; worst {rows[-1][2]} at {rows[-1][0]:.3e} (run-to-run "
-                  f"spread {rows[-1][1]:.3e}); largest spread "
-                  f"{max(r[1] for r in rows):.3e}; forward+backward {1e3 * secs_k:.1f} ms "
-                  f"with the kernels, {1e3 * secs_p:.1f} ms plain")
+            print(f"[grad] {tag}: two runs of each path equal bit for bit; loss kernel "
+                  f"{loss_k:.7f} plain {loss_p:.7f} (reordered plain {reordered[0]:.7f}); "
+                  f"{strict} of {len(rows)} grads within 1e-3 of their max|ref|; worst "
+                  f"{rows[-1][2]} at {rows[-1][0]:.3e} (reordered plain {rows[-1][1]:.3e}); "
+                  f"largest reordered-plain difference {max(r[1] for r in rows):.3e}; "
+                  f"forward+backward {1e3 * secs_k:.1f} / {1e3 * kern[1][3]:.1f} ms with the "
+                  f"kernels, {1e3 * secs_p:.1f} / {1e3 * plain[1][3]:.1f} ms plain")
             for ratio, spread, name in rows[-5:]:
-                print(f"[grad]   {name}: kernel vs plain {ratio:.3e}, spread {spread:.3e} "
-                      "(of max|ref|)")
+                print(f"[grad]   {name}: kernel vs plain {ratio:.3e}, reordered plain "
+                      f"{spread:.3e} (of max|ref|)")
 
         gmodel = build_model(dict(tcfg.model)).to(dev)
         gmodel.load_state_dict(state)
         gmodel.train()
         grads_kernel_vs_plain("fine-tune step from the trained state", gmodel, b_inputs,
-                              per_step, 1e-5, 1e-3, False, runs=3)
+                              per_step, 1e-5, 1e-3, False)
         del gmodel, state, b_inputs, level_rb, level_coords, st12
         gc.collect()
         torch.cuda.empty_cache()
@@ -916,7 +970,7 @@ def main() -> int:
         B, V, H, W = p_inputs["depth"].shape
         draws = gmodel.draw_noise(torch.Generator(device=dev).manual_seed(SEED), B, V, H * W)
         grads_kernel_vs_plain("pretrain step from the seeded state (bf16)", gmodel,
-                              {**p_inputs, "draws": draws}, p_step, 3e-2, 3e-2, True, runs=3)
+                              {**p_inputs, "draws": draws}, p_step, 3e-2, 3e-2, True)
 
         del gmodel, draws
         gc.collect()

@@ -1,16 +1,11 @@
-// Device tiles shared by the windowed gather-GEMM kernels: the band conv
-// (band_conv.cu: K1; band_conv_bwd.cu: K2, K3) and the windowed conv
-// (windowed_gather.cu: K4, K5). A tile reads its tap entries through a
-// functor ``rows(i, t)`` that returns the input row j of output row i and
-// tap t, or -1 where the entry is absent or outside its window. The band
-// plan's functor (BandRows) applies, for t = column * kz + dz,
-//
-//     j = rbt[i, t],  live = j >= 0 && 0 <= j - w0[t / kz, i / block] < window
-//
-// so the kernels drop exactly the entries the plan's overflow list holds,
-// as the TPU kernels do (band_conv.py:_overflow_residual / _overflow_dw add
-// them back). Every tile is 256 threads, 16 x 16, each accumulating a 4 x 4
-// f32 block in registers on CUDA cores.
+// CUDA-core tiles of the windowed conv kernels (windowed_gather.cu: K4, K5
+// and the P7 slab forward). A tile reads its tap entries through a functor
+// ``rows(i, t)`` that returns the input row j of output row i and tap t, or
+// -1 where the entry is absent or outside its window (windowed_gather.cu:
+// WindowRows, SlabRows). Every tile is 256 threads, 16 x 16, each
+// accumulating a 4 x 4 f32 block in registers on CUDA cores. The band conv's
+// kernels (K1-K3) left these tiles for the tensor-core tiles of
+// mma_tile.cuh; only the windowed kernels still run them.
 
 #pragma once
 
@@ -18,6 +13,8 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "band_rows.cuh"
 
 namespace band {
 
@@ -30,23 +27,6 @@ __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-
-// The band plan's entries: the in-window input row of (i, t), or -1.
-struct BandRows {
-  const int* rbt;  // (npad, k3)
-  const int* w0;   // (k3 / kz, nblocks)
-  int n, k3, kz, nblocks, block, window;
-
-  __device__ __forceinline__ int operator()(int i, int t) const {
-    if (i >= n) return -1;
-    int j = rbt[(size_t)i * k3 + t];
-    if (j >= 0) {
-      const int pos = j - w0[(t / kz) * nblocks + i / block];
-      if (pos < 0 || pos >= window) j = -1;
-    }
-    return j;
-  }
-};
 
 // out[row0 : row0 + 64, col0 : col0 + 64] = sum_t feats[rows(i, t)] @ W[t]
 // over live entries. Per tap it stages the 64 gathered rows (zero where
@@ -208,28 +188,6 @@ __device__ __forceinline__ void dw_tile(
       if (co < cout) part[(size_t)ci * cout + co] = acc[p][q];
     }
   }
-}
-
-// out[e] = sum_s partial[s, e] over the nchunks partials, in chunk order:
-// the second, fixed-order pass of a dW reduction, so that dW is
-// deterministic.
-__global__ void __launch_bounds__(THREADS)
-reduce_partials(const float* __restrict__ partial, float* __restrict__ out,
-                long long total, int nchunks) {
-  for (long long e = (long long)blockIdx.x * THREADS + threadIdx.x; e < total;
-       e += (long long)gridDim.x * THREADS) {
-    float s = 0.f;
-    for (int c = 0; c < nchunks; ++c) s += partial[(size_t)c * total + e];
-    out[e] = s;
-  }
-}
-
-inline int launch_reduce(const float* partial, float* out, long long total,
-                         int nchunks, cudaStream_t stream) {
-  const long long want = (total + THREADS - 1) / THREADS;
-  const int grid = (int)(want < 65535 ? want : 65535);
-  reduce_partials<<<grid, THREADS, 0, stream>>>(partial, out, total, nchunks);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace band

@@ -1,18 +1,24 @@
-// Tensor-core gather-GEMM tiles for Hopper: the band conv's fused backward
-// (band_conv_bwd.cu: K2) and the probe product tile_matmul
+// Tensor-core gather-GEMM tiles for Hopper: the band conv's forward
+// (band_conv.cu: K1), fused backward (band_conv_bwd.cu: K2) and split dW
+// (band_conv_bwd.cu: K3), and the probe product tile_matmul
 // (probe_kernels.cu: P5 kd).
 //
 // Replaces, on the card, the Pallas TPU kernels
-// ponderv2_tpu/ops/band_conv.py:278 _dxdw_kernel (K2) and
-// tools/experiments/probe_pallas_bisect3.py:96 kd. Both are sums of products
+// ponderv2_tpu/ops/band_conv.py:192 _fwd_kernel (K1), :278 _dxdw_kernel
+// (K2), :222 _dw_kernel (K3) and
+// tools/experiments/probe_pallas_bisect3.py:96 kd. All are sums of products
 // of gathered rows: a row functor ``rows(i, t)`` gives the input row j of
 // output row i and tap t, or -1 where the entry is absent or outside its
-// window (band_conv_tile.cuh:BandRows; the identity for kd).
+// window (band_rows.cuh:BandRows; the identity for kd).
 //
-//   gather_gemm     out[i, c]  = sum_t sum_k a[rows(i, t), k] b[t, k, c]
-//                   (K2's dx: a = g, b = Wm; kd: one tap, rows(i) = i)
-//   dw_gather_gemm  part[m, c] = sum_i f[i, m] g[rows(i, t), c]
-//                   over a chunk of rows (K2's dW, one tap per CTA)
+//   gather_gemm          out[i, c]  = sum_t sum_k a[rows(i, t), k] b[t, k, c]
+//                        over whole 16-row slabs (K2's dx: a = g, b = Wm;
+//                        kd: one tap, rows(i) = i)
+//   compact_gather_gemm  the same function over the live entries only
+//                        (K1: a = feats or g, b = W or Wm)
+//   dw_gather_gemm       part[m, c] = sum_i f[i, m] g[rows(i, t), c]
+//                        over a chunk of rows (K2's and K3's dW, one tap
+//                        per CTA)
 //
 // What bounds them on an H100: at the band conv's widths (32-192 channels)
 // a live entry costs one gathered row (64-768 B, mostly from L2) per
@@ -36,9 +42,11 @@
 //   by the wrapper per conv, so 96-channel levels multiply no padding.
 // - Skipping: in gather_gemm each warp owns a 16-row slab and skips a tap
 //   whose 16 entries are all dead (a warp vote); the CTA loads only taps
-//   that some warp needs. dw_gather_gemm reduces over rows, so it compacts
-//   the live entries of each 1024-row window (in row order) and multiplies
-//   only them.
+//   that some warp needs. compact_gather_gemm compacts each tap's live
+//   entries of its rows (in row order) and multiplies only them, adding
+//   the products into an output tile in shared memory. dw_gather_gemm
+//   reduces over rows, so it compacts the live entries of each 1024-row
+//   window (in row order) and multiplies only them.
 //
 // kStageSums: the tensor cores add into their f32 accumulator rounding
 // toward zero, so a sum kept there over thousands of mma (dW's row chunks)
@@ -356,6 +364,183 @@ __device__ __forceinline__ void gather_gemm(const T* __restrict__ a, const Rows&
     store(out, ldo, row0 + r, c + 1, m, ncols, acc[q][1]);
     store(out, ldo, row0 + r + 8, c, m, ncols, acc[q][2]);
     store(out, ldo, row0 + r + 8, c + 1, m, ncols, acc[q][3]);
+  }
+}
+
+// ------------------------------------------------------------------ compact_gather_gemm
+
+// out[row0 : row0 + BM, col0 : col0 + NT] = sum over taps t < taps, in
+// order, of a[rows(i, t)] b[t] over the live entries only (gather_gemm's
+// function, without its dead rows). BM (a multiple of 32, at most 256)
+// output rows per CTA, 8 warps.
+//
+// - Entries: the tile's rows(i, t) are read once (along rbt's rows, so the
+//   reads coalesce) into a (tap, row) table; then warp w compacts taps w,
+//   w + 8, ... in place, in row order (a ballot and a running prefix per
+//   32 rows), keeping each live entry's input row and local output row.
+// - Stages: (live tap, KC-deep chunk) pairs, NS in flight (cp.async). A
+//   stage copies the tap's compacted rows, rounded up to whole 16-row
+//   slabs (zero-filled past the last live one), and W[t]'s KC x NT slice.
+// - Products: a stage's work is ceil(live / 16) slabs x NT / 32 column
+//   groups; each warp takes items w, w + 8, ..., multiplies its slab and
+//   32 columns from zero (gg_mult: bf16 mma, f32 as 3xTF32), and adds the
+//   16 x 32 result into an f32 output tile in shared memory at the rows
+//   the list names, with round-to-nearest adds.
+// - Order: within a stage the items' rows and columns are disjoint, and a
+//   barrier separates stages, which run in (tap, chunk) order; so every
+//   output element is summed in one fixed order, with no atomics, and no
+//   sum is kept in a tensor-core accumulator for longer than one stage.
+// - Epilogue: the tile is written once, coalesced.
+template <typename T_, int NT_, int BM_, int KC_, int NS_>
+struct CompactGemm {
+  using T = T_;
+  static constexpr int NT = NT_, BM = BM_, KC = KC_, NS = NS_;
+  static constexpr int THREADS = 256, WARPS = THREADS / 32;
+  static constexpr int CG = 32;  // columns of a warp's item: 4 n-tiles
+  static constexpr int NG = NT / CG;
+  static constexpr int LDA = KC + (sizeof(T) == 2 ? 8 : 4);  // as GatherGemm's
+  static constexpr int LDB = NT + 8;
+  static constexpr int LDO = NT + 8;  // f32 output tile, 8 mod 32 words
+  static constexpr int STAGE = BM * LDA + KC * LDB;  // elements
+  static_assert(NT % CG == 0 && KC % Elt<T>::KSTEP == 0 && NS >= 2 && BM % 32 == 0 &&
+                    BM <= 256,
+                "tile shape");
+
+  // stages | output tile (f32) | entries (int, taps x BM) | counts and the
+  // live-tap list (int, 32 + 33) | local rows (uint8, taps x BM)
+  static __host__ __device__ constexpr size_t smem_bytes(int taps) {
+    return (size_t)NS * STAGE * sizeof(T) + (size_t)BM * LDO * 4 + (size_t)taps * BM * 4 +
+           65 * 4 + (size_t)taps * BM;
+  }
+};
+
+template <typename C, typename Rows, typename T = typename C::T>
+__device__ __forceinline__ void compact_gather_gemm(const T* __restrict__ a, const Rows& rows_of,
+                                                    int taps, const T* __restrict__ b, int kdim,
+                                                    int ldb, float* __restrict__ out, int ldo,
+                                                    int m, int ncols, int row0, int col0,
+                                                    unsigned char* smem) {
+  constexpr int NT = C::NT, BM = C::BM, KC = C::KC, NS = C::NS;
+  constexpr int THREADS = C::THREADS, WARPS = C::WARPS, LDA = C::LDA, LDB = C::LDB;
+  constexpr int LDO = C::LDO, NG = C::NG, VEC = Elt<T>::VEC;
+  constexpr int ACH = KC / VEC, BCH = NT / VEC;
+  T* stages = reinterpret_cast<T*>(smem);
+  float* outs = reinterpret_cast<float*>(smem + (size_t)NS * C::STAGE * sizeof(T));
+  int* lj = reinterpret_cast<int*>(outs + BM * LDO);  // [t][pos]: input row
+  int* cnt = lj + taps * BM;                          // [32]: live entries per tap
+  int* tap_list = cnt + 32;                           // [32] and the count
+  unsigned char* li = reinterpret_cast<unsigned char*>(tap_list + 33);  // [t][pos]: row - row0
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  for (int e = tid; e < BM * NT / 4; e += THREADS) {
+    const int r = e / (NT / 4), c = (e % (NT / 4)) * 4;
+    *reinterpret_cast<float4*>(outs + r * LDO + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int e = tid; e < taps * BM; e += THREADS) {
+    const int r = e / taps, t = e % taps;
+    lj[t * BM + r] = row0 + r < m ? rows_of(row0 + r, t) : -1;
+  }
+  __syncthreads();
+  // in place: the entries of rows g.. land at positions < g + 32, which
+  // the warp has read already
+  for (int t = warp; t < taps; t += WARPS) {
+    int* jt = lj + t * BM;
+    unsigned char* it = li + t * BM;
+    int base = 0;
+    for (int g = 0; g < BM; g += 32) {
+      const int j = jt[g + lane];
+      const unsigned vote = __ballot_sync(0xffffffffu, j >= 0);
+      if (j >= 0) {
+        const int pos = base + __popc(vote & ((1u << lane) - 1u));
+        jt[pos] = j;
+        it[pos] = static_cast<unsigned char>(g + lane);
+      }
+      base += __popc(vote);
+    }
+    if (lane == 0) cnt[t] = base;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int c = 0;
+    for (int t = 0; t < taps; ++t)
+      if (cnt[t] > 0) tap_list[c++] = t;
+    tap_list[32] = c;
+  }
+  __syncthreads();
+  const int nkc = (kdim + KC - 1) / KC;
+  const int nstages = tap_list[32] * nkc;
+
+  // stage s: tap tap_list[s / nkc], depth (s % nkc) KC
+  auto copy = [&](int s) {
+    T* As = stages + (s % NS) * C::STAGE;
+    T* Bs = As + BM * LDA;
+    const int t = tap_list[s / nkc], k0 = (s % nkc) * KC, live = cnt[t];
+    const int* jt = lj + t * BM;
+    const int nrows = (live + 15) / 16 * 16;
+    for (int e = tid; e < nrows * ACH; e += THREADS) {
+      const int r = e / ACH, c = (e % ACH) * VEC;
+      const bool ok = r < live && k0 + c < kdim;
+      cp_async16(As + r * LDA + c, ok ? a + (size_t)jt[r] * kdim + k0 + c : a, ok);
+    }
+    const T* bt = b + (size_t)t * kdim * ldb;
+    for (int e = tid; e < KC * BCH; e += THREADS) {
+      const int k = e / BCH, c = (e % BCH) * VEC;
+      const bool ok = k0 + k < kdim && col0 + c < ldb;
+      cp_async16(Bs + k * LDB + c, ok ? bt + (size_t)(k0 + k) * ldb + col0 + c : b, ok);
+    }
+  };
+
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < nstages) copy(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nstages; ++s) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();  // stage s landed; stage s - 1's products are added
+    if (s + NS - 1 < nstages) copy(s + NS - 1);
+    cp_async_commit();
+    const T* As = stages + (s % NS) * C::STAGE;
+    const T* Bs = As + BM * LDA;
+    const int t = tap_list[s / nkc], live = cnt[t];
+    const unsigned char* it = li + t * BM;
+    const int items = (live + 15) / 16 * NG;
+    for (int item = warp; item < items; item += WARPS) {
+      const int slab = item / NG, cg = item % NG;
+      float acc[4][4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.f;
+      gg_mult<T, 4, KC, LDA, LDB>(acc, As + slab * 16 * LDA, Bs + cg * C::CG, lane);
+      const int p0 = slab * 16 + (lane >> 2), p1 = p0 + 8;
+      const int c = cg * C::CG + 2 * (lane & 3);
+      if (p0 < live) {
+        float* o = outs + it[p0] * LDO + c;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float2 v = *reinterpret_cast<float2*>(o + q * 8);
+          v.x += acc[q][0];
+          v.y += acc[q][1];
+          *reinterpret_cast<float2*>(o + q * 8) = v;
+        }
+      }
+      if (p1 < live) {
+        float* o = outs + it[p1] * LDO + c;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float2 v = *reinterpret_cast<float2*>(o + q * 8);
+          v.x += acc[q][2];
+          v.y += acc[q][3];
+          *reinterpret_cast<float2*>(o + q * 8) = v;
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  for (int e = tid; e < BM * NT; e += THREADS) {
+    const int r = e / NT, c = e % NT;
+    if (row0 + r < m && col0 + c < ncols) out[(size_t)(row0 + r) * ldo + col0 + c] = outs[r * LDO + c];
   }
 }
 

@@ -4,13 +4,10 @@ from __future__ import annotations
 
 import argparse
 import os
-import random
 from typing import Optional
 
-import numpy as np
-import torch
-
 from ..utils.config import Config, DictAction
+from ..utils.env import set_seed
 
 
 def default_argument_parser(epilog: Optional[str] = None) -> argparse.ArgumentParser:
@@ -45,10 +42,7 @@ def default_config_parser(file_path: str, options: Optional[dict]) -> Config:
 
 
 def default_setup(cfg: Config) -> Config:
-    """Seed python, numpy and torch from ``cfg.seed`` (one process)."""
-    seed = int(cfg.get("seed") or 0)
-    random.seed(seed)
-    np.random.seed(seed)
-    torch.manual_seed(seed)
-    cfg.seed = seed
+    """Seed python, numpy and torch from ``cfg.seed`` (one process), with
+    cuDNN deterministic (``utils/env.py:set_seed``)."""
+    cfg.seed = set_seed(int(cfg.get("seed") or 0))
     return cfg

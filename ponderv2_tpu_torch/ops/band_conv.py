@@ -12,9 +12,10 @@ Three cores carry the TPU kernels: ``band_fwd_core`` (K1, the forward and
 the split backward's dx), ``band_dxdw_core`` (K2, the fused dx + dW) and
 ``band_dw_core`` (K3, the split dW). On a CUDA tensor each launches its
 kernel (``csrc/band_conv.cu``, ``csrc/band_conv_bwd.cu``, built with nvcc at
-first use; K2 on the tensor-core tiles of ``csrc/mma_tile.cuh``) or raises;
-on a CPU tensor it runs its ``*_plain`` version, a per-tap masked gather +
-matmuls of the same function. ``band_subm_conv`` is
+first use, all three on the tensor-core tiles of ``csrc/mma_tile.cuh``,
+planned by ``fwd_plan``, ``dxdw_plan`` and ``dw_plan``) or raises; on a CPU
+tensor it runs its ``*_plain`` version, a per-tap masked gather + matmuls of
+the same function. ``band_subm_conv`` is
 a ``torch.autograd.Function`` over them, with the JAX package's backward
 routing (``fused_bwd_fits``).
 """
@@ -25,6 +26,8 @@ import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from .scatter import ordered_scatter_add
 
 BLOCK = 256
 WINDOW = 384
@@ -227,10 +230,10 @@ class _CudaKernel:
         self.launches += 1
 
 
-BAND_FWD = _CudaKernel("band_conv", "band_fwd", 5, 8, "band_error_string")
+BAND_FWD = _CudaKernel("band_conv", "band_fwd", 5, 10, "band_error_string")
 BAND_DXDW = _CudaKernel("band_conv_bwd", "band_dxdw", 8, 14,
                         "band_bwd_error_string")
-BAND_DW = _CudaKernel("band_conv_bwd", "band_dw", 6, 10, "band_bwd_error_string")
+BAND_DW = _CudaKernel("band_conv_bwd", "band_dw", 6, 14, "band_bwd_error_string")
 KERNELS = (BAND_FWD, BAND_DXDW, BAND_DW)
 
 
@@ -297,7 +300,9 @@ def band_fwd_core(features: torch.Tensor, rbt: torch.Tensor, w0: torch.Tensor,
 
     Entries outside their window are dropped (the caller adds the overflow
     residual). CPU tensors take ``band_fwd_core_plain``; CUDA tensors launch
-    ``csrc/band_conv.cu`` and raise on anything it does not take."""
+    ``csrc/band_conv.cu`` (a tensor-core tile of ``csrc/mma_tile.cuh``,
+    picked and planned by ``fwd_plan``) and raise on anything it does not
+    take."""
     if not _on_cuda("band_fwd_core", features):
         return band_fwd_core_plain(features, rbt, w0, weights, kz, block, window)
     n, cin = features.shape
@@ -306,13 +311,19 @@ def band_fwd_core(features: torch.Tensor, rbt: torch.Tensor, w0: torch.Tensor,
     if cin_w != cin or k3 != rbt.shape[1]:
         raise ValueError(f"band_fwd_core: weights {tuple(weights.shape)} for "
                          f"features {tuple(features.shape)}")
+    if k3 > 32:
+        raise ValueError(f"band_fwd_core: {k3} taps, the kernel takes at most 32")
     out = torch.empty((n, cout), dtype=torch.float32, device=features.device)
     if n == 0 or cout == 0:
         return out
-    BAND_FWD.launch(features.dtype, features.device, features.data_ptr(),
-                    rbt.data_ptr(), w0.data_ptr(), weights.data_ptr(),
-                    out.data_ptr(), n, cin, cout, k3, kz, rbt.shape[0] // block,
-                    block, window)
+    p = fwd_plan(n, cin, cout, k3, features.dtype)
+    fp = _operand(features, p.cin_p)
+    wp = _operand(weights, p.cout_p)
+    if p.cin_p != cin:
+        wp = torch.nn.functional.pad(wp, (0, 0, 0, p.cin_p - cin))
+    BAND_FWD.launch(features.dtype, features.device, fp.data_ptr(), rbt.data_ptr(),
+                    w0.data_ptr(), wp.data_ptr(), out.data_ptr(), n, p.cin_p, cout,
+                    p.cout_p, k3, kz, rbt.shape[0] // block, block, window, p.co_tile)
     return out
 
 
@@ -332,34 +343,13 @@ def band_fwd_core_plain(features: torch.Tensor, rbt: torch.Tensor,
     return out
 
 
-# ------------------------------------------------------------------ K2, K3
+# ------------------------------------------------------------------ plans
 
-# dW is reduced over row chunks in two passes (csrc/band_conv_bwd.cu): for
-# K3 the chunk count aims at about this many dW CTAs per launch (~30 per SM
-# of an H100), with chunks of at least MIN_DW_CHUNK rows.
-DW_TARGET_CTAS = 4096
-MIN_DW_CHUNK = 1024
-
-
-def _dw_chunks(n: int, cin: int, cout: int, k3: int) -> Tuple[int, int]:
-    """(rows per chunk, number of chunks) of K3's (and K5's) dW reduction;
-    chunks are multiples of the kernel's 32-row step."""
-    per_chunk = k3 * _cdiv(cin, 64) * _cdiv(cout, 64)
-    nchunks = max(1, min(_cdiv(DW_TARGET_CTAS, per_chunk), _cdiv(n, MIN_DW_CHUNK)))
-    chunk = _cdiv(_cdiv(n, nchunks), 32) * 32
-    return chunk, _cdiv(n, chunk)
-
-
-# K2's tensor-core tiles (csrc/mma_tile.cuh): a tile is 32, 64, 96 or 128
-# channels wide (at most 96 in f32, whose tiles keep a second accumulator);
-# a dx CTA holds 128 rows (8 warps x 16). Its dW partials
-# (chunks x k3 x cin x cout f32) are capped at DXDW_SCRATCH_BYTES; within
-# that, about DXDW_DW_CTAS dW CTAs (~8 waves of 2 per SM), of at least
-# MIN_DW_CHUNK rows each.
+# The tensor-core tiles (csrc/mma_tile.cuh) are 32, 64, 96 or 128 channels
+# wide; f32 stops at 96 (K2's and K3's f32 tiles keep a second accumulator,
+# kStageSums, and K1 follows the same widths).
 TILE_WIDTHS = (128, 96, 64, 32)
-DX_ROWS = 128
-DXDW_DW_CTAS = 2048
-DXDW_SCRATCH_BYTES = 128 * 2 ** 20
+MIN_DW_CHUNK = 1024
 
 
 def tile_width(c: int, dtype: torch.dtype) -> int:
@@ -374,6 +364,77 @@ def padded_width(c: int, dtype: torch.dtype) -> int:
     """``c`` rounded up to whole 16-byte copies: 8 bf16 or 4 f32 elements."""
     vec = 8 if dtype == torch.bfloat16 else 4
     return _cdiv(c, vec) * vec
+
+
+def _elt(dtype: torch.dtype) -> int:
+    return 2 if dtype == torch.bfloat16 else 4
+
+
+# K2: a dx CTA holds 128 rows (8 warps x 16). The dW partials (chunks x k3 x
+# cin x cout f32, of K2 and K3) are capped at DXDW_SCRATCH_BYTES; within
+# that, about DXDW_DW_CTAS dW CTAs (~8 waves of 2 per SM), of at least
+# MIN_DW_CHUNK rows each.
+DX_ROWS = 128
+DXDW_DW_CTAS = 2048
+DXDW_SCRATCH_BYTES = 128 * 2 ** 20
+
+# K1 (csrc/band_conv.cu) runs one of two tiles, by dtype. In f32 the
+# compacted tile (K1_TILE: a CTA owns this many output rows x one column
+# tile; stages this deep, this many in flight) multiplies only live entries:
+# there the 3xTF32 products set the pace. In bf16 K2's dx tile, gather_gemm
+# (DX_ROWS rows per CTA, whole 16-row slabs), is faster at every measured
+# conv (PERF.md; tools/experiments/probe_mma_variants_torch.py k1).
+K1_TILE = (256, 16, 3)
+
+
+class FwdPlan(NamedTuple):
+    """K1's launch plan: the tile (compacted or slabs), output column tile,
+    padded widths, CTAs and the dynamic shared memory of one CTA
+    (``CompactGemm::smem_bytes`` / ``GatherGemm::smem_bytes``)."""
+
+    compact: bool
+    co_tile: int
+    cin_p: int
+    cout_p: int
+    ctas: int
+    smem_bytes: int
+
+
+def fwd_plan(n: int, cin: int, cout: int, k3: int, dtype: torch.dtype) -> FwdPlan:
+    """K1's launch plan for ``n`` rows, ``cin`` -> ``cout`` channels and
+    ``k3`` taps in ``dtype``."""
+    co = tile_width(cout, dtype)
+    compact = dtype == torch.float32
+    pad = 8 if dtype == torch.bfloat16 else 4
+    if compact:
+        rows, kc, stages = K1_TILE
+        smem = (stages * (rows * (kc + pad) + kc * (co + 8)) * _elt(dtype)
+                + rows * (co + 8) * 4 + k3 * rows * 4 + 65 * 4 + k3 * rows)
+    else:  # mma_tile.cuh:GatherGemm<T, co, 8, 1, 32, 3>
+        rows, kc, stages = DX_ROWS, 32, 3
+        smem = (stages * (rows * (kc + pad) + kc * (co + 8)) * _elt(dtype) + k3 * rows * 4
+                + (8 + 33) * 4)
+    return FwdPlan(compact=compact, co_tile=co, cin_p=padded_width(cin, dtype),
+                   cout_p=padded_width(cout, dtype),
+                   ctas=_cdiv(n, rows) * _cdiv(cout, co), smem_bytes=smem)
+
+
+# K3 runs only the split convs (256 and 384 channels), so its kernel holds
+# only their (input, output) channel tiles; other widths take one of these
+# with zero padding.
+K3_TILES = {torch.float32: ((64, 64), (96, 64)), torch.bfloat16: ((128, 128),)}
+DW_STAGES = 3  # mma_tile.cuh:DwGemm, as band_conv_bwd.cu instantiates it
+
+
+def _dw_chunks(n: int, cin: int, cout: int, k3: int, tiles: int) -> Tuple[int, int]:
+    """(rows per chunk, number of chunks) of a dW reduction over ``tiles``
+    channel tiles: about DXDW_DW_CTAS CTAs, chunks of at least MIN_DW_CHUNK
+    rows, partials within DXDW_SCRATCH_BYTES; chunks are whole 16-row slabs."""
+    per_chunk = k3 * cin * cout * 4
+    nchunks = max(1, min(_cdiv(DXDW_DW_CTAS, k3 * tiles), _cdiv(n, MIN_DW_CHUNK),
+                         DXDW_SCRATCH_BYTES // per_chunk))
+    chunk = _cdiv(_cdiv(n, nchunks), 16) * 16
+    return chunk, _cdiv(n, chunk)
 
 
 class DxdwPlan(NamedTuple):
@@ -396,15 +457,43 @@ def dxdw_plan(n: int, cin: int, cout: int, k3: int, dtype: torch.dtype) -> DxdwP
     ``k3`` taps in ``dtype``."""
     ci, co = tile_width(cin, dtype), tile_width(cout, dtype)
     tiles = _cdiv(cin, ci) * _cdiv(cout, co)
-    per_chunk = k3 * cin * cout * 4
-    nchunks = max(1, min(_cdiv(DXDW_DW_CTAS, k3 * tiles), _cdiv(n, MIN_DW_CHUNK),
-                         DXDW_SCRATCH_BYTES // per_chunk))
-    chunk = _cdiv(_cdiv(n, nchunks), 16) * 16
-    nchunks = _cdiv(n, chunk)
+    chunk, nchunks = _dw_chunks(n, cin, cout, k3, tiles)
     return DxdwPlan(ci_tile=ci, co_tile=co, cin_p=padded_width(cin, dtype),
                     cout_p=padded_width(cout, dtype), ndw=nchunks * k3 * tiles,
                     ndx=_cdiv(n, DX_ROWS) * _cdiv(cin, ci), chunk=chunk,
-                    nchunks=nchunks, scratch_bytes=nchunks * per_chunk)
+                    nchunks=nchunks, scratch_bytes=nchunks * k3 * cin * cout * 4)
+
+
+class DwPlan(NamedTuple):
+    """K3's launch plan: channel tiles (from ``K3_TILES``), padded widths,
+    CTAs, row chunks and scratch of the dW reduction, and the dynamic shared
+    memory of one CTA (``DwGemm::smem_bytes``)."""
+
+    ci_tile: int
+    co_tile: int
+    cin_p: int
+    cout_p: int
+    ctas: int
+    chunk: int
+    nchunks: int
+    scratch_bytes: int
+    smem_bytes: int
+
+
+def dw_plan(n: int, cin: int, cout: int, k3: int, dtype: torch.dtype) -> DwPlan:
+    """K3's launch plan for ``n`` rows, ``cin`` -> ``cout`` channels and
+    ``k3`` taps in ``dtype``: the tile of ``K3_TILES`` with the fewest
+    padded products, the larger on a tie."""
+    ci, co = min(K3_TILES[dtype], key=lambda t: (
+        _cdiv(cin, t[0]) * t[0] * _cdiv(cout, t[1]) * t[1], -t[0] * t[1]))
+    tiles = _cdiv(cin, ci) * _cdiv(cout, co)
+    chunk, nchunks = _dw_chunks(n, cin, cout, k3, tiles)
+    stage = 32 * (ci + 8 + co + 8)  # 32 live entries of f and g rows
+    return DwPlan(ci_tile=ci, co_tile=co, cin_p=padded_width(cin, dtype),
+                  cout_p=padded_width(cout, dtype), ctas=nchunks * k3 * tiles,
+                  chunk=chunk, nchunks=nchunks,
+                  scratch_bytes=nchunks * k3 * cin * cout * 4,
+                  smem_bytes=DW_STAGES * stage * _elt(dtype) + (2 * 1024 + 32) * 4)
 
 
 def _operand(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -485,9 +574,9 @@ def band_dw_core(features: torch.Tensor, g: torch.Tensor, rbt: torch.Tensor,
                  window: int) -> torch.Tensor:
     """K3: split dW core, ``dwr[t] += features[i]^T g[rbt[i, t]]`` over
     in-window entries -> (K^3, Cin, Cout) f32, ``dwr[t]`` = dW[mirror t].
-    A tap-column's taps are read from ``rbt`` with a stride (the TPU kernel's
-    ``rbt3`` layout is not built). CPU tensors take ``band_dw_core_plain``;
-    CUDA tensors launch ``csrc/band_conv_bwd.cu`` or raise."""
+    CPU tensors take ``band_dw_core_plain``; CUDA tensors launch
+    ``csrc/band_conv_bwd.cu`` (K2's dW tile of ``csrc/mma_tile.cuh``,
+    planned by ``dw_plan``) or raise."""
     if not _on_cuda("band_dw_core", features):
         return band_dw_core_plain(features, g, rbt, w0, kz, block, window)
     n, cin = features.shape
@@ -500,13 +589,14 @@ def band_dw_core(features: torch.Tensor, g: torch.Tensor, rbt: torch.Tensor,
     dev = features.device
     if n == 0 or cin == 0 or cout == 0:
         return torch.zeros((k3, cin, cout), dtype=torch.float32, device=dev)
+    p = dw_plan(n, cin, cout, k3, features.dtype)
+    fp, gp = _operand(features, p.cin_p), _operand(g, p.cout_p)
     dwr = torch.empty((k3, cin, cout), dtype=torch.float32, device=dev)
-    chunk, nchunks = _dw_chunks(n, cin, cout, k3)
-    partial = torch.empty((nchunks, k3, cin, cout), dtype=torch.float32, device=dev)
-    BAND_DW.launch(features.dtype, dev, features.data_ptr(), g.data_ptr(),
-                   rbt.data_ptr(), w0.data_ptr(), partial.data_ptr(),
-                   dwr.data_ptr(), n, cin, cout, k3, kz, rbt.shape[0] // block,
-                   block, window, chunk, nchunks)
+    partial = torch.empty((p.nchunks, k3, cin, cout), dtype=torch.float32, device=dev)
+    BAND_DW.launch(features.dtype, dev, fp.data_ptr(), gp.data_ptr(), rbt.data_ptr(),
+                   w0.data_ptr(), partial.data_ptr(), dwr.data_ptr(), n, cin, cout,
+                   p.cin_p, p.cout_p, k3, kz, rbt.shape[0] // block, block, window,
+                   p.chunk, p.nchunks, p.ci_tile, p.co_tile)
     return dwr
 
 
@@ -547,7 +637,8 @@ def _overflow_residual(src, ov_src, ov_dst, order, counts, w_taps, n_out,
                        compute_dtype):
     """Budgeted overflow contributions: rows ``src[ov_src[e]] @ w_taps[t_e]``
     added at ``ov_dst[e]`` -> (n_out, cout) f32. The live entries, grouped by
-    tap through ``order``/``counts``, get one matmul per tap."""
+    tap through ``order``/``counts``, get one matmul per tap; each output row
+    sums its entries in tap order (``ordered_scatter_add``)."""
     cout = w_taps.shape[2]
     out = torch.zeros((n_out, cout), dtype=torch.float32, device=src.device)
     n_live = sum(counts)
@@ -563,7 +654,7 @@ def _overflow_residual(src, ov_src, ov_dst, order, counts, w_taps, n_out,
         if c:
             acc[start:start + c] = (g[start:start + c] @ w[t]).float()
             start += c
-    return out.index_add_(0, i, acc)
+    return ordered_scatter_add(out, i, acc)
 
 
 def _overflow_dw(f, g, plan: BandPlan, compute_dtype):

@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from . import hashing
+from .scatter import DUMP_ROWS, dump_ids, ordered_scatter_add
 from .sparse import unique_voxels
 
 
@@ -403,17 +404,17 @@ def strided_conv_packed(
     precision_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Input-major k == s strided conv: out[parent[i]] += x[i] @ W[tap[i]].
-    Rows with parent -1 land in a dump row (JAX wraps -1 to the last row and
-    adds zeros there; torch's index_add_ raises on -1)."""
+    Rows with parent -1 land in dump rows (JAX wraps -1 to the last row and
+    adds zeros there). Each output row sums its (at most K^3) children in
+    one fixed order (``ordered_scatter_add``)."""
     cdt = precision_dtype or features.dtype
     y = _packed_tap_matmul(features, tap, weights, cdt)
     live = parent >= 0
     y = torch.where(live[:, None], y, torch.zeros((), device=y.device))
-    dst = torch.where(live, parent, torch.full_like(parent, out_capacity))
-    out = torch.zeros(out_capacity + 1, weights.shape[2], dtype=torch.float32,
+    dst = dump_ids(parent, ~live, out_capacity)
+    out = torch.zeros(out_capacity + DUMP_ROWS, weights.shape[2], dtype=torch.float32,
                       device=features.device)
-    out.index_add_(0, dst.to(torch.int64), y)
-    out = out[:out_capacity]
+    out = ordered_scatter_add(out, dst, y)[:out_capacity]
     out = torch.where(out_mask[:, None], out, torch.zeros((), device=out.device))
     return out.to(features.dtype)
 

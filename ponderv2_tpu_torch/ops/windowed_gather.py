@@ -21,11 +21,11 @@ of each entry's 8-row slab; the same probe entry point runs it.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
-from .band_conv import _cdiv, _CudaKernel, _dw_chunks, _on_cuda
+from .band_conv import MIN_DW_CHUNK, _cdiv, _CudaKernel, _on_cuda
 
 
 def padded_rows(n_in: int, wb: int) -> int:
@@ -242,6 +242,20 @@ def windowed_slab_fwd_plain(feats: torch.Tensor, geom: WindowGeometry,
 
 # ------------------------------------------------------------------ K5
 
+# K5's dW is reduced over row chunks in two passes (csrc/windowed_gather.cu):
+# the chunk count aims at about this many dW CTAs per launch (~30 per SM of
+# an H100), with chunks of at least MIN_DW_CHUNK rows.
+DW_TARGET_CTAS = 4096
+
+
+def _dw_chunks(n: int, cin: int, cout: int, k3: int) -> Tuple[int, int]:
+    """(rows per chunk, number of chunks) of K5's dW reduction; chunks are
+    multiples of the kernel's 32-row step."""
+    per_chunk = k3 * _cdiv(cin, 64) * _cdiv(cout, 64)
+    nchunks = max(1, min(_cdiv(DW_TARGET_CTAS, per_chunk), _cdiv(n, MIN_DW_CHUNK)))
+    chunk = _cdiv(_cdiv(n, nchunks), 32) * 32
+    return chunk, _cdiv(n, chunk)
+
 
 def windowed_conv_dw(feats: torch.Tensor, geom: WindowGeometry, g: torch.Tensor,
                      wb: int, group: int) -> torch.Tensor:
@@ -261,7 +275,6 @@ def windowed_conv_dw(feats: torch.Tensor, geom: WindowGeometry, g: torch.Tensor,
     if cin == 0 or cout == 0:
         return torch.zeros((k3, cin, cout), dtype=torch.float32, device=dev)
     dw = torch.empty((k3, cin, cout), dtype=torch.float32, device=dev)
-    # dW is reduced over row chunks in two passes, as the band conv's K3
     chunk, nchunks = _dw_chunks(nrows, cin, cout, k3)
     partial = torch.empty((nchunks, k3, cin, cout), dtype=torch.float32, device=dev)
     WINDOWED_DW.launch(feats.dtype, dev, feats.data_ptr(), g.data_ptr(),

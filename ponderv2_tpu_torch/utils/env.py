@@ -4,7 +4,9 @@ JAX is functionally deterministic by construction (explicit PRNG keys); what thi
 module standardises is host-side numpy/python RNG seeding and per-rank/worker seed
 derivation so data augmentation streams differ across processes and workers.
 
-A copy of ``ponderv2_tpu/utils/env.py``.
+``derive_seed`` is a copy of ``ponderv2_tpu/utils/env.py``'s; ``set_seed``
+also seeds torch and, as the reference's does, makes cuDNN pick deterministic
+algorithms, so that a step on the GPU gives the same bits run to run.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from datetime import datetime
 from typing import Optional
 
 import numpy as np
+import torch
 
 
 def derive_seed(base_seed: int, *streams: int) -> int:
@@ -32,10 +35,14 @@ def derive_seed(base_seed: int, *streams: int) -> int:
 
 
 def set_seed(seed: Optional[int] = None) -> int:
-    """Seed python/numpy host RNGs; returns the seed used."""
+    """Seed python/numpy/torch RNGs and make cuDNN deterministic
+    (``cudnn.deterministic``, no ``cudnn.benchmark``); returns the seed used."""
     if seed is None:
         seed = int(datetime.now().timestamp() * 1e6) % (2**31)
     random.seed(seed)
     np.random.seed(seed % (2**32 - 1))
+    torch.manual_seed(seed)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
     os.environ["PYTHONHASHSEED"] = str(seed)
     return seed

@@ -9,16 +9,18 @@ runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 The f32 comparisons run with TF32 off; the kernel and the plain version sum
-the same f32 products in another order (K2 as 3xTF32 products, within about
-3 x 2^-22 of each f32 product), hence the 1e-5 relative bound. bf16
+the same f32 products in another order (K1-K3 as 3xTF32 products, within
+about 3 x 2^-22 of each f32 product), hence the 1e-5 relative bound. bf16
 inputs are multiplied and summed in f32 by both, in another order; they are
 held to 3e-2 of max|ref| (the bound bench.py:227 uses).
-dW is reduced over row chunks in a fixed order (no atomics), so K2/K3 are
-deterministic; their bounds are K1's, for the same reasons. K4/K5's plain
+Every sum of K1-K3 runs in a fixed order (K1 adds each tap's compacted
+slabs into its output tile, taps in order; dW is reduced over row chunks in
+two passes; no atomics), so a second launch gives equal bits. K4/K5's plain
 versions multiply the same bf16 values in f32, as the kernels do, so both
 dtypes are held to 1e-5; K5 is deterministic too.
 """
 
+import ctypes
 import os
 import sys
 
@@ -80,6 +82,115 @@ def test_k1_matches_plain(cuda, block, window, cin, cout, dtype):
     torch.cuda.synchronize()
     assert out.dtype == torch.float32 and out.shape == ref.shape
     assert _rel_err(out, ref.float()) <= (1e-5 if dtype == torch.float32 else 3e-2)
+
+
+# every (cin, cout) K1 runs on the fine-tune and pretrain steps: each band
+# conv's forward and the split convs' dx (cout -> cin)
+K1_WIDTHS = [(32, 32), (64, 64), (96, 96), (128, 96), (128, 128), (192, 128), (256, 256),
+             (384, 256), (256, 384)]
+SPLIT_WIDTHS = [(256, 256), (384, 256)]
+
+
+def _plan_and_operands(device, cin, cout, dtype, seed, block=bc.BLOCK, window=bc.WINDOW):
+    coords = _scene(3000, (24, 24, 24)).to(device)
+    rb = build_subm_rulebook(coords, (24, 24, 24), 2, 3)
+    plan = bc.build_band_plan(rb, 3, block=block, window=window)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = rb.shape[1]
+    f = torch.randn(n, cin, device=device, generator=gen).to(dtype)
+    g = torch.randn(n, cout, device=device, generator=gen).to(dtype)
+    w = (torch.randn(27, cin, cout, device=device, generator=gen) / cin ** 0.5).to(dtype)
+    return plan, f, g, w
+
+
+@pytest.mark.parametrize("cin,cout", K1_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_routed_widths(cuda, cin, cout, dtype):
+    """K1 at every routed width against its plain version, equal bits on a
+    second launch, its shared memory as ``fwd_plan`` reckons it."""
+    plan, f, _, w = _plan_and_operands(cuda, cin, cout, dtype, cin + cout)
+    args, tail = (plan.rbt, plan.w0), (3, bc.BLOCK, bc.WINDOW)
+    out = bc.band_fwd_core(f, *args, w, *tail)
+    ref = bc.band_fwd_core_plain(f, *args, w, *tail)
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref) <= (1e-5 if dtype == torch.float32 else 3e-2)
+    assert torch.equal(bc.band_fwd_core(f, *args, w, *tail), out)
+    p = bc.fwd_plan(len(f), cin, cout, 27, dtype)
+    smem = bc.BAND_FWD.lib().band_fwd_smem_bytes
+    smem.restype = ctypes.c_longlong
+    assert smem(int(dtype == torch.bfloat16), p.co_tile, 27) == p.smem_bytes
+
+
+@pytest.mark.parametrize("cin,cout", SPLIT_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_split_widths(cuda, cin, cout, dtype):
+    """K3 at the split convs' widths against its plain version, equal bits
+    on a second launch, its shared memory as ``dw_plan`` reckons it."""
+    plan, f, g, _ = _plan_and_operands(cuda, cin, cout, dtype, cin * cout)
+    args, tail = (plan.rbt, plan.w0), (3, bc.BLOCK, bc.WINDOW)
+    dwr = bc.band_dw_core(f, g, *args, *tail)
+    ref = bc.band_dw_core_plain(f, g, *args, *tail)
+    torch.cuda.synchronize()
+    assert _rel_err(dwr, ref) <= (1e-5 if dtype == torch.float32 else 3e-2)
+    assert torch.equal(bc.band_dw_core(f, g, *args, *tail), dwr)
+    p = bc.dw_plan(len(f), cin, cout, 27, dtype)
+    smem = bc.BAND_DW.lib().band_dw_smem_bytes
+    smem.restype = ctypes.c_longlong
+    assert smem(int(dtype == torch.bfloat16), p.ci_tile, p.co_tile) == p.smem_bytes
+
+
+@pytest.mark.parametrize("cin,cout", [(96, 96), (256, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])  # K1's two tiles
+def test_k1_k3_dead_tile_and_gated(cuda, cin, cout, dtype):
+    """K1 and K3 on a plan with a whole 256-row tile and a 1024-row dW window
+    dead in every tap and one tap dead everywhere; and the split route
+    (K1 on the cotangent + K3) of a ``pair_budget=0`` plan gives exact zeros."""
+    plan, f, g, w = _plan_and_operands(cuda, cin, cout, dtype, 11)
+    rbt = plan.rbt.clone()
+    rbt[256:512] = -1
+    rbt[1024:2048] = -1
+    rbt[:, 5] = -1
+    args, tail = (rbt, plan.w0), (3, bc.BLOCK, bc.WINDOW)
+    bound = 1e-5 if dtype == torch.float32 else 3e-2
+    out = bc.band_fwd_core(f, *args, w, *tail)
+    assert _rel_err(out, bc.band_fwd_core_plain(f, *args, w, *tail)) <= bound
+    assert float(out[256:512].abs().max()) == 0.0
+    dwr = bc.band_dw_core(f, g, *args, *tail)
+    assert _rel_err(dwr, bc.band_dw_core_plain(f, g, *args, *tail)) <= bound
+    assert float(dwr[5].abs().max()) == 0.0
+    coords = _scene(3000, (24, 24, 24)).to(cuda)
+    rb = build_subm_rulebook(coords, (24, 24, 24), 2, 3)
+    gated = bc.build_band_plan(rb, 3, block=32, window=8, pair_budget=0)
+    assert not bool(gated.ok)
+    fz, wz = f.float().clone().requires_grad_(), w.float().clone().requires_grad_()
+    before = (bc.BAND_FWD.launches, bc.BAND_DW.launches)
+    route = bc.fused_bwd_fits
+    bc.fused_bwd_fits = lambda *a, **k: False  # block 32 / window 8 would fit K2
+    try:
+        zero = bc.band_subm_conv((3, 32, 8), fz, gated, wz, coords[:, 0] >= 0, dtype)
+        zero.sum().backward()
+    finally:
+        bc.fused_bwd_fits = route
+    assert (bc.BAND_FWD.launches - before[0], bc.BAND_DW.launches - before[1]) == (2, 1)
+    assert zero.abs().sum().item() == 0.0
+    assert fz.grad.abs().sum().item() == 0.0 and wz.grad.abs().sum().item() == 0.0
+
+
+def test_ordered_scatter_add_on_cuda_sums_in_order(cuda):
+    """The fixed-order sum of the reproducible steps: on CUDA each row's
+    values are added in the order given, as on the CPU (equal bits), and a
+    second call gives the same bits."""
+    from ponderv2_tpu_torch.ops.scatter import ordered_scatter_add
+
+    gen = torch.Generator().manual_seed(0)
+    idx = torch.randint(0, 300, (200_000,), generator=gen)
+    vals = torch.randn(200_000, 24, generator=gen) * 10.0 ** torch.randint(
+        -3, 4, (200_000, 1), generator=gen)
+    ref = ordered_scatter_add(torch.zeros(300, 24), idx, vals)
+    out = ordered_scatter_add(torch.zeros(300, 24, device=cuda), idx.to(cuda), vals.to(cuda))
+    assert torch.equal(out.cpu(), ref)
+    assert torch.equal(ordered_scatter_add(torch.zeros(300, 24, device=cuda), idx.to(cuda),
+                                           vals.to(cuda)), out)
 
 
 # every width the fine-tune and pretrain steps route to K2, and ragged ones

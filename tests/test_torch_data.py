@@ -172,7 +172,7 @@ class TestTrainDataPath:
                         "ChromaticTranslation", "ChromaticJitter", "SphereCrop",
                         "ShufflePoint"]),
             (jdl, tdl, ["_worker_init", "build_dataloader", "_TorchDatasetAdapter"]),
-            (jenv, tenv, ["derive_seed", "set_seed"]),
+            (jenv, tenv, ["derive_seed"]),
             (jev, tev, ["get_event_storage", "HistoryBuffer", "EventStorage",
                         "EventWriter", "JSONWriter", "TensorboardWriter",
                         "CommonMetricPrinter"]),

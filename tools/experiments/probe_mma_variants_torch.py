@@ -1,22 +1,27 @@
 #!/usr/bin/env python3
 """Time variants of the tensor-core gather-GEMM tiles (``csrc/mma_tile.cuh``)
-on a GPU: K2 (``band_dxdw_core``) at the fine-tune batch's real band plans,
-and P5 ``kd`` (``tile_matmul``) at its probe's shape.
+on a GPU: K1 (``band_fwd_core``) and K2 (``band_dxdw_core``) at the
+fine-tune batch's real band plans, and P5 ``kd`` (``tile_matmul``) at its
+probe's shape.
 
+    python tools/experiments/probe_mma_variants_torch.py k1 [variant,...]
     python tools/experiments/probe_mma_variants_torch.py k2 [variant,...]
     python tools/experiments/probe_mma_variants_torch.py kd [variant,...]
 
-Each variant is a copy of the kernel sources with a few text edits (K2:
-``nodw`` / ``nodx`` launch only one CTA range, ``onepass`` keeps one TF32
-product of three; kd: other tile shapes, ``noload`` / ``nomult`` drop the
-copies or the products, ``empty`` returns at once), built with the
-package's nvcc flags into ``ponderv2_tpu_torch/csrc/_build/variants/`` in
-parallel and bound in place of the package's build. K2: CUDA events over 5
-calls after a warm-up, each variant twice (in order, then reversed), f32
-and bf16, with the max abs error against the plain version. kd: the probe
-timing of ``chip_smoke.py`` phase 13 (CUDA-graph replay, L2 flushed before
-each call) beside ``torch.mm``. Variants that drop work give wrong
-results on purpose.
+Each variant is a copy of the kernel sources with a few text edits (K1:
+``routed`` as built, the compacted tile in f32 and K2's dx tile in bf16;
+``slabs`` K2's dx tile, ``gather_gemm``, which multiplies whole 16-row
+slabs, in both dtypes; ``compacted`` and ``rRRR_kcKK_nsN`` (other rows per
+CTA, k-chunks and stages) the compacted tile in both; K2: ``nodw`` / ``nodx`` launch
+only one CTA range, ``onepass`` keeps one TF32 product of three; kd: other
+tile shapes, ``noload`` / ``nomult`` drop the copies or the products,
+``empty`` returns at once), built with the package's nvcc flags into
+``ponderv2_tpu_torch/csrc/_build/variants/`` in parallel and bound in place
+of the package's build. K1, K2: CUDA events over 5 calls after a warm-up,
+each variant twice (in order, then reversed), f32 and bf16, with the max
+abs error against the plain version. kd: the probe timing of
+``chip_smoke.py`` phase 13 (CUDA-graph replay, L2 flushed before each call)
+beside ``torch.mm``. Variants that drop work give wrong results on purpose.
 """
 
 import ctypes
@@ -35,13 +40,25 @@ from ponderv2_tpu_torch.ops import band_conv as bc  # noqa: E402
 from ponderv2_tpu_torch.ops import probe_kernels as pk  # noqa: E402
 from ponderv2_tpu_torch.ops.cuda_build import BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc  # noqa: E402
 
-HEADERS = ("band_conv_tile.cuh", "mma_tile.cuh")
+HEADERS = ("band_conv_tile.cuh", "band_rows.cuh", "mma_tile.cuh")
 ONEPASS = ("  mma_tf32(d, al, bh[0], bh[1]);\n  mma_tf32(d, ah, bl[0], bl[1]);\n", "")
 K2 = {
     "base": [],
     "nodw": [("band_conv_bwd.cu", "  if (b < ndw) {\n", "  if (b < ndw) {\n    return;\n")],
     "nodx": [("band_conv_bwd.cu", "    b -= ndw;\n", "    return;\n    b -= ndw;\n")],
     "onepass": [("mma_tile.cuh", *ONEPASS)],
+}
+# K1: the tile follows the dtype (kCompact: f32 compacted, bf16 slabs);
+# a variant edits that choice or the compacted tile's shape.
+K1_LINE = "#define K1_TILE 256, 16, 3"
+K1_CHOICE = "constexpr bool kCompact = sizeof(T) == 4;"
+K1 = {
+    "routed": [],
+    "slabs": [("band_conv.cu", K1_CHOICE, "constexpr bool kCompact = false;")],
+    "compacted": [("band_conv.cu", K1_CHOICE, "constexpr bool kCompact = true;")],
+    **{f"r{r}_kc{k}_ns{n}": [("band_conv.cu", K1_CHOICE, "constexpr bool kCompact = true;"),
+                             ("band_conv.cu", K1_LINE, f"#define K1_TILE {r}, {k}, {n}")]
+       for r, k, n in [(128, 32, 2), (128, 32, 3), (64, 32, 3)]},
 }
 KD_LINE = "#define KD_TILE "
 # kd runs gather_gemm's one-tap path
@@ -107,7 +124,9 @@ def bind(kernel, lib):
     kernel._lib = lib
 
 
-def run_k2(names):
+def fine_tune_levels():
+    """The fine-tune batch's (first batch, 12 scenes) per-level band plans
+    and coords, as the backbone builds them."""
     import chip_smoke as cs
     from ponderv2_tpu_torch.datasets import build_dataloader, build_dataset
     from ponderv2_tpu_torch.engines.common import split_batch
@@ -116,9 +135,7 @@ def run_k2(names):
     from ponderv2_tpu_torch.models.default import batch_to_sparse_tensor
     from ponderv2_tpu_torch.ops.sparse import maybe_sort_by_key
 
-    libs = build("band_conv_bwd", {n: K2[n] for n in names})
     dev = torch.device("cuda:0")
-    torch.backends.cuda.matmul.allow_tf32 = False
     tmp = tempfile.mkdtemp(prefix="mma_variants_")
     try:
         tcfg = default_config_parser(cs.TRAIN_CONFIG, {"save_path": tmp})
@@ -133,26 +150,69 @@ def run_k2(names):
         level_rb, level_coords, _ = cs.level_plans(build_model(dict(tcfg.model)).backbone, st)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return level_rb, level_coords
+
+
+def time_variants(kernel, libs, convs, make_args, core, plain):
+    """Each variant of ``libs`` bound to ``kernel`` and timed, with its max
+    abs error against ``plain``, at each (level, cin, cout) of ``convs``,
+    f32 and bf16, the variants in order and then reversed."""
+    import chip_smoke as cs
+
+    dev = torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    level_rb, level_coords = fine_tune_levels()
     gen = torch.Generator(device=dev).manual_seed(0)
-    for level, cin, cout in [(0, 96, 96), (0, 128, 96), (1, 96, 96), (2, 128, 128)]:
+    for level, cin, cout in convs:
         legacy, plan = cs.band_plan_of(level_rb[level])
         n = legacy.shape[1]
         valid = (level_coords[level][:, 0] >= 0)[:, None]
+        live, compacted, slabs = cs.band_rows_multiplied(plan, n)
         for dtype in (torch.float32, torch.bfloat16):
-            f = (torch.randn(n, cin, device=dev, generator=gen) * valid).to(dtype)
-            g = (torch.randn(n, cout, device=dev, generator=gen) * valid).to(dtype)
-            wmt = (torch.randn(27, cout, cin, device=dev, generator=gen)
-                   / (27 * cout) ** 0.5).to(dtype)
-            args = (g, f, plan.rbt, plan.w0, wmt, 3, bc.BLOCK, bc.WINDOW)
-            ref = bc.band_dxdw_core_plain(*args)
+            args = make_args(plan, n, cin, cout, valid, dtype, gen)
+            ref = plain(*args)
+            ref = ref if isinstance(ref, tuple) else (ref,)
             line = []
             for name in list(libs) + list(libs)[::-1]:
-                bind(bc.BAND_DXDW, libs[name])
-                err = max(cs.max_err(o, r)[0] for o, r in zip(bc.band_dxdw_core(*args), ref))
-                ms = cs.cuda_ms(lambda: bc.band_dxdw_core(*args), 5)
+                bind(kernel, libs[name])
+                out = core(*args)
+                out = out if isinstance(out, tuple) else (out,)
+                err = max(cs.max_err(o, r)[0] for o, r in zip(out, ref))
+                ms = cs.cuda_ms(lambda: core(*args), 5)
                 line.append(f"{name} {ms:.3f} ms (err {err:.1e})")
-            print(f"L{level} {n} rows, {cs.band_live_entries(plan, n)} live entries, "
-                  f"{cin}->{cout} {str(dtype)[6:]}: " + "; ".join(line), flush=True)
+            print(f"L{level} {n} rows, {live} live entries (rows multiplied per column "
+                  f"tile: compacted {compacted}, slabs {slabs}), {cin}->{cout} "
+                  f"{str(dtype)[6:]}: " + "; ".join(line), flush=True)
+
+
+def run_k1(names):
+    libs = build("band_conv", {n: K1[n] for n in names})
+
+    def make_args(plan, n, cin, cout, valid, dtype, gen):
+        dev = valid.device
+        f = (torch.randn(n, cin, device=dev, generator=gen) * valid).to(dtype)
+        w = (torch.randn(27, cin, cout, device=dev, generator=gen) / (27 * cin) ** 0.5).to(dtype)
+        return (f, plan.rbt, plan.w0, w, 3, bc.BLOCK, bc.WINDOW)
+
+    time_variants(bc.BAND_FWD, libs, [(0, 96, 96), (0, 128, 96), (1, 96, 96), (2, 128, 128),
+                                      (2, 192, 128), (3, 256, 256), (3, 384, 256),
+                                      (4, 256, 256)],
+                  make_args, bc.band_fwd_core, bc.band_fwd_core_plain)
+
+
+def run_k2(names):
+    libs = build("band_conv_bwd", {n: K2[n] for n in names})
+
+    def make_args(plan, n, cin, cout, valid, dtype, gen):
+        dev = valid.device
+        f = (torch.randn(n, cin, device=dev, generator=gen) * valid).to(dtype)
+        g = (torch.randn(n, cout, device=dev, generator=gen) * valid).to(dtype)
+        wmt = (torch.randn(27, cout, cin, device=dev, generator=gen)
+               / (27 * cout) ** 0.5).to(dtype)
+        return (g, f, plan.rbt, plan.w0, wmt, 3, bc.BLOCK, bc.WINDOW)
+
+    time_variants(bc.BAND_DXDW, libs, [(0, 96, 96), (0, 128, 96), (1, 96, 96), (2, 128, 128)],
+                  make_args, bc.band_dxdw_core, bc.band_dxdw_core_plain)
 
 
 def run_kd(names):
@@ -184,10 +244,10 @@ def main():
         print("probe_mma_variants_torch: needs a CUDA GPU", file=sys.stderr)
         return 2
     which = sys.argv[1] if len(sys.argv) > 1 else "kd"
-    table = {"k2": K2, "kd": KD}[which]
+    table = {"k1": K1, "k2": K2, "kd": KD}[which]
     names = sys.argv[2].split(",") if len(sys.argv) > 2 else list(table)
     print(os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read().strip())
-    (run_k2 if which == "k2" else run_kd)(names)
+    {"k1": run_k1, "k2": run_k2, "kd": run_kd}[which](names)
     return 0
 
 

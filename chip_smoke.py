@@ -4,7 +4,7 @@ kernels and the probe kernels, check them, serve ScanNet-scale scenes,
 train SpUNet-v1m1 at ScanNet's batch, pretrain PonderIndoor-v2 at bench.py's
 workload and run every probe kernel at its probe's shape.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent-log LOG]
 
 Needs one CUDA GPU (Hopper: the kernels are built for sm_90a) and runs in
 phases; any failure exits non-zero:
@@ -66,7 +66,11 @@ phases; any failure exits non-zero:
     K5) in bf16 at the probe's four shapes and on two rulebooks of the
     pretrain batch (the k5 stem's, 6->32, and L0's k3 at 32->32), count
     its launches, compare each kernel with its plain version in f32 and
-    bf16, time both, and report the share of covered windows;
+    bf16, require equal bits from a second launch in each dtype, time both
+    (and the kernels in f32), and report the share of covered windows, the
+    tile each kernel ran and the rows it multiplies against the live
+    entries (counted from the geometry); with ``--parent-log`` (a log of
+    another tree's run) each conv's bf16 times beside that tree's;
 13. run every ported probe function (P1-P5, P7 V2-V5; PERF.md's kernel
     table) through its entry point (``tools/experiments/
     probe_{gather,bisect,windowed}_torch.py``) at its probe's shape and on
@@ -81,9 +85,11 @@ phases; any failure exits non-zero:
     ``{"ok": true, "device": {...}}``.
 """
 
+import argparse
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -405,9 +411,40 @@ def band_plan_of(rb):
     return rb, bc.build_band_plan_auto(rb, 3)
 
 
+def windowed_cases(probe, dev, level_rb, stem):
+    """Phase 12's six convs, (label, tap group, rulebook (k3, n) int32 on
+    ``dev``, cin, cout): the probe's four shapes (``probe``:
+    ``probe_windowed_torch``), then the rulebooks of the pretrain batch's k5
+    stem (6 -> 32) and L0 k3 convs (32 -> 32) from ``level_plans``."""
+    import numpy as np
+    import torch
+
+    from ponderv2_tpu_torch.ops.spconv import SubmPlan
+
+    def legacy(rb):
+        return (rb.legacy if isinstance(rb, SubmPlan) else rb).contiguous()
+
+    return ([(f"probe {label}", group, torch.from_numpy(rb).to(dev), cin, cout)
+             for label, group, rb, cin, cout in probe.cases(np.random.RandomState(SEED))]
+            + [("pretrain stem k5 6->32", 25, legacy(stem), 6, 32),
+               ("pretrain L0 k3 32->32", 9, legacy(level_rb[0]), 32, 32)])
+
+
+def parent_times(path):
+    """{conv label: (K4 ms, K5 ms)} from the ``[windowed]`` lines of another
+    tree's phase 12 log, in bf16."""
+    line = re.compile(r"^\[windowed\] (.+?) \(\d+ rows, group \d+\):.*? K4 ([\d.]+) ms"
+                      r".*? K5 ([\d.]+) ms")
+    with open(path) as f:
+        return {m[1]: (float(m[2]), float(m[3])) for m in map(line.match, f) if m}
+
+
 def main() -> int:
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--parent-log", help="print phase 12's times beside this log's")
+    opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs "
               "a CUDA GPU", file=sys.stderr)
@@ -981,14 +1018,11 @@ def main() -> int:
         # and two rulebooks of the pretrain batch
         check([k.launches for k in wg.KERNELS] == [0, 0],
               "K4/K5 launched outside the windowed conv entry point")
-        cases = [(f"probe {label}", group, torch.from_numpy(rb).to(dev), cin, cout)
-                 for label, group, rb, cin, cout in probe.cases(np.random.RandomState(SEED))]
-        stem_rb = stem.legacy if isinstance(stem, SubmPlan) else stem
-        l0_rb = level_rb[0].legacy if isinstance(level_rb[0], SubmPlan) else level_rb[0]
-        cases += [("pretrain stem k5 6->32", 25, stem_rb.contiguous(), 6, 32),
-                  ("pretrain L0 k3 32->32", 9, l0_rb.contiguous(), 32, 32)]
+        cases = windowed_cases(probe, dev, level_rb, stem)
         inputs_w = [probe.case_inputs(rb, cin, cout, SEED + i, dev)
                     for i, (_, _, rb, cin, cout) in enumerate(cases)]
+        parent = parent_times(opts.parent_log) if opts.parent_log else {}
+        f32_ms = [0.0, 0.0]  # K4, K5 over the six convs
         bf16 = torch.bfloat16
         for k in wg.KERNELS:
             k.launches = 0
@@ -1007,6 +1041,12 @@ def main() -> int:
                                                  group, torch.float32)
             _, out32p, dw32p = probe.windowed_conv(rb, feats, w, g, probe.BLOCK, probe.WB,
                                                    group, torch.float32, plain=True)
+            # a second launch of each kernel, in each dtype: equal bits
+            for dtype, first in ((bf16, (out, dw)), (torch.float32, (out32, dw32))):
+                again = probe.windowed_conv(rb, feats, w, g, probe.BLOCK, probe.WB, group,
+                                            dtype)[1:]
+                check(all(torch.equal(a, b) for a, b in zip(again, first)),
+                      f"{label}: a second K4/K5 launch in {dtype} differs")
             torch.cuda.synchronize()
             # the plain versions sum the same products (bf16 values, f32
             # accumulation) in another order: 1e-4 of max(|ref|, 1) in both
@@ -1019,6 +1059,13 @@ def main() -> int:
                 check(e <= 1e-4 * max(sc, 1.0), f"{kname} {label}: err {e:.3e} at {sc:.3e}")
                 errs.setdefault(kname, []).append(e)
             n = rb.shape[1]
+            # the kernels in f32, timed on their own
+            f = wg.pad_features(feats, wg.padded_rows(n, probe.WB), torch.float32)
+            gc_ = torch.zeros((geom.rbb.shape[1] * probe.BLOCK, cout), device=dev)
+            gc_[:n] = g
+            ms32 = (cuda_ms(lambda: wg.windowed_conv_fwd(f, geom, w, probe.WB, group), 5),
+                    cuda_ms(lambda: wg.windowed_conv_dw(f, geom, gc_, probe.WB, group), 5))
+            f32_ms = [a + b for a, b in zip(f32_ms, ms32)]
             f = wg.pad_features(feats, wg.padded_rows(n, probe.WB), bf16)
             wc = w.to(bf16).contiguous()
             gc_ = torch.zeros((geom.rbb.shape[1] * probe.BLOCK, cout), dtype=bf16,
@@ -1034,9 +1081,10 @@ def main() -> int:
                     lambda: wg.windowed_conv_dw_plain(f, geom, gc_, probe.WB, group),
                     probe.bound_ms(geom, probe.WB, cin, cout, n, bf16, weights=False)),
             }
-            line = []
+            line, calls_ms = [], {}
             for kname, (kern, plain, (b, term)) in calls.items():
                 t_k, t_p = cuda_ms(kern, 5), cuda_ms(plain, 3)
+                calls_ms[kname] = t_k
                 st = pstats[kname]
                 st["err_bf16"] = max(st["err_bf16"], errs[kname][0])
                 st["err"] = max(st["err"], errs[kname][1])
@@ -1047,11 +1095,33 @@ def main() -> int:
                 line.append(f"{'K4' if kname.endswith('fwd') else 'K5'} {t_k:.3f} ms vs "
                             f"plain {t_p:.3f} ms (bound {b:.4f} ms, {term}), err bf16 "
                             f"{errs[kname][0]:.2e} f32 {errs[kname][1]:.2e}")
+            live = probe.live_entries(geom, probe.WB)
             print(f"[windowed] {label} ({n} rows, group {group}): covered "
                   f"{bool(geom.covered)} (share {probe.covered_share(geom, probe.WB):.4f}, "
-                  f"{probe.live_entries(geom, probe.WB)} in-window entries); "
-                  + "; ".join(line))
+                  f"{live} in-window entries); " + "; ".join(line))
+            k3, nrows = rb.shape[0], geom.rbb.shape[1] * probe.BLOCK
+            fplan = wg.windowed_fwd_plan(nrows, cin, cout, k3, bf16)
+            dplan = wg.windowed_dw_plan(nrows, cin, cout, k3, bf16)
+            k4_rows = probe.k4_rows_multiplied(geom, probe.WB)
+            k5_rows = probe.k5_rows_multiplied(geom, probe.WB, dplan, bf16)
+            print(f"[windowed] {label}: K4 tile slabs {bc.DX_ROWS} x {fplan.co_tile} "
+                  f"({fplan.ctas} CTAs), K5 tile {dplan.co_tile} x {dplan.ci_tile} of dW^T "
+                  f"({dplan.ctas} CTAs, {dplan.nchunks} chunks of {dplan.chunk} rows; a "
+                  f"second launch: equal bits); rows multiplied per channel tile against "
+                  f"{live} live entries: K4 {k4_rows} ({k4_rows / max(live, 1):.2f}x), K5 "
+                  f"{k5_rows} ({k5_rows / max(live, 1):.2f}x); f32 K4 {ms32[0]:.3f} ms, K5 "
+                  f"{ms32[1]:.3f} ms")
+            if label in parent:
+                (p4, p5), t4, t5 = parent[label], calls_ms["windowed_conv_fwd"], calls_ms[
+                    "windowed_conv_dw"]
+                print(f"[windowed] {label}: parent -> this tree, K4 {p4:.3f} -> {t4:.3f} ms, "
+                      f"K5 {p5:.3f} -> {t5:.3f} ms")
             del f, wc, gc_
+        print(f"[windowed] {len(cases)} convs (bf16): K4 {pstats['windowed_conv_fwd']['ms']:.3f} "
+              f"ms, K5 {pstats['windowed_conv_dw']['ms']:.3f} ms"
+              + (f" (parent {sum(v[0] for v in parent.values()):.3f} / "
+                 f"{sum(v[1] for v in parent.values()):.3f} ms over {len(parent)} convs)"
+                 if parent else "") + f"; f32: K4 {f32_ms[0]:.3f} ms, K5 {f32_ms[1]:.3f} ms")
         del path, inputs_w, cases, level_rb, level_coords, stem
         phase_done("12 windowed conv K4/K5")
 

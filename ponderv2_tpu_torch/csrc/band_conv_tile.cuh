@@ -1,11 +1,12 @@
-// CUDA-core tiles of the windowed conv kernels (windowed_gather.cu: K4, K5
-// and the P7 slab forward). A tile reads its tap entries through a functor
-// ``rows(i, t)`` that returns the input row j of output row i and tap t, or
-// -1 where the entry is absent or outside its window (windowed_gather.cu:
-// WindowRows, SlabRows). Every tile is 256 threads, 16 x 16, each
-// accumulating a 4 x 4 f32 block in registers on CUDA cores. The band conv's
-// kernels (K1-K3) left these tiles for the tensor-core tiles of
-// mma_tile.cuh; only the windowed kernels still run them.
+// The CUDA-core forward tile of the P7 ablations (windowed_gather.cu:
+// windowed_slab_fwd, tools/experiments/probe_pallas_profile.py V2-V4). It
+// reads its tap entries through a functor ``rows(i, t)`` that returns the
+// input row j of output row i and tap t, or -1 where the entry is not live
+// (windowed_gather.cu:SlabRows). 256 threads, 16 x 16, each accumulating a
+// 4 x 4 f32 block in registers with f32 FMAs on CUDA cores (67 TFLOP/s on
+// an H100), 64 x 64 tiles staged synchronously in chunks of 32 channels.
+// Every other kernel of the port (K1-K5, kd) left it for the tensor-core
+// tiles of mma_tile.cuh; P7 is the next to move (ROADMAP).
 
 #pragma once
 
@@ -14,11 +15,9 @@
 
 #include <cstddef>
 
-#include "band_rows.cuh"
-
 namespace band {
 
-constexpr int BM = 64;        // rows (fwd) or input channels (dW) per CTA
+constexpr int BM = 64;        // output rows per CTA
 constexpr int BN = 64;        // output channels per CTA
 constexpr int BK = 32;        // reduction chunk staged in shared memory
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
@@ -106,86 +105,6 @@ __device__ __forceinline__ void fwd_tile(
     for (int q = 0; q < 4; ++q) {
       const int c = col0 + tx + 16 * q;
       if (c < cout) out[(size_t)r * cout + c] = acc[p][q];
-    }
-  }
-}
-
-// part[ci0 : ci0 + 64, co0 : co0 + 64] = sum over rows i in [r_begin, r_end)
-// of a[i']^T b[i''] over the live entries j = rows(i, t), staged 32 rows at a
-// time. GATHER_A False: a row i, b row j (the band dW: f[i]^T g[j]); True:
-// a row j, b row i (the windowed dW: x[j]^T g[i]).
-template <typename T, bool GATHER_A, typename Rows>
-__device__ __forceinline__ void dw_tile(
-    const T* __restrict__ a, const T* __restrict__ b, const Rows& rows_of,
-    float* __restrict__ part, int cin, int cout, int t, int ci0, int co0,
-    int r_begin, int r_end) {
-  __shared__ float Fs[BK][BM];  // a rows, row-major
-  __shared__ float Gs[BK][BN];  // b rows
-  __shared__ int rows[BK];      // the entry's input row, -1 = none
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-
-  float acc[4][4];
-#pragma unroll
-  for (int p = 0; p < 4; ++p)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[p][q] = 0.f;
-
-  for (int r0 = r_begin; r0 < r_end; r0 += BK) {
-    int live = 0;
-    if (tid < BK) {
-      const int i = r0 + tid;
-      const int j = i < r_end ? rows_of(i, t) : -1;
-      rows[tid] = j;
-      live = j >= 0;
-    }
-    // uniform across the CTA: skip 32-row steps with no live entry
-    if (!__syncthreads_or(live)) continue;
-
-    for (int e = tid; e < BK * BM; e += THREADS) {
-      const int r = e / BM;
-      const int c = e % BM;
-      const int j = rows[r];
-      float v = 0.f;
-      if (j >= 0 && ci0 + c < cin)
-        v = to_float(a[(size_t)(GATHER_A ? j : r0 + r) * cin + ci0 + c]);
-      Fs[r][c] = v;
-    }
-    for (int e = tid; e < BK * BN; e += THREADS) {
-      const int r = e / BN;
-      const int c = e % BN;
-      const int j = rows[r];
-      float v = 0.f;
-      if (j >= 0 && co0 + c < cout)
-        v = to_float(b[(size_t)(GATHER_A ? r0 + r : j) * cout + co0 + c]);
-      Gs[r][c] = v;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int r = 0; r < BK; ++r) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) av[q] = Fs[r][ty + 16 * q];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) bv[q] = Gs[r][tx + 16 * q];
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[p][q] = fmaf(av[p], bv[q], acc[p][q]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int ci = ci0 + ty + 16 * p;
-    if (ci >= cin) continue;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int co = co0 + tx + 16 * q;
-      if (co < cout) part[(size_t)ci * cout + co] = acc[p][q];
     }
   }
 }

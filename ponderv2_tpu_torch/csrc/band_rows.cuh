@@ -1,6 +1,6 @@
 // The band plan's entries and the second pass of a chunked dW reduction,
 // shared by the band conv's kernels (band_conv.cu: K1; band_conv_bwd.cu:
-// K2, K3) and the windowed dW (windowed_gather.cu: K5).
+// K2, K3).
 //
 // BandRows applies the band plan's window predicate: for t = column * kz + dz,
 //

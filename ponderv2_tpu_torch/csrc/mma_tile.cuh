@@ -1,24 +1,29 @@
 // Tensor-core gather-GEMM tiles for Hopper: the band conv's forward
 // (band_conv.cu: K1), fused backward (band_conv_bwd.cu: K2) and split dW
-// (band_conv_bwd.cu: K3), and the probe product tile_matmul
+// (band_conv_bwd.cu: K3), the windowed conv's forward and dW
+// (windowed_gather.cu: K4, K5), and the probe product tile_matmul
 // (probe_kernels.cu: P5 kd).
 //
 // Replaces, on the card, the Pallas TPU kernels
 // ponderv2_tpu/ops/band_conv.py:192 _fwd_kernel (K1), :278 _dxdw_kernel
-// (K2), :222 _dw_kernel (K3) and
+// (K2), :222 _dw_kernel (K3), ponderv2_tpu/ops/pallas_gather.py:147
+// _fwd_kernel (K4), :197 _dw_kernel (K5) and
 // tools/experiments/probe_pallas_bisect3.py:96 kd. All are sums of products
 // of gathered rows: a row functor ``rows(i, t)`` gives the input row j of
 // output row i and tap t, or -1 where the entry is absent or outside its
-// window (band_rows.cuh:BandRows; the identity for kd).
+// window (band_rows.cuh:BandRows, windowed_gather.cu:WindowRows; the
+// identity for kd).
 //
 //   gather_gemm          out[i, c]  = sum_t sum_k a[rows(i, t), k] b[t, k, c]
 //                        over whole 16-row slabs (K2's dx: a = g, b = Wm;
-//                        kd: one tap, rows(i) = i)
+//                        K1 in bf16; K4: a = x, b = W; kd: one tap,
+//                        rows(i) = i)
 //   compact_gather_gemm  the same function over the live entries only
-//                        (K1: a = feats or g, b = W or Wm)
+//                        (K1 in f32: a = feats or g, b = W or Wm)
 //   dw_gather_gemm       part[m, c] = sum_i f[i, m] g[rows(i, t), c]
 //                        over a chunk of rows (K2's and K3's dW, one tap
-//                        per CTA)
+//                        per CTA; K5 with f = the cotangent, g = x, so
+//                        part = dW[t]^T)
 //
 // What bounds them on an H100: at the band conv's widths (32-192 channels)
 // a live entry costs one gathered row (64-768 B, mostly from L2) per
@@ -54,7 +59,10 @@
 // mma from zero and add the stage's sum into f32 registers with
 // round-to-nearest adds; the bias then stays within a stage (12 mma). The
 // extra registers limit f32 tiles to 96 columns (the wrapper splits 128
-// into two 64s). bf16 keeps one accumulator: its 3e-2 bound leaves room.
+// into two 64s). bf16 keeps one accumulator in K1-K3: their 3e-2 bound
+// leaves room. The windowed conv (K4, K5), held to f32 accuracy over bf16
+// values, asks for stage sums in bf16 too (gather_gemm's and
+// dw_gather_gemm's SS flag), and so stops at 96 columns in both dtypes.
 //
 // Widths must be multiples of 8 (bf16) or 4 (f32) elements and row
 // pointers 16-byte aligned: the wrappers pad ragged widths with zeros.
@@ -68,10 +76,33 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace mma {
 
 using bf16 = __nv_bfloat16;
+
+// gather_gemm walks a tap-major rulebook's taps in groups of up to
+// kTapGroup (its tap masks and live-tap lists are 32 wide), so a conv may
+// have any number of taps (windowed_gather.cu: K4 at 125); a group's (tap,
+// row) entry table is all it keeps of the rulebook in shared memory.
+constexpr int kTapGroup = 32;
+
+__host__ __device__ constexpr int table_taps(int taps) {
+  return taps < kTapGroup ? taps : kTapGroup;
+}
+
+// A row functor over a tap-major rulebook (one tap's rows adjacent:
+// windowed_gather.cu:WindowRows) declares ``static constexpr bool kTapMajor
+// = true``; gather_gemm then fills its entry table along a tap's rows, so
+// that the reads coalesce, and walks the taps in groups. Others
+// (band_rows.cuh:BandRows over (n, taps) rbt, at most 32 taps) are filled
+// along a row's taps, in one pass.
+template <typename Rows, typename = void>
+struct TapMajor : std::false_type {};
+template <typename Rows>
+struct TapMajor<Rows, std::void_t<decltype(Rows::kTapMajor)>>
+    : std::bool_constant<Rows::kTapMajor> {};
 
 // ------------------------------------------------------------------ PTX
 
@@ -183,7 +214,7 @@ struct GatherGemm {
   static_assert(WNT % 8 == 0 && KC % Elt<T>::KSTEP == 0 && NS >= 2, "tile shape");
 
   static __host__ __device__ constexpr size_t smem_bytes(int taps) {
-    return (size_t)NS * STAGE * sizeof(T) + (size_t)taps * BM * 4 + (WM + 33) * 4;
+    return (size_t)NS * STAGE * sizeof(T) + (size_t)table_taps(taps) * BM * 4 + (WM + 33) * 4;
   }
 };
 
@@ -224,11 +255,22 @@ __device__ __forceinline__ void gg_copy(T* As, const T* __restrict__ a, const Ro
   }
 }
 
-// acc (16 rows x 8 NTILES columns of the warp) += As (16 x KC) Bs (KC x ...)
-template <typename T, int NTILES, int KC, int LDA, int LDB>
+// acc (16 rows x 8 NTILES columns of the warp) += As (16 x KC) Bs (KC x ...);
+// SS (stage sums, see kStageSums; always in f32): the stage's products are
+// summed from zero and added into acc with round-to-nearest adds
+template <typename T, int NTILES, int KC, int LDA, int LDB, bool SS = sizeof(T) == 4>
 __device__ __forceinline__ void gg_mult(float (&acc)[NTILES][4], const T* As, const T* Bs,
                                         int lane) {
-  if constexpr (sizeof(T) == 2) {
+  if constexpr (sizeof(T) == 2 && SS) {
+    float part[NTILES][4];
+#pragma unroll
+    for (int q = 0; q < NTILES; ++q) part[q][0] = part[q][1] = part[q][2] = part[q][3] = 0.f;
+    gg_mult<T, NTILES, KC, LDA, LDB, false>(part, As, Bs, lane);
+#pragma unroll
+    for (int q = 0; q < NTILES; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[q][e] += part[q][e];
+  } else if constexpr (sizeof(T) == 2) {
 #pragma unroll
     for (int kk = 0; kk < KC; kk += 16) {
       uint32_t af[4];
@@ -273,7 +315,8 @@ __device__ __forceinline__ void gg_mult(float (&acc)[NTILES][4], const T* As, co
   }
 }
 
-template <typename T, int NT, int WM, int WN, int KC, int NS, typename Rows>
+template <typename T, int NT, int WM, int WN, int KC, int NS, bool SS = sizeof(T) == 4,
+          typename Rows>
 __device__ __forceinline__ void gather_gemm(const T* __restrict__ a, const Rows& rows_of,
                                             int taps, const T* __restrict__ b, int kdim,
                                             int ldb, float* __restrict__ out, int ldo,
@@ -282,9 +325,12 @@ __device__ __forceinline__ void gather_gemm(const T* __restrict__ a, const Rows&
   using G = GatherGemm<T, NT, WM, WN, KC, NS>;
   constexpr int BM = G::BM, THREADS = G::THREADS, LDA = G::LDA, LDB = G::LDB;
   constexpr int NTILES = G::NTILES;
+  // tap groups (TapMajor); a band plan has at most 32 taps (the launchers
+  // check), and its code is the one-pass tile's to the instruction
+  constexpr bool kGroups = TapMajor<Rows>::value;
   T* stages = reinterpret_cast<T*>(smem);
   int* jrows = reinterpret_cast<int*>(smem + (size_t)NS * G::STAGE * sizeof(T));
-  unsigned* wmask = reinterpret_cast<unsigned*>(jrows + taps * BM);
+  unsigned* wmask = reinterpret_cast<unsigned*>(jrows + (kGroups ? table_taps(taps) : taps) * BM);
   int* tap_list = reinterpret_cast<int*>(wmask + WM);  // [32] and the count
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -295,8 +341,9 @@ __device__ __forceinline__ void gather_gemm(const T* __restrict__ a, const Rows&
 #pragma unroll
   for (int q = 0; q < NTILES; ++q) acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.f;
 #define GG_MULT(s)                                                                     \
-  gg_mult<T, NTILES, KC, LDA, LDB>(acc, stages + ((s) % NS) * G::STAGE + wm * 16 * LDA, \
-                                   stages + ((s) % NS) * G::STAGE + BM * LDA + wn * G::WNT, lane)
+  gg_mult<T, NTILES, KC, LDA, LDB, SS>(acc, stages + ((s) % NS) * G::STAGE + wm * 16 * LDA, \
+                                       stages + ((s) % NS) * G::STAGE + BM * LDA + wn * G::WNT, \
+                                       lane)
 
   if (taps == 1 && nkc <= NS - 1) {
     // one tap, all of K in flight at once (kd): no lookup table and no vote
@@ -310,49 +357,56 @@ __device__ __forceinline__ void gather_gemm(const T* __restrict__ a, const Rows&
     __syncthreads();
     for (int s = 0; s < nkc; ++s) GG_MULT(s);
   } else {
-    // every entry of the tile; e runs along rbt's rows, so the reads coalesce
-    for (int e = tid; e < taps * BM; e += THREADS) {
-      const int r = e / taps, t = e % taps;
-      jrows[t * BM + r] = row0 + r < m ? rows_of(row0 + r, t) : -1;
-    }
-    __syncthreads();
-    // the warp's vote: a tap is live for its slab if one of 16 entries is
-    unsigned my_taps = 0;
-    for (int t = 0; t < taps; ++t)
-      if (__any_sync(0xffffffffu, jrows[t * BM + wm * 16 + (lane & 15)] >= 0))
-        my_taps |= 1u << t;
-    if (lane == 0 && warp < WM) wmask[wm] = my_taps;
-    __syncthreads();
-    if (tid == 0) {
-      unsigned any = 0;
-      for (int w = 0; w < WM; ++w) any |= wmask[w];
-      int c = 0;
-      for (int t = 0; t < taps; ++t)
-        if (any >> t & 1u) tap_list[c++] = t;
-      tap_list[32] = c;
-    }
-    __syncthreads();
-    const int nstages = tap_list[32] * nkc;
+    // tap groups in order: a group's entries, the warps' votes, then its
+    // stages (one pass without kGroups)
+    for (int t0 = 0; t0 < (kGroups ? taps : 1); t0 += kTapGroup) {
+      const int tg = kGroups ? min(kTapGroup, taps - t0) : taps;
+      if (kGroups && t0 > 0) __syncthreads();  // the last group's copies have read its table
+      // every entry of the group, read in the rulebook's order so that the
+      // reads coalesce
+      for (int e = tid; e < tg * BM; e += THREADS) {
+        const int r = kGroups ? e % BM : e / tg, t = kGroups ? e / BM : e % tg;
+        jrows[t * BM + r] = row0 + r < m ? rows_of(row0 + r, t0 + t) : -1;
+      }
+      __syncthreads();
+      // the warp's vote: a tap is live for its slab if one of 16 entries is
+      unsigned my_taps = 0;
+      for (int t = 0; t < tg; ++t)
+        if (__any_sync(0xffffffffu, jrows[t * BM + wm * 16 + (lane & 15)] >= 0))
+          my_taps |= 1u << t;
+      if (lane == 0 && warp < WM) wmask[wm] = my_taps;
+      __syncthreads();
+      if (tid == 0) {
+        unsigned any = 0;
+        for (int w = 0; w < WM; ++w) any |= wmask[w];
+        int c = 0;
+        for (int t = 0; t < tg; ++t)
+          if (any >> t & 1u) tap_list[c++] = t;
+        tap_list[32] = c;
+      }
+      __syncthreads();
+      const int nstages = tap_list[32] * nkc;
 
-    // stage s: its buffer, tap and depth; a warp multiplies the stages whose
-    // tap is live in its slab
+      // stage s: its buffer, tap and depth; a warp multiplies the stages
+      // whose tap is live in its slab
 #define GG_COPY(s)                                                                    \
   gg_copy<T, BM, NT, KC, LDA, LDB, THREADS>(                                          \
       stages + ((s) % NS) * G::STAGE, a, TableRow{jrows + tap_list[(s) / nkc] * BM}, b, \
-      tap_list[(s) / nkc], kdim, ldb, ((s) % nkc) * KC, col0, tid)
-    for (int s = 0; s < NS - 1; ++s) {
-      if (s < nstages) GG_COPY(s);
-      cp_async_commit();
-    }
-    for (int s = 0; s < nstages; ++s) {
-      cp_async_wait<NS - 2>();
-      __syncthreads();  // stage s landed; stage s - 1's buffer is free
-      if (s + NS - 1 < nstages) GG_COPY(s + NS - 1);
-      cp_async_commit();
-      if (my_taps >> tap_list[s / nkc] & 1u) GG_MULT(s);  // else all 16 entries dead
-    }
-    cp_async_wait<0>();
+      t0 + tap_list[(s) / nkc], kdim, ldb, ((s) % nkc) * KC, col0, tid)
+      for (int s = 0; s < NS - 1; ++s) {
+        if (s < nstages) GG_COPY(s);
+        cp_async_commit();
+      }
+      for (int s = 0; s < nstages; ++s) {
+        cp_async_wait<NS - 2>();
+        __syncthreads();  // stage s landed; stage s - 1's buffer is free
+        if (s + NS - 1 < nstages) GG_COPY(s + NS - 1);
+        cp_async_commit();
+        if (my_taps >> tap_list[s / nkc] & 1u) GG_MULT(s);  // else all 16 entries dead
+      }
+      cp_async_wait<0>();
 #undef GG_COPY
+    }
   }
 #undef GG_MULT
 
@@ -551,7 +605,8 @@ __device__ __forceinline__ void compact_gather_gemm(const T* __restrict__ a, con
 // Per window of WIN rows: each row's entry, then the live entries compacted
 // in row order (warp ballots and a prefix over the warps), then stages of
 // KR live entries each, NS in flight. Only live entries are multiplied
-// (a window's last stage is padded with zero rows).
+// (a window's last stage is padded with zero rows). SS: stage sums (see
+// kStageSums; always in f32).
 template <typename T, int MT, int NT, int NS>
 struct DwGemm {
   static constexpr int THREADS = 256;
@@ -593,7 +648,7 @@ __device__ __forceinline__ void dw_copy(T* Fs, const T* __restrict__ f, int ldf,
   }
 }
 
-template <typename T, int MT, int NT, int NS, typename Rows>
+template <typename T, int MT, int NT, int NS, bool SS = sizeof(T) == 4, typename Rows>
 __device__ __forceinline__ void dw_gather_gemm(const T* __restrict__ f, int ldf,
                                                const T* __restrict__ g, int ldg,
                                                const Rows& rows_of, int t,
@@ -664,6 +719,14 @@ __device__ __forceinline__ void dw_gather_gemm(const T* __restrict__ f, int ldf,
       const T* Fs = stages + (s % NS) * D::STAGE;
       const T* Gs = Fs + KR * LDF;
       const int kr = min(KR, nlive - s * KR);  // the rows past it are zeros
+      float sum[MTILES][NTILES][4];  // with SS, this stage's sum
+      float(&dst)[MTILES][NTILES][4] = SS ? sum : acc;
+      if constexpr (SS) {
+#pragma unroll
+        for (int p = 0; p < MTILES; ++p)
+#pragma unroll
+          for (int q = 0; q < NTILES; ++q) sum[p][q][0] = sum[p][q][1] = sum[p][q][2] = sum[p][q][3] = 0.f;
+      }
       if constexpr (sizeof(T) == 2) {
         for (int kk = 0; kk < kr; kk += 16) {
           uint32_t bfr[NTILES][2];
@@ -682,17 +745,12 @@ __device__ __forceinline__ void dw_gather_gemm(const T* __restrict__ f, int ldf,
             uint32_t af[4];
             ldsm_x4_t(af, fk + p * 16);
 #pragma unroll
-            for (int q = 0; q < NTILES; ++q) mma_bf16(acc[p][q], af, bfr[q][0], bfr[q][1]);
+            for (int q = 0; q < NTILES; ++q) mma_bf16(dst[p][q], af, bfr[q][0], bfr[q][1]);
           }
         }
       } else {
         const float* Ff = reinterpret_cast<const float*>(Fs);
         const float* Gf = reinterpret_cast<const float*>(Gs);
-        float sum[MTILES][NTILES][4];  // this stage's sum, see kStageSums
-#pragma unroll
-        for (int p = 0; p < MTILES; ++p)
-#pragma unroll
-          for (int q = 0; q < NTILES; ++q) sum[p][q][0] = sum[p][q][1] = sum[p][q][2] = sum[p][q][3] = 0.f;
         for (int kk = 0; kk < kr; kk += 8) {
           uint32_t bh[NTILES][2], bl[NTILES][2];
           const float* gk = Gf + (kk + (lane & 3)) * LDG + nb + (lane >> 2);
@@ -710,9 +768,11 @@ __device__ __forceinline__ void dw_gather_gemm(const T* __restrict__ f, int ldf,
             split_tf32(fk[p * 16 + 4 * LDF], ah[2], al[2]);
             split_tf32(fk[p * 16 + 4 * LDF + 8], ah[3], al[3]);
 #pragma unroll
-            for (int q = 0; q < NTILES; ++q) mma_3xtf32(sum[p][q], ah, al, bh[q], bl[q]);
+            for (int q = 0; q < NTILES; ++q) mma_3xtf32(dst[p][q], ah, al, bh[q], bl[q]);
           }
         }
+      }
+      if constexpr (SS) {
 #pragma unroll
         for (int p = 0; p < MTILES; ++p)
 #pragma unroll

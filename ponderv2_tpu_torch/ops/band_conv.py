@@ -387,6 +387,28 @@ DXDW_SCRATCH_BYTES = 128 * 2 ** 20
 K1_TILE = (256, 16, 3)
 
 
+# shared-memory layouts of the tiles that K1-K5 share (csrc/mma_tile.cuh),
+# as each tile's ``smem_bytes`` computes them: the slab tile keeps the
+# entry table of up to TAP_GROUP taps at a time (kTapGroup)
+TAP_GROUP = 32
+DW_STAGES = 3  # mma_tile.cuh:DwGemm, as band_conv_bwd.cu and windowed_gather.cu instantiate it
+
+
+def gather_gemm_smem(co: int, k3: int, dtype: torch.dtype) -> int:
+    """``GatherGemm<T, co, 8, 1, 32, 3>::smem_bytes(k3)``: the slab tile of
+    K2's dx, K1 in bf16 and K4 (DX_ROWS rows, 32-deep stages, 3 in flight)."""
+    pad = 8 if dtype == torch.bfloat16 else 4
+    rows, kc, stages = DX_ROWS, 32, 3
+    return (stages * (rows * (kc + pad) + kc * (co + 8)) * _elt(dtype)
+            + min(k3, TAP_GROUP) * rows * 4 + (8 + 33) * 4)
+
+
+def dw_gemm_smem(mt: int, nt: int, dtype: torch.dtype) -> int:
+    """``DwGemm<T, mt, nt, DW_STAGES>::smem_bytes()``: stages of 32 live
+    entries' f and gathered rows, and a 1024-row window's lists."""
+    return DW_STAGES * 32 * (mt + 8 + nt + 8) * _elt(dtype) + (2 * 1024 + 32) * 4
+
+
 class FwdPlan(NamedTuple):
     """K1's launch plan: the tile (compacted or slabs), output column tile,
     padded widths, CTAs and the dynamic shared memory of one CTA
@@ -405,15 +427,13 @@ def fwd_plan(n: int, cin: int, cout: int, k3: int, dtype: torch.dtype) -> FwdPla
     ``k3`` taps in ``dtype``."""
     co = tile_width(cout, dtype)
     compact = dtype == torch.float32
-    pad = 8 if dtype == torch.bfloat16 else 4
     if compact:
+        pad = 8 if dtype == torch.bfloat16 else 4
         rows, kc, stages = K1_TILE
         smem = (stages * (rows * (kc + pad) + kc * (co + 8)) * _elt(dtype)
                 + rows * (co + 8) * 4 + k3 * rows * 4 + 65 * 4 + k3 * rows)
-    else:  # mma_tile.cuh:GatherGemm<T, co, 8, 1, 32, 3>
-        rows, kc, stages = DX_ROWS, 32, 3
-        smem = (stages * (rows * (kc + pad) + kc * (co + 8)) * _elt(dtype) + k3 * rows * 4
-                + (8 + 33) * 4)
+    else:
+        rows, smem = DX_ROWS, gather_gemm_smem(co, k3, dtype)
     return FwdPlan(compact=compact, co_tile=co, cin_p=padded_width(cin, dtype),
                    cout_p=padded_width(cout, dtype),
                    ctas=_cdiv(n, rows) * _cdiv(cout, co), smem_bytes=smem)
@@ -423,7 +443,6 @@ def fwd_plan(n: int, cin: int, cout: int, k3: int, dtype: torch.dtype) -> FwdPla
 # only their (input, output) channel tiles; other widths take one of these
 # with zero padding.
 K3_TILES = {torch.float32: ((64, 64), (96, 64)), torch.bfloat16: ((128, 128),)}
-DW_STAGES = 3  # mma_tile.cuh:DwGemm, as band_conv_bwd.cu instantiates it
 
 
 def _dw_chunks(n: int, cin: int, cout: int, k3: int, tiles: int) -> Tuple[int, int]:
@@ -488,12 +507,11 @@ def dw_plan(n: int, cin: int, cout: int, k3: int, dtype: torch.dtype) -> DwPlan:
         _cdiv(cin, t[0]) * t[0] * _cdiv(cout, t[1]) * t[1], -t[0] * t[1]))
     tiles = _cdiv(cin, ci) * _cdiv(cout, co)
     chunk, nchunks = _dw_chunks(n, cin, cout, k3, tiles)
-    stage = 32 * (ci + 8 + co + 8)  # 32 live entries of f and g rows
     return DwPlan(ci_tile=ci, co_tile=co, cin_p=padded_width(cin, dtype),
                   cout_p=padded_width(cout, dtype), ctas=nchunks * k3 * tiles,
                   chunk=chunk, nchunks=nchunks,
                   scratch_bytes=nchunks * k3 * cin * cout * 4,
-                  smem_bytes=DW_STAGES * stage * _elt(dtype) + (2 * 1024 + 32) * 4)
+                  smem_bytes=dw_gemm_smem(ci, co, dtype))
 
 
 def _operand(t: torch.Tensor, width: int) -> torch.Tensor:

@@ -11,7 +11,9 @@ drops it, so a caller checks ``covered`` before it trusts the result.
 
 ``windowed_conv_fwd`` (K4) and ``windowed_conv_dw`` (K5) launch
 ``csrc/windowed_gather.cu`` on CUDA tensors, or raise; on CPU tensors they
-run their ``*_plain`` versions. No path of the pretrain step routes a conv
+run their ``*_plain`` versions. Both run the band conv's tensor-core tiles
+(``csrc/mma_tile.cuh``), planned by ``windowed_fwd_plan`` and
+``windowed_dw_plan``. No path of the pretrain step routes a conv
 here (the JAX package keeps its windowed conv off by default, too): the
 probe ``tools/experiments/probe_windowed_torch.py`` and ``chip_smoke.py``
 run them. ``windowed_slab_fwd`` is K4's forward over the entries of
@@ -21,11 +23,12 @@ of each entry's 8-row slab; the same probe entry point runs it.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple
 
 import torch
 
-from .band_conv import MIN_DW_CHUNK, _cdiv, _CudaKernel, _on_cuda
+from .band_conv import (DX_ROWS, _cdiv, _CudaKernel, _dw_chunks, _on_cuda, _operand,
+                        dw_gemm_smem, gather_gemm_smem, padded_width, tile_width)
 
 
 def padded_rows(n_in: int, wb: int) -> int:
@@ -77,9 +80,9 @@ def pad_features(features: torch.Tensor, n_pad: int, dtype: torch.dtype) -> torc
     return out
 
 
-WINDOWED_FWD = _CudaKernel("windowed_gather", "windowed_fwd", 5, 8,
+WINDOWED_FWD = _CudaKernel("windowed_gather", "windowed_fwd", 5, 10,
                            "windowed_error_string")
-WINDOWED_DW = _CudaKernel("windowed_gather", "windowed_dw", 6, 10,
+WINDOWED_DW = _CudaKernel("windowed_gather", "windowed_dw", 6, 14,
                           "windowed_error_string")
 WINDOWED_SLAB_FWD = _CudaKernel("windowed_gather", "windowed_slab_fwd", 5, 10,
                                 "windowed_error_string", dtypes=(torch.bfloat16,))
@@ -129,6 +132,70 @@ def _tap_rows(feats: torch.Tensor, geom: WindowGeometry, t: int, wb: int,
                                                              device=rows.device))
 
 
+# ------------------------------------------------------------------ plans
+
+# K4 and K5 keep per-stage sums in bf16 as in f32 (csrc/windowed_gather.cu),
+# so their tiles stop at 96 columns in both dtypes: tile_width's f32 widths.
+TILE_DTYPE = torch.float32
+
+
+class WindowedFwdPlan(NamedTuple):
+    """K4's launch plan on the slab tile gather_gemm (DX_ROWS rows a CTA,
+    whole 16-row slabs): output column tile, padded widths, CTAs and the
+    dynamic shared memory of one CTA."""
+
+    co_tile: int
+    cin_p: int
+    cout_p: int
+    ctas: int
+    smem_bytes: int
+
+
+def windowed_fwd_plan(nrows: int, cin: int, cout: int, k3: int,
+                      dtype: torch.dtype) -> WindowedFwdPlan:
+    """K4's launch plan for ``nrows`` output rows, ``cin`` -> ``cout``
+    channels and ``k3`` taps in ``dtype``."""
+    co = tile_width(cout, TILE_DTYPE)
+    return WindowedFwdPlan(co_tile=co, cin_p=padded_width(cin, dtype),
+                           cout_p=padded_width(cout, dtype),
+                           ctas=_cdiv(nrows, DX_ROWS) * _cdiv(cout, co),
+                           smem_bytes=gather_gemm_smem(co, k3, dtype))
+
+
+class WindowedDwPlan(NamedTuple):
+    """K5's launch plan: the swapped tile (``co_tile`` x ``ci_tile`` of
+    dW[t]^T, the cotangent's columns by the gathered features'), padded
+    widths, CTAs, row chunks and scratch of the two-pass reduction, and the
+    dynamic shared memory of one CTA."""
+
+    co_tile: int
+    ci_tile: int
+    cin_p: int
+    cout_p: int
+    ctas: int
+    chunk: int
+    nchunks: int
+    scratch_bytes: int
+    smem_bytes: int
+
+
+def windowed_dw_plan(nrows: int, cin: int, cout: int, k3: int,
+                     dtype: torch.dtype) -> WindowedDwPlan:
+    """K5's launch plan for ``nrows`` output rows, ``cin`` -> ``cout``
+    channels and ``k3`` taps in ``dtype``: K3's dW tile with its operands
+    swapped, each side the tile width of its own channels (at least 32: 6
+    or 8 input channels run a 32-wide tile), the row chunks of the band
+    conv's dW reductions (``band_conv._dw_chunks``)."""
+    co, ci = tile_width(cout, TILE_DTYPE), tile_width(cin, TILE_DTYPE)
+    tiles = _cdiv(cout, co) * _cdiv(cin, ci)
+    chunk, nchunks = _dw_chunks(nrows, cin, cout, k3, tiles)
+    return WindowedDwPlan(co_tile=co, ci_tile=ci, cin_p=padded_width(cin, dtype),
+                          cout_p=padded_width(cout, dtype), ctas=nchunks * k3 * tiles,
+                          chunk=chunk, nchunks=nchunks,
+                          scratch_bytes=nchunks * k3 * cin * cout * 4,
+                          smem_bytes=dw_gemm_smem(co, ci, dtype))
+
+
 # ------------------------------------------------------------------ K4
 
 
@@ -137,7 +204,8 @@ def windowed_conv_fwd(feats: torch.Tensor, geom: WindowGeometry,
     """K4: the accumulated conv output (nb * block, cout) f32 of padded
     features (n_pad, cin) and weights (K3, cin, cout), both in the compute
     dtype. CPU tensors take ``windowed_conv_fwd_plain``; CUDA tensors launch
-    ``csrc/windowed_gather.cu`` or raise."""
+    ``csrc/windowed_gather.cu`` (planned by ``windowed_fwd_plan``) or
+    raise."""
     if not _on_cuda("windowed_conv_fwd", feats):
         return windowed_conv_fwd_plain(feats, geom, weights, wb, group)
     _check("windowed_conv_fwd", feats, geom, wb, group, weights)
@@ -151,9 +219,13 @@ def windowed_conv_fwd(feats: torch.Tensor, geom: WindowGeometry,
     out = torch.empty((nrows, cout), dtype=torch.float32, device=feats.device)
     if nrows == 0 or cout == 0:
         return out
-    WINDOWED_FWD.launch(feats.dtype, feats.device, feats.data_ptr(),
-                        geom.rbb.data_ptr(), geom.w0.data_ptr(), weights.data_ptr(),
-                        out.data_ptr(), nrows, cin, cout, k3, nb, block, wb, group)
+    p = windowed_fwd_plan(nrows, cin, cout, k3, feats.dtype)
+    x, w = _operand(feats, p.cin_p), _operand(weights, p.cout_p)
+    if p.cin_p != cin:
+        w = torch.nn.functional.pad(w, (0, 0, 0, p.cin_p - cin))
+    WINDOWED_FWD.launch(feats.dtype, feats.device, x.data_ptr(), geom.rbb.data_ptr(),
+                        geom.w0.data_ptr(), w.data_ptr(), out.data_ptr(), nrows, p.cin_p,
+                        cout, p.cout_p, k3, nb, block, wb, group, p.co_tile)
     return out
 
 
@@ -242,27 +314,14 @@ def windowed_slab_fwd_plain(feats: torch.Tensor, geom: WindowGeometry,
 
 # ------------------------------------------------------------------ K5
 
-# K5's dW is reduced over row chunks in two passes (csrc/windowed_gather.cu):
-# the chunk count aims at about this many dW CTAs per launch (~30 per SM of
-# an H100), with chunks of at least MIN_DW_CHUNK rows.
-DW_TARGET_CTAS = 4096
-
-
-def _dw_chunks(n: int, cin: int, cout: int, k3: int) -> Tuple[int, int]:
-    """(rows per chunk, number of chunks) of K5's dW reduction; chunks are
-    multiples of the kernel's 32-row step."""
-    per_chunk = k3 * _cdiv(cin, 64) * _cdiv(cout, 64)
-    nchunks = max(1, min(_cdiv(DW_TARGET_CTAS, per_chunk), _cdiv(n, MIN_DW_CHUNK)))
-    chunk = _cdiv(_cdiv(n, nchunks), 32) * 32
-    return chunk, _cdiv(n, chunk)
-
-
 def windowed_conv_dw(feats: torch.Tensor, geom: WindowGeometry, g: torch.Tensor,
                      wb: int, group: int) -> torch.Tensor:
     """K5: dW (K3, cin, cout) f32, dW[t] = sum_i x[rbb[t, i]]^T g[i] over live
     entries; ``g`` (nb * block, cout) in the features' dtype. CPU tensors
     take ``windowed_conv_dw_plain``; CUDA tensors launch
-    ``csrc/windowed_gather.cu`` or raise."""
+    ``csrc/windowed_gather.cu`` (planned by ``windowed_dw_plan``: per row
+    chunk, dW[t]^T's partials, then their sum in chunk order, transposed)
+    or raise."""
     if not _on_cuda("windowed_conv_dw", feats):
         return windowed_conv_dw_plain(feats, geom, g, wb, group)
     _check("windowed_conv_dw", feats, geom, wb, group, g)
@@ -275,12 +334,13 @@ def windowed_conv_dw(feats: torch.Tensor, geom: WindowGeometry, g: torch.Tensor,
     if cin == 0 or cout == 0:
         return torch.zeros((k3, cin, cout), dtype=torch.float32, device=dev)
     dw = torch.empty((k3, cin, cout), dtype=torch.float32, device=dev)
-    chunk, nchunks = _dw_chunks(nrows, cin, cout, k3)
-    partial = torch.empty((nchunks, k3, cin, cout), dtype=torch.float32, device=dev)
-    WINDOWED_DW.launch(feats.dtype, dev, feats.data_ptr(), g.data_ptr(),
-                       geom.rbb.data_ptr(), geom.w0.data_ptr(), partial.data_ptr(),
-                       dw.data_ptr(), nrows, cin, cout, k3, nb, block, wb, group,
-                       chunk, nchunks)
+    p = windowed_dw_plan(nrows, cin, cout, k3, feats.dtype)
+    x, gp = _operand(feats, p.cin_p), _operand(g, p.cout_p)
+    partial = torch.empty((p.nchunks, k3, cout, cin), dtype=torch.float32, device=dev)
+    WINDOWED_DW.launch(feats.dtype, dev, gp.data_ptr(), x.data_ptr(), geom.rbb.data_ptr(),
+                       geom.w0.data_ptr(), partial.data_ptr(), dw.data_ptr(), nrows, cin,
+                       cout, p.cin_p, p.cout_p, k3, nb, block, wb, group, p.chunk,
+                       p.nchunks, p.co_tile, p.ci_tile)
     return dw
 
 

@@ -7,13 +7,17 @@ variable that does not start with ``_`` becomes a config key. A config may decla
 
 whose keys are deep-merged underneath its own. Matches the public behaviour of the
 reference config system (``ponder/utils/config.py:70-694``) with a fresh
-implementation. A copy of ``ponderv2_tpu/utils/config.py``.
+implementation. A copy of ``ponderv2_tpu/utils/config.py``, except that a
+config's ``from ponderv2_tpu... import`` of the two data modules it names
+(``PORTED_MODULES``) takes the port's copies, so configs load without JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import builtins
 import copy
+import importlib
 import os
 import pprint
 import sys
@@ -72,6 +76,26 @@ def _deep_merge(base: Dict, override: Dict) -> Dict:
     return merged
 
 
+# The JAX package's data modules that configs import (the PPT vocabulary, the
+# ScanNet200 class tables), and the port's byte-equal copies of them: a
+# config runs with these names resolved to the copies, so that it loads
+# where JAX is not installed.
+PORTED_MODULES = {
+    "ponderv2_tpu.datasets.ppt_vocab": "ponderv2_tpu_torch.datasets.ppt_vocab",
+    "ponderv2_tpu.datasets.preprocessing.scannet200_constants":
+        "ponderv2_tpu_torch.datasets.preprocessing.scannet200_constants",
+}
+
+
+def _config_import(name, globals=None, locals=None, fromlist=(), level=0):
+    """``__import__`` of a config file: ``from <a PORTED_MODULES name> import
+    ...`` takes the port's copy; everything else imports as usual. Nothing is
+    added to ``sys.modules`` under the JAX package's name."""
+    if level == 0 and fromlist and name in PORTED_MODULES:
+        return importlib.import_module(PORTED_MODULES[name])
+    return builtins.__import__(name, globals, locals, fromlist, level)
+
+
 def _exec_pyfile(filename: str) -> Dict[str, Any]:
     filename = os.path.abspath(os.path.expanduser(filename))
     if not os.path.isfile(filename):
@@ -80,6 +104,7 @@ def _exec_pyfile(filename: str) -> Dict[str, Any]:
         source = f.read()
     module = types.ModuleType("_cfg_")
     module.__file__ = filename
+    module.__builtins__ = {**builtins.__dict__, "__import__": _config_import}
     code = compile(source, filename, "exec")
     exec(code, module.__dict__)
     return {

@@ -16,8 +16,11 @@ held to 3e-2 of max|ref| (the bound bench.py:227 uses).
 Every sum of K1-K3 runs in a fixed order (K1 adds each tap's compacted
 slabs into its output tile, taps in order; dW is reduced over row chunks in
 two passes; no atomics), so a second launch gives equal bits. K4/K5's plain
-versions multiply the same bf16 values in f32, as the kernels do, so both
-dtypes are held to 1e-5; K5 is deterministic too.
+versions multiply the same bf16 values in f32, as the kernels do (on the
+tensor-core tiles too: both add each stage's products into f32 sums with
+round-to-nearest adds, also over K5's 12,000-row chunks at the pretrain
+stem's shape), so both dtypes are held to 1e-5; K4 and K5 are
+deterministic too.
 """
 
 import ctypes
@@ -364,13 +367,21 @@ def _monotone_rulebook(n, k3, group, spread, seed=0):
     return torch.from_numpy(np.stack(rbs).astype(np.int32))
 
 
-@pytest.mark.parametrize("k3,cin,cout,group", [(27, 32, 32, 9), (27, 70, 130, 9),
-                                               (125, 6, 32, 25)])
+@pytest.mark.parametrize("k3,cin,cout,group,n", [
+    (27, 32, 32, 9, 3000), (27, 70, 130, 9, 3000), (125, 6, 32, 25, 3000),
+    (9, 8, 40, 9, 3000), (25, 40, 8, 25, 3000), (27, 96, 96, 9, 3000), (125, 8, 96, 25, 3000),
+    (27, 40, 6, 1, 3000),
+    (125, 6, 32, 25, 204_800)])  # the pretrain stem: K5's row chunks of 12,048 rows
 @pytest.mark.parametrize("block,wb", [(64, 256), (128, 32)], ids=["covered", "uncovered"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k4_k5_match_plain(cuda, k3, cin, cout, group, block, wb, dtype):
-    n = 3000
-    rb = _monotone_rulebook(n, k3, group, 40).to(cuda)
+def test_k4_k5_match_plain(cuda, k3, cin, cout, group, n, block, wb, dtype):
+    """K4 and K5 on the tensor-core tiles against their plain versions at
+    narrow, ragged and wide widths, 9-125 taps and K5 chunks of 1,000 to
+    12,000 rows, with tap 5 dead and, in the uncovered case, entries
+    outside their windows; equal bits on a second launch."""
+    rb = _monotone_rulebook(n, k3, group, 40)
+    rb[5] = -1
+    rb = rb.to(cuda)
     geom = wg.prepare_geometry(rb, n, block, wb, group)
     assert bool(geom.covered) == (wb == 256)
     gen = torch.Generator(device=cuda).manual_seed(cin * cout)
@@ -389,7 +400,45 @@ def test_k4_k5_match_plain(cuda, k3, cin, cout, group, block, wb, dtype):
     assert out.dtype == dw.dtype == torch.float32
     assert out.shape == ref.shape and dw.shape == rdw.shape
     assert _rel_err(out, ref) <= 1e-5 and _rel_err(dw, rdw) <= 1e-5
+    assert float(dw[5].abs().max()) == 0.0
     assert torch.equal(wg.windowed_conv_dw(f, geom, g, wb, group), dw)
+    assert torch.equal(wg.windowed_conv_fwd(f, geom, w, wb, group), out)
+
+
+@pytest.mark.parametrize("k3,cin,cout", [(27, 32, 32), (27, 96, 96), (125, 8, 32), (125, 6, 32),
+                                         (27, 40, 130)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_k5_shared_memory_is_the_plans(cuda, k3, cin, cout, dtype):
+    """The dynamic shared memory each kernel asks for is what
+    ``windowed_fwd_plan`` / ``windowed_dw_plan`` reckon, within an H100's
+    232,448 bytes."""
+    lib = wg.WINDOWED_FWD.lib()
+    fwd, dw = lib.windowed_fwd_smem_bytes, lib.windowed_dw_smem_bytes
+    fwd.restype = dw.restype = ctypes.c_longlong
+    bf16 = int(dtype == torch.bfloat16)
+    p = wg.windowed_fwd_plan(163_840, cin, cout, k3, dtype)
+    assert fwd(bf16, p.co_tile, k3) == p.smem_bytes <= 232_448
+    d = wg.windowed_dw_plan(163_840, cin, cout, k3, dtype)
+    assert dw(bf16, d.co_tile, d.ci_tile) == d.smem_bytes <= 232_448 // 2
+
+
+def test_k4_k5_dead_block(cuda):
+    """An output block whose entries are all dead gives zero rows (K4), and
+    a rulebook with no live entry a zero dW (K5)."""
+    n, k3, group, block, wb = 3000, 27, 9, 512, 256
+    rb = _monotone_rulebook(n, k3, group, 40)
+    rb[:, 512:1024] = -1
+    rb = rb.to(cuda)
+    geom = wg.prepare_geometry(rb, n, block, wb, group)
+    for dtype in (torch.float32, torch.bfloat16):
+        f = wg.pad_features(torch.randn(n, 32, device=cuda), wg.padded_rows(n, wb), dtype)
+        w = torch.randn(k3, 32, 32, device=cuda).to(dtype)
+        out = wg.windowed_conv_fwd(f, geom, w, wb, group)
+        assert float(out[512:1024].abs().max()) == 0.0
+        assert _rel_err(out, wg.windowed_conv_fwd_plain(f, geom, w, wb, group)) <= 1e-5
+        dead = wg.prepare_geometry(torch.full_like(rb, -1), n, block, wb, group)
+        g = torch.randn(dead.rbb.shape[1] * block, 32, device=cuda).to(dtype)
+        assert float(wg.windowed_conv_dw(f, dead, g, wb, group).abs().max()) == 0.0
 
 
 def test_k4_k5_reject_bad_input(cuda):

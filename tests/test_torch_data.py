@@ -153,6 +153,8 @@ class TestTrainDataPath:
 
         import ponderv2_tpu.datasets.dataloader as jdl
         import ponderv2_tpu.datasets.defaults as jdef
+        import ponderv2_tpu.datasets.ppt_vocab as jvocab
+        import ponderv2_tpu.datasets.preprocessing.scannet200_constants as jsc200
         import ponderv2_tpu.datasets.transform as jtr
         import ponderv2_tpu.utils.clip_text as jclip
         import ponderv2_tpu.utils.env as jenv
@@ -160,6 +162,8 @@ class TestTrainDataPath:
         import ponderv2_tpu.utils.timer as jtm
         import ponderv2_tpu_torch.datasets.dataloader as tdl
         import ponderv2_tpu_torch.datasets.defaults as tdef
+        import ponderv2_tpu_torch.datasets.ppt_vocab as tvocab
+        import ponderv2_tpu_torch.datasets.preprocessing.scannet200_constants as tsc200
         import ponderv2_tpu_torch.datasets.transform as ttr
         import ponderv2_tpu_torch.utils.clip_text as tclip
         import ponderv2_tpu_torch.utils.env as tenv
@@ -186,6 +190,10 @@ class TestTrainDataPath:
             for name in names:
                 assert inspect.getsource(getattr(tmod, name)) == inspect.getsource(
                     getattr(jmod, name)), f"{tmod.__name__}.{name}"
+        # the data modules the configs import, whole (utils/config.py:PORTED_MODULES)
+        for jmod, tmod in [(jvocab, tvocab), (jsc200, tsc200)]:
+            with open(jmod.__file__, "rb") as fj, open(tmod.__file__, "rb") as ft:
+                assert fj.read() == ft.read(), tmod.__name__
 
     def test_scannet_train_batches_match_jax(self, np_global_seed):
         """The ScanNet train transform (every random augmentation) and the
@@ -367,3 +375,97 @@ def test_port_imports_and_runs_without_jax():
         with open(path) as f:
             for i, line in enumerate(f, 1):
                 assert not pattern.match(line), f"{path}:{i}: {line.strip()}"
+
+
+# ------------------------------------------------------------------ configs
+# Every config file loads through the port's Config with JAX blocked: the
+# two JAX data modules configs import resolve to the port's copies
+# (ponderv2_tpu_torch/utils/config.py:PORTED_MODULES). The JAX bench's own
+# config, configs/_test_/pretrain_bench.py, imports jax.numpy for itself and
+# stays JAX-only; the port runs configs/_test_/pretrain_bench_torch.py.
+
+CONFIG_DIR = os.path.join(ROOT, "configs")
+CONFIGS = sorted(os.path.relpath(os.path.join(d, f), CONFIG_DIR)
+                 for d, _, files in os.walk(CONFIG_DIR) for f in files if f.endswith(".py"))
+JAX_ONLY_CONFIG = os.path.join("_test_", "pretrain_bench.py")
+
+_CONFIG_LOAD_CHECK = r"""
+import importlib.abc, json, os, sys
+BLOCKED = {"jax", "jaxlib", "flax", "optax", "ponderv2_tpu"}
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+root, names = sys.argv[1], json.loads(sys.argv[2])
+sys.path.insert(0, root)
+from ponderv2_tpu_torch.utils.config import Config
+
+loaded = {}
+for name in names:
+    try:
+        Config.fromfile(os.path.join(root, "configs", name))
+        loaded[name] = "ok"
+    except Exception as e:
+        loaded[name] = f"{type(e).__name__}: {e}"
+print(json.dumps({"loaded": loaded,
+                  "jax_modules": [m for m in sys.modules if m.split(".")[0] in BLOCKED]}))
+"""
+
+
+@pytest.fixture(scope="module")
+def configs_without_jax():
+    """Each config loaded through the port's ``Config.fromfile`` in one
+    subprocess with jax/jaxlib/flax/optax/ponderv2_tpu blocked: {"loaded":
+    {name: "ok" or the error}, "jax_modules": blocked modules imported}."""
+    import json
+
+    proc = subprocess.run([sys.executable, "-c", _CONFIG_LOAD_CHECK, ROOT, json.dumps(CONFIGS)],
+                          capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("name", [c for c in CONFIGS if c != JAX_ONLY_CONFIG])
+def test_config_loads_without_jax(configs_without_jax, name):
+    """The config loads with JAX blocked, leaves no module of the JAX package
+    in ``sys.modules``, and gives the values the JAX package's loader gives."""
+    assert configs_without_jax["loaded"][name] == "ok"
+    assert configs_without_jax["jax_modules"] == []
+    path = os.path.join(CONFIG_DIR, name)
+    assert _comparable(TConfig.fromfile(path).to_dict()) == _comparable(
+        JConfig.fromfile(path).to_dict())
+
+
+def _comparable(v):
+    """A config's values with each function (a config may define one, e.g.
+    a transform lambda) replaced by its bytecode and constants."""
+    if isinstance(v, dict):
+        return {k: _comparable(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return type(v)(_comparable(x) for x in v)
+    if callable(v) and hasattr(v, "__code__"):
+        return ("function", v.__code__.co_code, v.__code__.co_consts)
+    return v
+
+
+def test_jax_bench_config_stays_jax_only(configs_without_jax):
+    """``configs/_test_/pretrain_bench.py`` (the JAX bench's config) imports
+    jax itself, so it is the one config that needs JAX."""
+    assert configs_without_jax["loaded"][JAX_ONLY_CONFIG] == "ImportError: blocked import: jax"
+
+
+def test_config_import_mapping_adds_no_jax_module():
+    """In a process that has the JAX package too, a config's import of a
+    ported data module returns the port's copy and puts nothing under the
+    JAX package's name into ``sys.modules``."""
+    from ponderv2_tpu_torch.utils import config as tconfig
+
+    before = {m for m in sys.modules if m.split(".")[0] == "ponderv2_tpu"}
+    for jname, tname in tconfig.PORTED_MODULES.items():
+        mod = tconfig._config_import(jname, None, None, ("x",), 0)
+        assert mod is sys.modules[tname]
+    assert {m for m in sys.modules if m.split(".")[0] == "ponderv2_tpu"} == before

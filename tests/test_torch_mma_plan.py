@@ -1,7 +1,8 @@
 """The launch plans of the tensor-core gather-GEMM kernels (K1,
-``band_fwd_core``; K2, ``band_dxdw_core``; K3, ``band_dw_core``; P5 ``kd``,
-``tile_matmul``), the arithmetic of their f32 route, and the fixed-order
-sums of the reproducible steps, on the CPU.
+``band_fwd_core``; K2, ``band_dxdw_core``; K3, ``band_dw_core``; K4/K5,
+``windowed_conv_fwd``/``windowed_conv_dw``; P5 ``kd``, ``tile_matmul``),
+the arithmetic of their f32 route, and the fixed-order sums of the
+reproducible steps, on the CPU.
 
 The kernels themselves run only on a GPU (``tests/test_torch_cuda.py``).
 What the wrappers decide in Python is checked here: tile widths, padded
@@ -9,16 +10,27 @@ widths, CTA ranges, row chunks and scratch of the dW reduction, dynamic
 shared memory. The f32 route multiplies as 3xTF32 (``csrc/mma_tile.cuh``); a
 numpy emulation of that split shows it holds the f32 bound of the GPU tests
 (1e-5 of max|ref|) over the reduction lengths of the fine-tune step's L0
-convs, where one TF32 pass would not, and an emulation of K1's compacted
-tile (its summation order) holds the same bound against the plain version.
+convs, where one TF32 pass would not, and emulations of K1's compacted
+tile and of K5's swapped dW tile (their summation orders) hold the same
+bound against the plain versions (K5's also against the JAX kernel).
 """
 
+import os
+import sys
+
 import numpy as np
+import jax.numpy as jnp
 import pytest
 import torch
 
+from ponderv2_tpu.ops import pallas_gather as jpg
 from ponderv2_tpu_torch.ops import band_conv as bc
 from ponderv2_tpu_torch.ops import probe_kernels as pk
+from ponderv2_tpu_torch.ops import windowed_gather as wg
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "tools", "experiments"))
+import probe_windowed_torch as probe  # noqa: E402
 
 # (cin, cout) of every band conv the fine-tune and pretrain steps route to K2
 ROUTED = [(32, 32), (64, 64), (96, 96), (128, 96), (128, 128), (192, 128)]
@@ -245,6 +257,164 @@ def test_compacted_k1_order_holds_the_f32_bound():
     live, k1_rows, k2_rows = chip_smoke.band_rows_multiplied(plan, n, 3, 32, 8)
     assert k1_rows == multiplied and live <= k1_rows < live + 16 * 27 * -(-n // 256)
     assert k2_rows >= k1_rows
+
+
+# ------------------------------------------------------------------ K4, K5
+# chip_smoke.py phase 12's six windowed convs: (taps, cin, cout, output
+# rows): the probe's three shapes and its profile kernel's (N = 163,840),
+# then the pretrain batch's k5 stem and L0 k3 rulebooks (204,800 rows)
+PHASE12 = {
+    "probe k3=27 32->32": (27, 32, 32, 163_840),
+    "probe k3=27 96->96": (27, 96, 96, 163_840),
+    "probe k3=125 8->32": (125, 8, 32, 163_840),
+    "profile k3=27 32->32": (27, 32, 32, 163_840),
+    "pretrain stem k5 6->32": (125, 6, 32, 204_800),
+    "pretrain L0 k3 32->32": (27, 32, 32, 204_800),
+}
+
+
+@pytest.mark.parametrize("label", list(PHASE12))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_plans_at_phase12_convs(label, dtype):
+    """K4's and K5's launch plans at the six convs: tiles, padded widths,
+    CTAs, row chunks, scratch and shared memory within an H100's 232,448
+    bytes (K4's tile walks 125 taps in groups of 32)."""
+    k3, cin, cout, n = PHASE12[label]
+    f = wg.windowed_fwd_plan(n, cin, cout, k3, dtype)
+    assert f.co_tile == cout == f.cout_p  # 32 or 96: no padding column
+    assert f.cin_p == (8 if cin < 8 else cin)  # whole 16-byte copies
+    assert 512 % bc.DX_ROWS == 0  # a CTA lies in one 512-row output block
+    assert f.ctas == n // bc.DX_ROWS * (cout // f.co_tile)
+    assert f.smem_bytes <= SMEM_LIMIT
+    d = wg.windowed_dw_plan(n, cin, cout, k3, dtype)
+    # dW^T tiles: the cotangent's columns by the gathered features' (>= 32)
+    assert d.co_tile == cout and d.ci_tile == max(cin, 32)
+    assert (d.cin_p, d.cout_p) == (f.cin_p, f.cout_p)
+    assert d.ctas == d.nchunks * k3 >= 132  # one tile; at least one CTA per SM
+    assert d.chunk % 16 == 0 and (d.nchunks - 1) * d.chunk < n <= d.nchunks * d.chunk
+    assert d.scratch_bytes == d.nchunks * k3 * cin * cout * 4 <= bc.DXDW_SCRATCH_BYTES
+    assert d.smem_bytes <= SMEM_LIMIT // 2  # two CTAs per SM
+
+
+def test_windowed_plan_shared_memory():
+    """The plans' shared memory as the tiles lay it out: K4's slab tile
+    (128 rows, 32-deep stages, 3 in flight, the entry table of one group of
+    32 taps) at 125 and 9 taps; K5's dW tile (32 entries a stage); K4's and
+    K5's tiles stop at 96 columns in both dtypes (stage sums)."""
+    assert wg.windowed_fwd_plan(512, 8, 32, 125, torch.bfloat16).smem_bytes == (
+        3 * (128 * 40 + 32 * 40) * 2 + 32 * 128 * 4 + 41 * 4)
+    assert wg.windowed_fwd_plan(512, 8, 32, 125, torch.float32).smem_bytes == (
+        3 * (128 * 36 + 32 * 40) * 4 + 32 * 128 * 4 + 41 * 4)
+    assert wg.windowed_fwd_plan(512, 8, 32, 9, torch.float32).smem_bytes == (
+        3 * (128 * 36 + 32 * 40) * 4 + 9 * 128 * 4 + 41 * 4)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert wg.windowed_fwd_plan(512, 8, 128, 27, dtype).co_tile == 64
+        d = wg.windowed_dw_plan(4096, 128, 192, 27, dtype)
+        assert (d.co_tile, d.ci_tile) == (96, 64)
+    assert wg.windowed_dw_plan(4096, 6, 96, 27, torch.float32).smem_bytes == (
+        3 * 32 * (96 + 8 + 32 + 8) * 4 + (2 * 1024 + 32) * 4)
+    # K1's plans are unchanged by the tap groups (27 taps fit one group)
+    assert bc.fwd_plan(10, 96, 96, 27, torch.bfloat16).smem_bytes == (
+        3 * (128 * 40 + 32 * 104) * 2 + 27 * 128 * 4 + 41 * 4)
+
+
+def _windowed_case(rng, n, k3, group, block, wb, cin, cout):
+    """A monotone rulebook (probe_windowed_torch.make_monotone_rulebook,
+    spread 40), its geometry, f32 features padded to whole windows and a
+    cotangent over the output rows, with tap 3 dead."""
+    rb = probe.make_monotone_rulebook(n, k3, rng, group=group)
+    rb = np.clip(rb, -1, n - 1)
+    rb[3] = -1
+    geom = wg.prepare_geometry(torch.from_numpy(rb), n, block, wb, group)
+    x = rng.randn(n, cin).astype(np.float32)
+    f = wg.pad_features(torch.from_numpy(x), wg.padded_rows(n, wb), torch.float32)
+    g = rng.randn(geom.rbb.shape[1] * block, cout).astype(np.float32)
+    return rb, geom, x, f, g
+
+
+def _emulate_k5(f, g, geom, wb, group, chunk, nchunks):
+    """K5 in numpy, f32, in the kernel's order: per (row chunk, tap), the
+    live entries of each 1024-row window from the chunk's start in row
+    order, 32 a stage; a stage's TF32 parts' products of dW[t]^T = g^T x
+    (hi.hi + hi.lo + lo.hi) summed exactly, rounded to f32 and added into
+    the chunk's f32 partial; then the partials added in chunk order from
+    zero and transposed. Returns (dW (k3, cin, cout), rows multiplied at
+    f32's mma depth of 8)."""
+    k3, nb, _, block = geom.rbb.shape
+    rb = geom.rbb.reshape(k3, -1).numpy().astype(np.int64)
+    nrows = rb.shape[1]
+    lo = np.repeat(geom.w0.numpy().astype(np.int64) * wb, group, 0)[:, np.arange(nrows) // block]
+    live = (rb >= lo) & (rb < lo + 2 * wb)
+    gh = _tf32(g)
+    gl = _tf32(g - gh)
+    xh = _tf32(f)
+    xl = _tf32(f - xh)
+    gh, gl, xh, xl = (v.astype(np.float64) for v in (gh, gl, xh, xl))
+    partial = np.zeros((nchunks, k3, g.shape[1], f.shape[1]), np.float32)
+    multiplied = 0
+    for s in range(nchunks):
+        end = min(nrows, (s + 1) * chunk)
+        for t in range(k3):
+            acc = np.zeros(partial.shape[2:], np.float32)
+            for w0 in range(s * chunk, end, 1024):
+                ii = w0 + np.nonzero(live[t, w0:min(w0 + 1024, end)])[0]
+                multiplied += -(-len(ii) // 8) * 8
+                for k in range(0, len(ii), 32):
+                    i = ii[k:k + 32]
+                    j = rb[t, i]
+                    part = gh[i].T @ xh[j] + gh[i].T @ xl[j] + gl[i].T @ xh[j]
+                    acc += part.astype(np.float32)
+            partial[s, t] = acc
+    dw = np.zeros((k3, f.shape[1], g.shape[1]), np.float32)
+    for s in range(nchunks):
+        dw += partial[s].transpose(0, 2, 1)
+    return dw, multiplied
+
+
+@pytest.mark.parametrize("wb", [256, 32], ids=["covered", "uncovered"])
+def test_k5_swapped_order_holds_the_f32_bound(wb):
+    """K5's summation order (dw_gather_gemm with the cotangent read by row
+    and the features gathered: per chunk and tap, each window's live
+    entries compacted in row order, 32-entry stages, the 3xTF32 split, the
+    chunk partials summed in order and transposed) against
+    ``windowed_conv_dw_plain`` at 1e-5 of max|ref| in f32, at the plan's
+    chunks and at 2048-row chunks (two windows a chunk), with windows that
+    drop entries and a dead tap; against the JAX kernel
+    (``pallas_gather.windowed_conv_dw``, interpret mode) too; and the rows
+    it multiplies, as ``chip_smoke.py`` counts them from the geometry."""
+    rng = np.random.RandomState(wb)
+    n, k3, group, block, cin, cout = 2600, 27, 9, 64, 6, 40
+    rb, geom, x, f, g = _windowed_case(rng, n, k3, group, block, wb, cin, cout)
+    assert bool(geom.covered) == (wb == 256)
+    ref = wg.windowed_conv_dw_plain(f, geom, torch.from_numpy(g), wb, group).numpy()
+    plan = wg.windowed_dw_plan(geom.rbb.shape[1] * block, cin, cout, k3, torch.float32)
+    assert plan.nchunks >= 2
+    scale = np.abs(ref).max()
+    for chunk in (plan.chunk, 2048):
+        nchunks = -(-g.shape[0] // chunk)
+        out, multiplied = _emulate_k5(f.numpy(), g, geom, wb, group, chunk, nchunks)
+        assert np.abs(out - ref).max() <= 1e-5 * scale, chunk
+        assert not out[3].any()
+        if chunk == plan.chunk:
+            assert multiplied == probe.k5_rows_multiplied(geom, wb, plan, torch.float32)
+    jgeom = jpg.prepare_geometry(jnp.asarray(rb), n, block, wb, group)
+    jf8 = jpg.pad_features(jnp.asarray(x), wg.padded_rows(n, wb), jnp.float32)
+    jdw = np.asarray(jpg.windowed_conv_dw(jf8, jgeom, jnp.asarray(g), wb, group))
+    out, _ = _emulate_k5(f.numpy(), g, geom, wb, group, plan.chunk, plan.nchunks)
+    assert np.abs(out - jdw).max() <= 1e-5 * np.abs(jdw).max()
+
+
+def test_k4_rows_multiplied_counts_the_tiles():
+    """``probe_windowed_torch.k4_rows_multiplied`` against a count by row
+    blocks: the slab tile's 16-row slabs with a live entry per tap."""
+    rng = np.random.RandomState(5)
+    _, geom, _, _, _ = _windowed_case(rng, 3000, 27, 9, 512, 256, 8, 8)
+    k3 = geom.rbb.shape[0]
+    live = probe._live(geom, 256, 2)[2].reshape(k3, -1).numpy()
+    slabs = sum(16 * int(live[t, r:r + 16].any()) for t in range(k3)
+                for r in range(0, live.shape[1], 16))
+    assert probe.k4_rows_multiplied(geom, 256) == slabs
+    assert live.sum() <= slabs <= 16 * live.sum()
 
 
 # ------------------------------------------------------------------ fixed-order sums

@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
 """Time variants of the tensor-core gather-GEMM tiles (``csrc/mma_tile.cuh``)
 on a GPU: K1 (``band_fwd_core``) and K2 (``band_dxdw_core``) at the
-fine-tune batch's real band plans, and P5 ``kd`` (``tile_matmul``) at its
-probe's shape.
+fine-tune batch's real band plans, K4 (``windowed_conv_fwd``) at
+``chip_smoke.py`` phase 12's six convs, and P5 ``kd`` (``tile_matmul``) at
+its probe's shape.
 
     python tools/experiments/probe_mma_variants_torch.py k1 [variant,...]
     python tools/experiments/probe_mma_variants_torch.py k2 [variant,...]
+    python tools/experiments/probe_mma_variants_torch.py k4 [variant,...]
     python tools/experiments/probe_mma_variants_torch.py kd [variant,...]
 
 Each variant is a copy of the kernel sources with a few text edits (K1:
 ``routed`` as built, the compacted tile in f32 and K2's dx tile in bf16;
 ``slabs`` K2's dx tile, ``gather_gemm``, which multiplies whole 16-row
 slabs, in both dtypes; ``compacted`` and ``rRRR_kcKK_nsN`` (other rows per
-CTA, k-chunks and stages) the compacted tile in both; K2: ``nodw`` / ``nodx`` launch
+CTA, k-chunks and stages) the compacted tile in both; K4: ``slabs`` as
+built, ``compacted`` the other tile, in both dtypes; K2: ``nodw`` / ``nodx`` launch
 only one CTA range, ``onepass`` keeps one TF32 product of three; kd: other
 tile shapes, ``noload`` / ``nomult`` drop the copies or the products,
 ``empty`` returns at once), built with the package's nvcc flags into
@@ -59,6 +62,55 @@ K1 = {
     **{f"r{r}_kc{k}_ns{n}": [("band_conv.cu", K1_CHOICE, "constexpr bool kCompact = true;"),
                              ("band_conv.cu", K1_LINE, f"#define K1_TILE {r}, {k}, {n}")]
        for r, k, n in [(128, 32, 2), (128, 32, 3), (64, 32, 3)]},
+}
+# K4: the slab tile in both dtypes as built, or compact_gather_gemm (256
+# rows, 16-deep stages, 3 in flight: K1's f32 tile) over the tap-major
+# rulebook: the table filled along a tap's rows, taps from t0, and 125 taps
+# walked in groups of 32 into one output tile (zeroed by the first group,
+# written by the last)
+K4_COMPACT_ROWS = 256
+COMPACT_GROUPS = """// compact_gather_gemm over any number of taps, in groups of kTapGroup
+template <typename C, typename Rows, typename T = typename C::T>
+__device__ __forceinline__ void compact_gather_gemm_groups(
+    const T* __restrict__ a, const Rows& rows_of, int taps, const T* __restrict__ b, int kdim,
+    int ldb, float* __restrict__ out, int ldo, int m, int ncols, int row0, int col0,
+    unsigned char* smem) {
+  for (int t0 = 0; t0 < taps; t0 += kTapGroup)
+    compact_gather_gemm<C>(a, rows_of, min(kTapGroup, taps - t0), b, kdim, ldb, out, ldo, m,
+                           ncols, row0, col0, smem, t0, t0 == 0, t0 + kTapGroup >= taps);
+}
+
+"""
+K4 = {
+    "slabs": [],
+    "compacted": [
+        ("mma_tile.cuh", "(size_t)BM * LDO * 4 + (size_t)taps * BM * 4 +\n"
+                         "           65 * 4 + (size_t)taps * BM;",
+         "(size_t)BM * LDO * 4 + (size_t)table_taps(taps) * BM * 4 +\n"
+         "           65 * 4 + (size_t)table_taps(taps) * BM;"),
+        ("mma_tile.cuh", "unsigned char* smem) {\n  constexpr int NT = C::NT,",
+         "unsigned char* smem, int t0 = 0, bool first = true, bool last = true) {\n"
+         "  constexpr int NT = C::NT,"),
+        ("mma_tile.cuh", "  for (int e = tid; e < BM * NT / 4; e += THREADS) {",
+         "  if (first)\n  for (int e = tid; e < BM * NT / 4; e += THREADS) {"),
+        ("mma_tile.cuh", "    const int r = e / taps, t = e % taps;\n"
+                         "    lj[t * BM + r] = row0 + r < m ? rows_of(row0 + r, t) : -1;",
+         "    const int r = e % BM, t = e / BM;\n"
+         "    lj[t * BM + r] = row0 + r < m ? rows_of(row0 + r, t0 + t) : -1;"),
+        ("mma_tile.cuh", "    const T* bt = b + (size_t)t * kdim * ldb;",
+         "    const T* bt = b + (size_t)(t0 + t) * kdim * ldb;"),
+        ("mma_tile.cuh", "  cp_async_wait<0>();\n  __syncthreads();\n\n"
+                         "  for (int e = tid; e < BM * NT; e += THREADS) {",
+         "  cp_async_wait<0>();\n  __syncthreads();\n  if (!last) return;\n"
+         "  for (int e = tid; e < BM * NT; e += THREADS) {"),
+        ("mma_tile.cuh", "// ------------------------------------------------------------------ "
+                         "dw_gather_gemm", COMPACT_GROUPS + "// ---------------------------------"
+                         "--------------------------------- dw_gather_gemm"),
+        ("windowed_gather.cu", "using FwdTile = mma::GatherGemm<T, NT, 8, 1, 32, NSTAGE>;",
+         f"using FwdTile = mma::CompactGemm<T, NT, {K4_COMPACT_ROWS}, 16, NSTAGE>;"),
+        ("windowed_gather.cu", "mma::gather_gemm<T, NT, 8, 1, 32, NSTAGE, true>(",
+         "mma::compact_gather_gemm_groups<FwdTile<T, NT>>("),
+    ],
 }
 KD_LINE = "#define KD_TILE "
 # kd runs gather_gemm's one-tap path
@@ -215,6 +267,80 @@ def run_k2(names):
                   make_args, bc.band_dxdw_core, bc.band_dxdw_core_plain)
 
 
+def compacted_rows(geom, wb):
+    """Rows the compacted K4 variant multiplies per output column tile: per
+    CTA of K4_COMPACT_ROWS rows and tap, the live entries rounded up to
+    whole 16-row slabs."""
+    import probe_windowed_torch as probe
+
+    live = probe._live(geom, wb, 2)[2]
+    per_cta = live.reshape(live.shape[0], -1, K4_COMPACT_ROWS).sum(2)
+    return int(((per_cta + 15) // 16 * 16).sum())
+
+
+def pretrain_plans(dev):
+    """``chip_smoke.level_plans`` of a batch of ``chip_smoke.py``'s pretrain
+    config (the loader's first at seed ``chip_smoke.SEED``, as
+    ``repro_torch.first_batch`` draws it; phase 12 takes the batch of its
+    pretrain run, other scenes of the same kind), as the backbone builds
+    them: (level plans, level coords, the k5 stem's plan)."""
+    import chip_smoke as cs
+    from repro_torch import first_batch
+
+    from ponderv2_tpu_torch.engines.defaults import default_config_parser
+    from ponderv2_tpu_torch.models import build_model
+    from ponderv2_tpu_torch.models.default import batch_to_sparse_tensor
+    from ponderv2_tpu_torch.ops.sparse import maybe_sort_by_key
+
+    tmp = tempfile.mkdtemp(prefix="probe_mma_variants_")
+    try:
+        cfg = default_config_parser(cs.PRETRAIN_CONFIG, {"save_path": tmp})
+        cfg.seed = cs.SEED
+        st, _ = maybe_sort_by_key(batch_to_sparse_tensor(first_batch(cfg, dev)))
+        return cs.level_plans(build_model(dict(cfg.model)).backbone, st)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_k4(names):
+    """Each K4 variant at phase 12's six convs (``chip_smoke.windowed_cases``
+    on ``pretrain_plans``; the probe's inputs, seeded as phase 12 seeds
+    them), f32 and bf16, with the rows each tile multiplies against the live
+    entries."""
+    import chip_smoke as cs
+    import probe_windowed_torch as probe
+    from ponderv2_tpu_torch.ops import windowed_gather as wg
+
+    libs = build("windowed_gather", {n: K4[n] for n in names})
+    dev = torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    level_rb, _, stem = pretrain_plans(dev)
+    cases = cs.windowed_cases(probe, dev, level_rb, stem)
+    totals = {}
+    for i, (label, group, rb, cin, cout) in enumerate(cases):
+        n = rb.shape[1]
+        feats, w, _ = probe.case_inputs(rb, cin, cout, cs.SEED + i, dev)
+        geom = wg.prepare_geometry(rb, n, probe.BLOCK, probe.WB, group)
+        rows = {False: probe.k4_rows_multiplied(geom, probe.WB),
+                True: compacted_rows(geom, probe.WB)}
+        for dtype in (torch.float32, torch.bfloat16):
+            f = wg.pad_features(feats, wg.padded_rows(n, probe.WB), dtype)
+            wc = w.to(dtype).contiguous()
+            ref = wg.windowed_conv_fwd_plain(f, geom, wc, probe.WB, group)
+            line = []
+            for name in list(libs) + list(libs)[::-1]:
+                bind(wg.WINDOWED_FWD, libs[name])
+                err = cs.max_err(wg.windowed_conv_fwd(f, geom, wc, probe.WB, group), ref)[0]
+                ms = cs.cuda_ms(lambda: wg.windowed_conv_fwd(f, geom, wc, probe.WB, group), 5)
+                totals[name, dtype] = totals.get((name, dtype), 0.0) + ms / 2
+                line.append(f"{name} {ms:.3f} ms (err {err:.1e})")
+            print(f"{label} {n} rows, {probe.live_entries(geom, probe.WB)} live entries (rows "
+                  f"multiplied per column tile: compacted {rows[True]}, slabs {rows[False]}), "
+                  f"{cin}->{cout} {str(dtype)[6:]}: " + "; ".join(line), flush=True)
+    for (name, dtype), ms in totals.items():
+        print(f"six convs, {name} {str(dtype)[6:]}: {ms:.3f} ms (mean of the two passes)")
+
+
 def run_kd(names):
     import probe_bisect_torch
     import probe_windowed_torch as probe
@@ -244,10 +370,10 @@ def main():
         print("probe_mma_variants_torch: needs a CUDA GPU", file=sys.stderr)
         return 2
     which = sys.argv[1] if len(sys.argv) > 1 else "kd"
-    table = {"k1": K1, "k2": K2, "kd": KD}[which]
+    table = {"k1": K1, "k2": K2, "k4": K4, "kd": KD}[which]
     names = sys.argv[2].split(",") if len(sys.argv) > 2 else list(table)
     print(os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read().strip())
-    {"k1": run_k1, "k2": run_k2, "kd": run_kd}[which](names)
+    {"k1": run_k1, "k2": run_k2, "k4": run_k4, "kd": run_kd}[which](names)
     return 0
 
 

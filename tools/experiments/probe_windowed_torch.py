@@ -109,6 +109,35 @@ def live_entries(geom, wb, windows=2):
     return int(_live(geom, wb, windows)[2].sum())
 
 
+def k4_rows_multiplied(geom, wb):
+    """Rows K4 multiplies per output column tile, counted from the geometry
+    as its slab tile (``mma_tile.cuh:gather_gemm``) decides: every 16-row
+    slab that holds a live entry of the tap."""
+    live = _live(geom, wb, 2)[2]
+    return int(live.reshape(live.shape[0], -1, 16).any(2).sum()) * 16
+
+
+def k5_rows_multiplied(geom, wb, plan, dtype):
+    """Rows K5 multiplies per channel tile, counted from the geometry as
+    ``mma_tile.cuh:dw_gather_gemm`` decides (``plan``:
+    ``windowed_dw_plan``): per (row chunk, tap, 1024-row window from the
+    chunk's start) the live entries, rounded up to the mma depth (16 rows in
+    bf16, 8 in f32)."""
+    import torch
+
+    live = _live(geom, wb, 2)[2]
+    k3 = live.shape[0]
+    live = live.reshape(k3, -1)
+    i = torch.arange(live.shape[1], device=live.device)
+    per_chunk = -(-plan.chunk // 1024)
+    window = i // plan.chunk * per_chunk + i % plan.chunk // 1024
+    counts = torch.zeros((k3, plan.nchunks * per_chunk), dtype=torch.int64,
+                         device=live.device)
+    counts.index_add_(1, window, live.to(torch.int64))
+    depth = 16 if dtype == torch.bfloat16 else 8
+    return int(((counts + depth - 1) // depth * depth).sum())
+
+
 def rows_read(geom, wb, windows=2, slab=False, rebase=False):
     """Distinct feature rows a forward reads over its live entries: each
     entry's own row (K4), or with ``slab`` the head of its 8-row slab, less
@@ -173,17 +202,19 @@ def moved_bytes(geom, cin, cout, n_in, dtype, weights=True):
 def bound_ms(geom, wb, cin, cout, n_in, dtype, weights=True, windows=2):
     """The least time an H100 SXM could take for K4 (``weights``) or K5:
     max(bytes / 3.35 TB/s, FLOPs / peak) with ``moved_bytes``; FLOPs = 2 x
-    in-window entries x cin x cout, at 67 TFLOP/s (f32, CUDA cores) or 989
-    TFLOP/s (bf16). Returns (ms, term)."""
-    import torch
+    in-window entries x cin x cout, at the tensor cores' rate where K4 and
+    K5 run (``chip_smoke.PEAK_FLOPS``: 989 TFLOP/s in bf16, 165 in f32 at
+    f32 accuracy, 3xTF32). Returns (ms, term)."""
+    from chip_smoke import PEAK_FLOPS
 
     flops = 2.0 * live_entries(geom, wb, windows) * cin * cout
     return bound_of(moved_bytes(geom, cin, cout, n_in, dtype, weights), flops,
-                    PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+                    PEAK_FLOPS[str(dtype).rsplit(".", 1)[-1]])
 
 
 # H100 SXM (NVIDIA's data sheet, 700 W): HBM bytes/s; dense FLOP/s of bf16
-# on the tensor cores and of f32 on the CUDA cores
+# on the tensor cores and of f32 on the CUDA cores (the probe kernels that
+# run there, P7 among them)
 HBM_BYTES_S = 3.35e12
 PEAK_BF16, PEAK_F32 = 989e12, 67e12
 
@@ -445,6 +476,7 @@ def main(argv=None) -> int:
     wg.build_kernels()
     pk.build_kernels()
     print(f"device {torch.cuda.get_device_name(0)}; dtype {args.dtype}; TF32 off")
+    print(os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read().strip())
     for label, group, rb, cin, cout in cases(np.random.RandomState(0)):
         rb = torch.from_numpy(rb).to(dev)
         feats, w, g = case_inputs(rb, cin, cout, 0, dev)

@@ -12,11 +12,12 @@ phases; any failure exits non-zero:
 1. print the card's name and power limit; refuse to run without CUDA;
 2. build every kernel with nvcc, one process per source in parallel: K1
    (``ponderv2_tpu_torch/csrc/band_conv.cu``), K2 and K3
-   (``csrc/band_conv_bwd.cu``; K1-K3 and P5 ``kd`` on the tensor-core tiles
-   of ``csrc/mma_tile.cuh``), K4, K5 and the P7 ablations' forward
-   (``csrc/windowed_gather.cu``), the row gather-sum
-   (``csrc/row_gather.cu``) and the window-read and grouped-construct
-   kernels (``csrc/probe_kernels.cu``); print ptxas registers and spills;
+   (``csrc/band_conv_bwd.cu``; K1-K5, P5 ``kd`` and P7 V2-V4 on the
+   tensor-core tiles of ``csrc/mma_tile.cuh``), K4, K5 and the P7
+   ablations' forward on K4's kernel (``csrc/windowed_gather.cu``), the row
+   gather-sum (``csrc/row_gather.cu``) and the window-read and
+   grouped-construct kernels (``csrc/probe_kernels.cu``); print ptxas
+   registers and spills;
 3. compare K1 with its plain PyTorch version on the card at every distinct
    (level, Cin, Cout) band conv of the serving slice, at the level row
    counts of a real fragment, in f32 (TF32 off) and bf16, plus a
@@ -80,7 +81,9 @@ phases; any failure exits non-zero:
     summed in another order: P3 ``k2`` through K4, P5 ``kd``, P7 V2-V4) and
     time kernel, plain version and library call on the device (replayed
     from a CUDA graph, the L2 flushed before each call; the kernel with it
-    warm too) and per call issued from Python;
+    warm too) and per call issued from Python; for P7 V2-V4 (K4's slab
+    tile) print the rows multiplied against the live entries; with
+    ``--parent-log`` each kernel's time beside that tree's;
 14. print times and peak memory, a JSON line of the kernels, and last
     ``{"ok": true, "device": {...}}``.
 """
@@ -439,11 +442,20 @@ def parent_times(path):
         return {m[1]: (float(m[2]), float(m[3])) for m in map(line.match, f) if m}
 
 
+def parent_probe_times(path):
+    """{probe function: kernel ms (device, L2 cold)} from the ``[probe]``
+    lines of another tree's phase 13 log."""
+    line = re.compile(r"^\[probe\] (.+?) \([^()]*\): .*?kernel / plain / library ([\d.]+) /")
+    with open(path) as f:
+        return {m[1]: float(m[2]) for m in map(line.match, f) if m}
+
+
 def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--parent-log", help="print phase 12's times beside this log's")
+    parser.add_argument("--parent-log",
+                        help="print phases 12's and 13's times beside this log's")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs "
@@ -1128,6 +1140,7 @@ def main() -> int:
         # ---- 13. the probe kernels: each probe function through its entry
         # point, at its probe's shape and on its inputs
         probe_rows = []
+        parent = parent_probe_times(opts.parent_log) if opts.parent_log else {}
         for v in (probe_gather_torch.variants(dev) + probe_bisect_torch.variants(dev)
                   + probe.profile_variants(dev)):
             for k in all_kernels:
@@ -1138,6 +1151,9 @@ def main() -> int:
             check(launched == {v.kernel.symbol: 1}, f"{v.name}: launches {launched}")
             m = probe.measure(v, out, 20)
             print("[probe] " + probe.report(v, m), flush=True)
+            if v.name in parent:
+                print(f"[probe] {v.name}: parent -> this tree {parent[v.name]:.4f} -> "
+                      f"{m['ms']:.4f} ms (device, L2 cold)")
             check(m["agree"], f"{v.name}: kernel vs plain max_abs_err {m['max_abs_err']}")
             probe_rows.append((v, m, launched[v.kernel.symbol]))
             del out

@@ -1,23 +1,26 @@
 // Tensor-core gather-GEMM tiles for Hopper: the band conv's forward
 // (band_conv.cu: K1), fused backward (band_conv_bwd.cu: K2) and split dW
 // (band_conv_bwd.cu: K3), the windowed conv's forward and dW
-// (windowed_gather.cu: K4, K5), and the probe product tile_matmul
-// (probe_kernels.cu: P5 kd).
+// (windowed_gather.cu: K4, K5), the profile probe's slab-head forward
+// (windowed_gather.cu: P7 V2-V4, on K4's kernel) and the probe product
+// tile_matmul (probe_kernels.cu: P5 kd). They are the port's only GEMM
+// tiles; it has no CUDA-core one.
 //
 // Replaces, on the card, the Pallas TPU kernels
 // ponderv2_tpu/ops/band_conv.py:192 _fwd_kernel (K1), :278 _dxdw_kernel
 // (K2), :222 _dw_kernel (K3), ponderv2_tpu/ops/pallas_gather.py:147
-// _fwd_kernel (K4), :197 _dw_kernel (K5) and
-// tools/experiments/probe_pallas_bisect3.py:96 kd. All are sums of products
-// of gathered rows: a row functor ``rows(i, t)`` gives the input row j of
-// output row i and tap t, or -1 where the entry is absent or outside its
-// window (band_rows.cuh:BandRows, windowed_gather.cu:WindowRows; the
-// identity for kd).
+// _fwd_kernel (K4), :197 _dw_kernel (K5),
+// tools/experiments/probe_pallas_profile.py:114 kern_norbc and :147 kern_lo
+// (P7 V2-V4) and tools/experiments/probe_pallas_bisect3.py:96 kd. All are
+// sums of products of gathered rows: a row functor ``rows(i, t)`` gives the
+// input row j of output row i and tap t, or -1 where the entry is absent or
+// outside its window (band_rows.cuh:BandRows, windowed_gather.cu:WindowRows
+// and SlabRows; the identity for kd).
 //
 //   gather_gemm          out[i, c]  = sum_t sum_k a[rows(i, t), k] b[t, k, c]
 //                        over whole 16-row slabs (K2's dx: a = g, b = Wm;
-//                        K1 in bf16; K4: a = x, b = W; kd: one tap,
-//                        rows(i) = i)
+//                        K1 in bf16; K4 and P7 V2-V4: a = x, b = W; kd: one
+//                        tap, rows(i) = i)
 //   compact_gather_gemm  the same function over the live entries only
 //                        (K1 in f32: a = feats or g, b = W or Wm)
 //   dw_gather_gemm       part[m, c] = sum_i f[i, m] g[rows(i, t), c]
@@ -28,9 +31,10 @@
 // What bounds them on an H100: at the band conv's widths (32-192 channels)
 // a live entry costs one gathered row (64-768 B, mostly from L2) per
 // 2 x Cin x Cout FLOPs, and most entries are dead (a surface fills about a
-// quarter of the 27 taps). The CUDA-core tile they replace multiplied dead
-// rows whenever one of 64 rows was live, padded 96 channels to 128, staged
-// synchronously and ran f32 FMAs at half the FMA peak. The design:
+// quarter of the 27 taps). The CUDA-core tile they replaced (deleted once
+// P7 left it) multiplied dead rows whenever one of 64 rows was live, padded
+// 96 channels to 128, staged synchronously and ran f32 FMAs at half the FMA
+// peak. The design:
 //
 // - Tensor cores, warp-level mma.sync with f32 accumulation: bf16 runs
 //   m16n8k16; f32 runs 3xTF32 (m16n8k8 on hi = tf32(x), lo = tf32(x - hi),
@@ -93,7 +97,7 @@ __host__ __device__ constexpr int table_taps(int taps) {
 }
 
 // A row functor over a tap-major rulebook (one tap's rows adjacent:
-// windowed_gather.cu:WindowRows) declares ``static constexpr bool kTapMajor
+// windowed_gather.cu:WindowRows, SlabRows) declares ``static constexpr bool kTapMajor
 // = true``; gather_gemm then fills its entry table along a tap's rows, so
 // that the reads coalesce, and walks the taps in groups. Others
 // (band_rows.cuh:BandRows over (n, taps) rbt, at most 32 taps) are filled

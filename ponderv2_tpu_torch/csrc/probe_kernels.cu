@@ -26,31 +26,45 @@
 // library GEMM. The TPU grid carried each sum across grid steps; here a loop
 // inside the thread does.
 //
-// What bounds them on an H100: at the probes' shapes every one moves under
-// 1 MB (P3/P4: an 8192 x 32 f32 output and a few hundred KB of windows) or
-// does under 10 MFLOP (kd), so their bound is a few hundred nanoseconds and
-// their time is the launch's (kd: one 16-row x 32-column CTA of 4 warps
-// per 16 rows, 32 CTAs at 512 rows, with the 288-deep K in flight at once
-// and no row table or vote, so that one launch, one round of loads and a
-// chain of 18 mma are all it waits on). P7 V5 at
-// N = 163,840 writes 21 MB of output (~6 us at 3.35 TB/s) from 27 x 320 x 2 head rows. Design: one thread per
-// output element (or per column for sum_rows), consecutive threads on
-// consecutive columns so that loads and stores coalesce; window_head_sum
-// first forms a block's 2 x taps head sums in shared memory, one thread
-// each, then writes the block's rows.
+// What bounds them on an H100: at the probes' shapes every one but P7 V5
+// moves under 1 MB (P3/P4: an 8192 x 32 f32 output and a few hundred KB of
+// windows) or does under 10 MFLOP (kd), so their bound is a few hundred
+// nanoseconds and their time is the launch's (kd: one 16-row x 32-column CTA
+// of 4 warps per 16 rows, 32 CTAs at 512 rows, with the 288-deep K in flight
+// at once and no row table or vote, so that one launch, one round of loads
+// and a chain of 18 mma are all it waits on). Design: one thread per output
+// element (or per column for sum_rows), consecutive threads on consecutive
+// columns so that loads and stores coalesce.
+//
+// P7 V5 at N = 163,840 writes 21 MB of f32 output (~6.3 us at 3.35 TB/s)
+// from 27 x 320 x 2 head rows of 64 bytes: bytes bind, and a CTA's critical
+// path is two dependent reads (its window table, then its head rows) and
+// the sums before its writes. window_head_sum therefore gives each head row
+// to one thread, which issues the row's 16-byte loads (4 x uint4 for 32 bf16
+// columns) before it adds any, so that a CTA waits about one memory latency
+// for all of its heads; sums them in registers in column order; and writes
+// the rounded sum to shared memory. One thread then adds the taps in order
+// (cheaper than every thread doing so: 40 warps an SM would read the same 54
+// sums from shared memory; PERF.md), and every thread writes its share of
+// the CTA's rows with 16-byte streaming stores (nothing reads the output
+// again). A CTA owns 128 rows of one output block, so the probe's
+// 320 blocks make 1,280 CTAs of 128 threads: all resident at once, about 10
+// to an SM, so that the 21 MB write is spread evenly over the 132 SMs. A
+// width that is not a multiple of 8, or an x not 16-byte aligned, takes
+// scalar head reads (HEAD_VEC false); an output range that is not 16-byte
+// aligned takes scalar stores at its ends.
 //
 // Plain C interface for ctypes: every launcher returns the cudaError_t of
 // cudaGetLastError() after its launch.
 
-#include "band_conv_tile.cuh"
 #include "mma_tile.cuh"
 
 namespace {
 
-using band::to_float;
 using bf16 = __nv_bfloat16;
 constexpr int THREADS = 256;
 
+__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
 
 unsigned grid_for(long long threads) {
   return (unsigned)((threads + THREADS - 1) / THREADS);
@@ -82,25 +96,99 @@ window_copy_sum_kernel(const bf16* __restrict__ x, const int* __restrict__ w0,
   out[e] = acc;
 }
 
-// One CTA per output block j.
-__global__ void __launch_bounds__(THREADS)
+// window_head_sum: a CTA writes HEAD_ROWS rows of one output block.
+constexpr int HEAD_THREADS = 128;
+constexpr int HEAD_ROWS = 128;
+
+// R(sum_k x[r, k]): row r of x summed over its c columns in order (zero
+// outside [0, rows_x)), rounded to bf16. HEAD_VEC (c a multiple of 8, x
+// 16-byte aligned): the row's 16-byte loads go out, 4 at a time, before
+// their adds.
+template <bool HEAD_VEC>
+__device__ __forceinline__ float head_sum(const bf16* __restrict__ x, long long r, int rows_x,
+                                          int c) {
+  float s = 0.f;
+  if (r >= 0 && r < rows_x) {
+    const bf16* row = x + (size_t)r * c;
+    if constexpr (HEAD_VEC) {
+      for (int k0 = 0; k0 < c; k0 += 32) {
+        const int n = min(4, (c - k0) / 8);
+        uint4 u[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (q < n) u[q] = __ldg(reinterpret_cast<const uint4*>(row + k0) + q);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (q >= n) break;
+          // a bf16 is the high half of its f32: the low element first
+          const unsigned w[4] = {u[q].x, u[q].y, u[q].z, u[q].w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s += __uint_as_float(w[e] << 16);
+            s += __uint_as_float(w[e] & 0xffff0000u);
+          }
+        }
+      }
+    } else {
+      for (int k = 0; k < c; ++k) s += to_float(row[k]);
+    }
+  }
+  return __bfloat162float(__float2bfloat16(s));
+}
+
+// CTA b: output block j = b / parts, its rows part * HEAD_ROWS.. (parts =
+// ceil(block / HEAD_ROWS)).
+template <bool HEAD_VEC>
+__global__ void __launch_bounds__(HEAD_THREADS)
 window_head_sum_kernel(const bf16* __restrict__ x, const int* __restrict__ w0,
-                       float* __restrict__ out, int rows_x, int c, int taps,
-                       int block, int wb, int w0_s0, int w0_s1) {
-  extern __shared__ float heads[];  // (taps, 2): the rounded head sums
-  const int j = blockIdx.x;
-  for (int h = threadIdx.x; h < 2 * taps; h += THREADS) {
+                       float* __restrict__ out, int rows_x, int c, int taps, int block,
+                       int parts, int wb, int w0_s0, int w0_s1) {
+  extern __shared__ float heads[];  // (taps, 2): the rounded head sums; then the total
+  const int j = blockIdx.x / parts, part = blockIdx.x % parts, tid = threadIdx.x;
+  for (int h = tid; h < 2 * taps; h += HEAD_THREADS) {
     const long long r = (long long)w0[(h / 2) * w0_s0 + j * w0_s1] * wb + (h % 2) * wb;
-    float s = 0.f;
-    if (r >= 0 && r < rows_x)
-      for (int k = 0; k < c; ++k) s += to_float(x[(size_t)r * c + k]);
-    heads[h] = __bfloat162float(__float2bfloat16(s));
+    heads[h] = head_sum<HEAD_VEC>(x, r, rows_x, c);
   }
   __syncthreads();
-  float total = 0.f;  // every thread forms the same sum, in tap order
-  for (int t = 0; t < taps; ++t) total += heads[2 * t] + heads[2 * t + 1];
-  float* dst = out + (size_t)j * block * c;
-  for (int e = threadIdx.x; e < block * c; e += THREADS) dst[e] = total;
+  if (tid == 0) {  // one thread adds the taps in order; the others read it
+    float total = 0.f;
+#pragma unroll 9
+    for (int t = 0; t < taps; ++t) total += heads[2 * t] + heads[2 * t + 1];
+    heads[2 * taps] = total;
+  }
+  __syncthreads();
+  const float total = heads[2 * taps];
+
+  // rows [r0, r1) of the output: floats [r0 c, r1 c), 16-byte streaming
+  // stores between scalar ends
+  const int r0 = j * block + part * HEAD_ROWS;
+  const int len = (min(block, (part + 1) * HEAD_ROWS) - part * HEAD_ROWS) * c;
+  float* dst = out + (size_t)r0 * c;
+  const int head = min(len, (int)((16 - reinterpret_cast<uintptr_t>(dst) % 16) % 16 / 4));
+  const int nvec = (len - head) / 4;
+  for (int e = tid; e < head; e += HEAD_THREADS) dst[e] = total;
+  float4* v = reinterpret_cast<float4*>(dst + head);
+  const float4 t4 = make_float4(total, total, total, total);
+#pragma unroll 4
+  for (int e = tid; e < nvec; e += HEAD_THREADS) __stcs(v + e, t4);
+  for (int e = head + 4 * nvec + tid; e < len; e += HEAD_THREADS) dst[e] = total;
+}
+
+template <bool HEAD_VEC>
+int launch_window_head_sum(const bf16* x, const int* w0, float* out, int rows_x, int c,
+                           int taps, int nb, int block, int wb, int w0_s0, int w0_s1,
+                           cudaStream_t s) {
+  const size_t smem = (2 * (size_t)taps + 1) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        window_head_sum_kernel<HEAD_VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int parts = (block + HEAD_ROWS - 1) / HEAD_ROWS;
+  window_head_sum_kernel<HEAD_VEC><<<(unsigned)((long long)nb * parts), HEAD_THREADS, smem, s>>>(
+      x, w0, out, rows_x, c, taps, block, parts, wb, w0_s0, w0_s1);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------- family D
@@ -178,16 +266,15 @@ int window_copy_sum_bf16(const void* x, const void* w0, const void* add, void* o
 int window_head_sum_bf16(const void* x, const void* w0, void* out, int rows_x, int c,
                          int taps, int nb, int block, int wb, int w0_s0, int w0_s1,
                          void* stream) {
-  const size_t smem = 2 * (size_t)taps * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        window_head_sum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  window_head_sum_kernel<<<nb, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const int*>(w0),
-      static_cast<float*>(out), rows_x, c, taps, block, wb, w0_s0, w0_s1);
-  return static_cast<int>(cudaGetLastError());
+  const bf16* xb = static_cast<const bf16*>(x);
+  const int* w0i = static_cast<const int*>(w0);
+  float* o = static_cast<float*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (c % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0)
+    return launch_window_head_sum<true>(xb, w0i, o, rows_x, c, taps, nb, block, wb, w0_s0,
+                                        w0_s1, s);
+  return launch_window_head_sum<false>(xb, w0i, o, rows_x, c, taps, nb, block, wb, w0_s0, w0_s1,
+                                       s);
 }
 
 int slab_slots(const void* rb, void* out, int b, void* stream) {

@@ -1,8 +1,11 @@
-// Windowed gather-GEMM sparse conv (K4 forward, K5 dW) for Hopper.
+// Windowed gather-GEMM sparse conv (K4 forward, K5 dW) and the P7 ablations'
+// forward for Hopper.
 //
 // Replaces the Pallas TPU kernels ponderv2_tpu/ops/pallas_gather.py:
 // _fwd_kernel (K4, pallas_call in windowed_conv_fwd) and _dw_kernel (K5,
-// pallas_call in windowed_conv_dw). They compute, over a tap-major rulebook
+// pallas_call in windowed_conv_dw), and the probe bodies
+// tools/experiments/probe_pallas_profile.py:114 kern_norbc and :147 kern_lo
+// (P7 V2-V4, below). K4 and K5 compute, over a tap-major rulebook
 // rbb (k3, nb * B) whose taps are grouped g(t) = t / group under one window
 // of two aligned wb-row blocks per (group, output block j):
 //
@@ -35,8 +38,8 @@
 //   (PERF.md; tools/experiments/probe_mma_variants_torch.py k4 builds it).
 //   The tile fills its entry table along a tap's rows
 //   (WindowRows::kTapMajor), and walks 125 taps in groups of 32. With B =
-//   512 a CTA lies in one output block, so each tap group has one window
-//   per CTA.
+//   512 a CTA lies in one output block, so each tap group reads one window
+//   per CTA (a cost, not a condition: the functors compute lo per row).
 // - K5 is dw_gather_gemm with its operands swapped: f := the cotangent g,
 //   read by output row i, and the gathered operand := x through WindowRows.
 //   One CTA per (row chunk, tap, cout x cin tile) computes dW[t]^T's
@@ -56,26 +59,27 @@
 // Narrow widths pad: cin 6 to 8 (16-byte copies); K4's k-chunk stays 32
 // deep, zero-filled past cin; K5's gathered tile is at least 32 wide.
 //
-// The P7 ablations of tools/experiments/probe_pallas_profile.py still run
-// the CUDA-core forward tile (band_conv_tile.cuh:fwd_tile) over another row
-// functor (SlabRows): they keep K4's one-hot window but drop its per-row
-// pick inside an 8-row slab, so that every live entry reads the head row of
-// its slab: kern_norbc with dynamic windows (P7 V2) and with the windows
-// fixed at the first two blocks (V3: the row is rebased by the window start
-// lo), and kern_lo with one window (V4):
+// The P7 ablations of tools/experiments/probe_pallas_profile.py (V2-V4) run
+// K4's kernel over another row functor (SlabRows): they keep K4's one-hot
+// window but drop its per-row pick inside an 8-row slab, so that every live
+// entry reads the head row of its slab: kern_norbc with dynamic windows (P7
+// V2) and with the windows fixed at the first two blocks (V3: the row is
+// rebased by the window start lo), and kern_lo with one window (V4):
 //
 //     live(t, i) = lo <= r < lo + windows wb,  r = rbb[t, i]
 //     V2, V4: out[i] = sum_t [live] x[8 floor(r / 8)] @ W[t]
 //     V3:     out[i] = sum_t [live] x[8 floor(r / 8) - lo] @ W[t]
 //
-// f32 FMAs on CUDA cores (67 TFLOP/s), 64 x 64 tiles, synchronous staging;
-// per-stage latency, not the 67 TFLOP/s, sets their pace too.
+// on K4's tile and plan (gather_gemm in bf16 with stage sums, 128 rows a
+// CTA, ops/windowed_gather.py:windowed_fwd_plan). SlabRows computes lo per
+// row, so a CTA that spans two output blocks (block < 128) reads two
+// windows per tap. Eight entries of a slab read one head row, so their
+// 16-byte copies hit L1/L2 again; the bound counts the distinct heads.
 //
 // Plain C interface for ctypes: every launcher returns the cudaError_t of
 // cudaGetLastError() after each launch (or of the attribute call that
 // refused the shared memory).
 
-#include "band_conv_tile.cuh"
 #include "mma_tile.cuh"
 
 namespace {
@@ -99,9 +103,11 @@ struct WindowRows {
 
 // The P7 ablations' entries: the head row of the live entry's 8-row slab
 // (less the window start with ``rebase``), or -1. wb is a multiple of 8 and
-// w0 >= 0, so a live r is >= 0 and lo is slab-aligned.
+// w0 >= 0, so a live r is >= 0 and lo is slab-aligned: a head lies in [lo,
+// lo + windows wb), rebased in [0, windows wb), inside the padded x.
 struct SlabRows {
-  const int* rbb;  // (k3, nrows) tap-major
+  static constexpr bool kTapMajor = true;  // rbb is (k3, nrows)
+  const int* rbb;
   const int* w0;   // (k3 / group, nrows / block)
   int nrows, nb, block, wb, group, windows, rebase;
 
@@ -119,26 +125,44 @@ constexpr int NSTAGE = 3;
 // ------------------------------------------------------------------ K4
 
 // x (n_pad, cin_p), w (k3, cin_p, cout_p): padded widths, multiples of 8
-// (bf16) or 4 (f32) elements; out (nrows, cout) f32
-template <typename T>
+// (bf16) or 4 (f32) elements; out (nrows, cout) f32. rows() is K4's row
+// functor.
+template <typename T_>
 struct FwdArgs {
+  using T = T_;
   const T* x;
   const int* rbb;
   const int* w0;
   const T* w;
   float* out;
   int nrows, cin_p, cout, cout_p, k3, nb, block, wb, group;
+
+  __device__ __forceinline__ WindowRows rows() const {
+    return {rbb, w0, nrows, nb, block, wb, group};
+  }
+};
+
+// P7 V2-V4: K4's arguments in bf16, the windows per entry and the rebase
+struct SlabFwdArgs : FwdArgs<bf16> {
+  int windows, rebase;
+
+  __device__ __forceinline__ SlabRows rows() const {
+    return {rbb, w0, nrows, nb, block, wb, group, windows, rebase};
+  }
 };
 
 template <typename T, int NT>
 using FwdTile = mma::GatherGemm<T, NT, 8, 1, 32, NSTAGE>;
 
-// CTA b: rows (b / ncol) BM.., columns (b % ncol) NT..; the column tiles of
-// one row tile are neighbours, so they read the same gathered rows from L2
-template <typename T, int NT>
-__global__ void __launch_bounds__(256) windowed_fwd_kernel(FwdArgs<T> p) {
+// K4 (Args = FwdArgs<T>) and P7 V2-V4 (SlabFwdArgs): the slab tile over
+// p.rows(). CTA b: rows (b / ncol) BM.., columns (b % ncol) NT..; the column
+// tiles of one row tile are neighbours, so they read the same gathered rows
+// from L2
+template <typename Args, int NT>
+__global__ void __launch_bounds__(256) windowed_fwd_kernel(Args p) {
+  using T = typename Args::T;
   extern __shared__ __align__(16) unsigned char smem[];
-  const WindowRows rows{p.rbb, p.w0, p.nrows, p.nb, p.block, p.wb, p.group};
+  const auto rows = p.rows();
   const int ncol = (p.cout + NT - 1) / NT;
   const int row0 = (blockIdx.x / ncol) * FwdTile<T, NT>::BM;
   const int col0 = (blockIdx.x % ncol) * NT;
@@ -146,33 +170,37 @@ __global__ void __launch_bounds__(256) windowed_fwd_kernel(FwdArgs<T> p) {
                                                   p.cout, p.nrows, p.cout, row0, col0, smem);
 }
 
-template <typename T, int NT>
-int launch_fwd_tile(const FwdArgs<T>& p, cudaStream_t s) {
-  const size_t smem = FwdTile<T, NT>::smem_bytes(p.k3);
+template <typename Args, int NT>
+int launch_fwd_width(const Args& p, cudaStream_t s) {
+  using Tile = FwdTile<typename Args::T, NT>;
+  const size_t smem = Tile::smem_bytes(p.k3);
   const cudaError_t err = cudaFuncSetAttribute(
-      windowed_fwd_kernel<T, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      windowed_fwd_kernel<Args, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long ctas = (long long)((p.nrows + FwdTile<T, NT>::BM - 1) / FwdTile<T, NT>::BM) *
+  const long long ctas = (long long)((p.nrows + Tile::BM - 1) / Tile::BM) *
                          ((p.cout + NT - 1) / NT);
-  windowed_fwd_kernel<T, NT><<<(unsigned)ctas, 256, smem, s>>>(p);
+  windowed_fwd_kernel<Args, NT><<<(unsigned)ctas, 256, smem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_fwd(const void* x, const void* rbb, const void* w0, const void* w, void* out,
-               int nrows, int cin_p, int cout, int cout_p, int k3, int nb, int block, int wb,
-               int group, int co_tile, void* stream) {
+template <typename Args>
+int launch_fwd(const Args& p, int co_tile, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const FwdArgs<T> p{static_cast<const T*>(x), static_cast<const int*>(rbb),
-                     static_cast<const int*>(w0), static_cast<const T*>(w),
-                     static_cast<float*>(out), nrows, cin_p, cout, cout_p, k3, nb, block, wb,
-                     group};
   switch (co_tile) {
-    case 32: return launch_fwd_tile<T, 32>(p, s);
-    case 64: return launch_fwd_tile<T, 64>(p, s);
-    case 96: return launch_fwd_tile<T, 96>(p, s);
+    case 32: return launch_fwd_width<Args, 32>(p, s);
+    case 64: return launch_fwd_width<Args, 64>(p, s);
+    case 96: return launch_fwd_width<Args, 96>(p, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+FwdArgs<T> fwd_args(const void* x, const void* rbb, const void* w0, const void* w, void* out,
+                    int nrows, int cin_p, int cout, int cout_p, int k3, int nb, int block,
+                    int wb, int group) {
+  return {static_cast<const T*>(x), static_cast<const int*>(rbb), static_cast<const int*>(w0),
+          static_cast<const T*>(w), static_cast<float*>(out), nrows, cin_p, cout, cout_p, k3,
+          nb, block, wb, group};
 }
 
 template <typename T>
@@ -318,18 +346,6 @@ long long dw_smem_bytes(int mt, int nt) {
   return -1;
 }
 
-// ------------------------------------------------------------------ P7
-
-__global__ void __launch_bounds__(band::THREADS)
-windowed_slab_fwd_kernel(const bf16* __restrict__ x, const int* __restrict__ rbb,
-                         const int* __restrict__ w0, const bf16* __restrict__ wts,
-                         float* __restrict__ out, int nrows, int cin, int cout, int k3, int nb,
-                         int block, int wb, int group, int windows, int rebase) {
-  const SlabRows rows{rbb, w0, nrows, nb, block, wb, group, windows, rebase};
-  band::fwd_tile<bf16>(x, rows, wts, out, nrows, cin, cout, k3, blockIdx.x * band::BM,
-                       blockIdx.y * band::BN);
-}
-
 }  // namespace
 
 extern "C" {
@@ -337,15 +353,17 @@ extern "C" {
 int windowed_fwd_f32(const void* x, const void* rbb, const void* w0, const void* w, void* out,
                      int nrows, int cin_p, int cout, int cout_p, int k3, int nb, int block,
                      int wb, int group, int co_tile, void* stream) {
-  return launch_fwd<float>(x, rbb, w0, w, out, nrows, cin_p, cout, cout_p, k3, nb, block, wb,
-                           group, co_tile, stream);
+  return launch_fwd(fwd_args<float>(x, rbb, w0, w, out, nrows, cin_p, cout, cout_p, k3, nb,
+                                    block, wb, group),
+                    co_tile, stream);
 }
 
 int windowed_fwd_bf16(const void* x, const void* rbb, const void* w0, const void* w, void* out,
                       int nrows, int cin_p, int cout, int cout_p, int k3, int nb, int block,
                       int wb, int group, int co_tile, void* stream) {
-  return launch_fwd<bf16>(x, rbb, w0, w, out, nrows, cin_p, cout, cout_p, k3, nb, block, wb,
-                          group, co_tile, stream);
+  return launch_fwd(fwd_args<bf16>(x, rbb, w0, w, out, nrows, cin_p, cout, cout_p, k3, nb,
+                                   block, wb, group),
+                    co_tile, stream);
 }
 
 // K4's dynamic shared memory per CTA (ops/windowed_gather.py:windowed_fwd_plan
@@ -376,16 +394,16 @@ long long windowed_dw_smem_bytes(int bf16_, int mt, int nt) {
   return bf16_ ? dw_smem_bytes<bf16>(mt, nt) : dw_smem_bytes<float>(mt, nt);
 }
 
-// The P7 ablations read bf16 only, as the profile probe does.
-int windowed_slab_fwd_bf16(const void* x, const void* rbb, const void* w0, const void* wts,
-                           void* out, int nrows, int cin, int cout, int k3, int nb, int block,
-                           int wb, int group, int windows, int rebase, void* stream) {
-  const dim3 grid((nrows + band::BM - 1) / band::BM, (cout + band::BN - 1) / band::BN);
-  windowed_slab_fwd_kernel<<<grid, band::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const int*>(rbb), static_cast<const int*>(w0),
-      static_cast<const bf16*>(wts), static_cast<float*>(out), nrows, cin, cout, k3, nb, block,
-      wb, group, windows, rebase);
-  return static_cast<int>(cudaGetLastError());
+// The P7 ablations read bf16 only, as the profile probe does: K4's kernel
+// and plan over SlabRows.
+int windowed_slab_fwd_bf16(const void* x, const void* rbb, const void* w0, const void* w,
+                           void* out, int nrows, int cin_p, int cout, int cout_p, int k3, int nb,
+                           int block, int wb, int group, int windows, int rebase, int co_tile,
+                           void* stream) {
+  const SlabFwdArgs p{fwd_args<bf16>(x, rbb, w0, w, out, nrows, cin_p, cout, cout_p, k3, nb,
+                                     block, wb, group),
+                      windows, rebase};
+  return launch_fwd(p, co_tile, stream);
 }
 
 const char* windowed_error_string(int code) {

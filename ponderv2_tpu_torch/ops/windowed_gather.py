@@ -16,14 +16,15 @@ run their ``*_plain`` versions. Both run the band conv's tensor-core tiles
 ``windowed_dw_plan``. No path of the pretrain step routes a conv
 here (the JAX package keeps its windowed conv off by default, too): the
 probe ``tools/experiments/probe_windowed_torch.py`` and ``chip_smoke.py``
-run them. ``windowed_slab_fwd`` is K4's forward over the entries of
-``probe_pallas_profile.py``'s ablations (P7 V2-V4), which read the head row
-of each entry's 8-row slab; the same probe entry point runs it.
+run them. ``windowed_slab_fwd`` is K4's forward (its kernel, tile and
+plan) over the entries of ``probe_pallas_profile.py``'s ablations (P7
+V2-V4), which read the head row of each entry's 8-row slab; the same probe
+entry point runs it.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -84,7 +85,7 @@ WINDOWED_FWD = _CudaKernel("windowed_gather", "windowed_fwd", 5, 10,
                            "windowed_error_string")
 WINDOWED_DW = _CudaKernel("windowed_gather", "windowed_dw", 6, 14,
                           "windowed_error_string")
-WINDOWED_SLAB_FWD = _CudaKernel("windowed_gather", "windowed_slab_fwd", 5, 10,
+WINDOWED_SLAB_FWD = _CudaKernel("windowed_gather", "windowed_slab_fwd", 5, 12,
                                 "windowed_error_string", dtypes=(torch.bfloat16,))
 KERNELS = (WINDOWED_FWD, WINDOWED_DW)
 PROBE_KERNELS = (WINDOWED_SLAB_FWD,)
@@ -140,9 +141,9 @@ TILE_DTYPE = torch.float32
 
 
 class WindowedFwdPlan(NamedTuple):
-    """K4's launch plan on the slab tile gather_gemm (DX_ROWS rows a CTA,
-    whole 16-row slabs): output column tile, padded widths, CTAs and the
-    dynamic shared memory of one CTA."""
+    """K4's (and the P7 forward's) launch plan on the slab tile gather_gemm
+    (DX_ROWS rows a CTA, whole 16-row slabs): output column tile, padded
+    widths, CTAs and the dynamic shared memory of one CTA."""
 
     co_tile: int
     cin_p: int
@@ -196,6 +197,17 @@ def windowed_dw_plan(nrows: int, cin: int, cout: int, k3: int,
                           smem_bytes=dw_gemm_smem(co, ci, dtype))
 
 
+def fwd_operands(feats: torch.Tensor, weights: torch.Tensor,
+                 p: WindowedFwdPlan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The features (n_pad, cin_p) and weights (K3, cin_p, cout_p) as the
+    slab tile copies them: zero-padded to the plan's widths, contiguous and
+    16-byte aligned (K4 and the P7 forward)."""
+    x, w = _operand(feats, p.cin_p), _operand(weights, p.cout_p)
+    if p.cin_p != feats.shape[1]:
+        w = torch.nn.functional.pad(w, (0, 0, 0, p.cin_p - feats.shape[1]))
+    return x, w
+
+
 # ------------------------------------------------------------------ K4
 
 
@@ -220,9 +232,7 @@ def windowed_conv_fwd(feats: torch.Tensor, geom: WindowGeometry,
     if nrows == 0 or cout == 0:
         return out
     p = windowed_fwd_plan(nrows, cin, cout, k3, feats.dtype)
-    x, w = _operand(feats, p.cin_p), _operand(weights, p.cout_p)
-    if p.cin_p != cin:
-        w = torch.nn.functional.pad(w, (0, 0, 0, p.cin_p - cin))
+    x, w = fwd_operands(feats, weights, p)
     WINDOWED_FWD.launch(feats.dtype, feats.device, x.data_ptr(), geom.rbb.data_ptr(),
                         geom.w0.data_ptr(), w.data_ptr(), out.data_ptr(), nrows, p.cin_p,
                         cout, p.cout_p, k3, nb, block, wb, group, p.co_tile)
@@ -272,8 +282,9 @@ def windowed_slab_fwd(feats: torch.Tensor, geom: WindowGeometry,
     ``w0`` >= 0 and ``wb`` a multiple of 8, as in the probe. Padded bf16
     features (n_pad, cin), weights (K3, cin, cout) -> (nb * block, cout) f32
     (the probe's one dtype: the kernel reads bf16 only). CPU
-    tensors take ``windowed_slab_fwd_plain``; CUDA tensors launch
-    ``csrc/windowed_gather.cu`` or raise."""
+    tensors take ``windowed_slab_fwd_plain``; CUDA tensors launch K4's
+    kernel of ``csrc/windowed_gather.cu`` over the slab heads (planned by
+    ``windowed_fwd_plan``, operands padded as K4's) or raise."""
     if windows not in (1, 2) or wb % 8:
         raise ValueError(f"windowed_slab_fwd: {windows} windows of {wb} rows")
     if not _on_cuda("windowed_slab_fwd", feats):
@@ -291,10 +302,12 @@ def windowed_slab_fwd(feats: torch.Tensor, geom: WindowGeometry,
     out = torch.empty((nrows, cout), dtype=torch.float32, device=feats.device)
     if nrows == 0 or cout == 0:
         return out
-    WINDOWED_SLAB_FWD.launch(feats.dtype, feats.device, feats.data_ptr(),
-                             geom.rbb.data_ptr(), geom.w0.data_ptr(),
-                             weights.data_ptr(), out.data_ptr(), nrows, cin, cout, k3,
-                             nb, block, wb, group, windows, int(rebase))
+    p = windowed_fwd_plan(nrows, cin, cout, k3, feats.dtype)
+    x, w = fwd_operands(feats, weights, p)
+    WINDOWED_SLAB_FWD.launch(feats.dtype, feats.device, x.data_ptr(), geom.rbb.data_ptr(),
+                             geom.w0.data_ptr(), w.data_ptr(), out.data_ptr(), nrows,
+                             p.cin_p, cout, p.cout_p, k3, nb, block, wb, group, windows,
+                             int(rebase), p.co_tile)
     return out
 
 

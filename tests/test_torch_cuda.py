@@ -520,8 +520,10 @@ def test_window_read_kernels_match_plain(cuda, c):
 @pytest.mark.parametrize("windows,rebase", [(2, False), (2, True), (1, False)],
                          ids=["V2", "V3", "V4"])
 def test_windowed_slab_fwd_matches_plain(cuda, windows, rebase):
-    """P7 V2-V4 at 3000 rows (not a multiple of the 64-row block), 13 -> 19
-    channels, with a tap that has no live entry."""
+    """P7 V2-V4 at 3000 rows (not a multiple of the 64-row block, so a
+    128-row CTA of K4's tile spans two output blocks and their windows),
+    13 -> 19 channels (padded to 16 -> 24 for the tile), with a tap that
+    has no live entry."""
     n, block, wb, k3 = 3000, 64, 256, 4
     rb = _monotone_rulebook(n, k3, 1, 40).to(cuda)
     rb[2] = -1
@@ -537,6 +539,45 @@ def test_windowed_slab_fwd_matches_plain(cuda, windows, rebase):
     torch.cuda.synchronize()
     assert out.shape == ref.shape == (geom.rbb.shape[1] * block, 19)
     assert _rel_err(out, ref) <= 1e-5
+
+
+@pytest.fixture(scope="module")
+def profile_variants():
+    """``probe_windowed_torch.profile_variants`` on the card: P7 V2-V5 at the
+    profile probe's shape (163,840 rows, 27 taps, 32 -> 32) and inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the probe kernels have no CPU mode")
+    import probe_windowed_torch as pw
+
+    return {v.name.split()[1]: v for v in pw.profile_variants(torch.device("cuda"))}
+
+
+@pytest.mark.parametrize("label", ["V2", "V3", "V4"])
+def test_profile_slab_fwd_matches_plain(cuda, profile_variants, label):
+    """P7 V2-V4 on K4's slab tile at the profile probe's shape: one launch,
+    within 1e-5 of max|ref| of the plain version, equal bits relaunched."""
+    v = profile_variants[label]
+    before = wg.WINDOWED_SLAB_FWD.launches
+    out = v.run(False)
+    assert wg.WINDOWED_SLAB_FWD.launches == before + 1
+    ref = v.run(True)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (163_840, 32)
+    assert _rel_err(out, ref) <= 1e-5 and bool(torch.isfinite(out).all())
+    assert torch.equal(v.run(False), out)
+
+
+def test_profile_window_head_sum_is_plain(cuda, profile_variants):
+    """P7 V5 at the profile probe's shape: one launch, equal to the plain
+    version bit for bit, and to itself relaunched."""
+    v = profile_variants["V5"]
+    before = pk.WINDOW_HEAD_SUM.launches
+    out = v.run(False)
+    assert pk.WINDOW_HEAD_SUM.launches == before + 1
+    ref = v.run(True)
+    torch.cuda.synchronize()
+    assert out.shape == (163_840, 32) and torch.equal(out, ref)
+    assert torch.equal(v.run(False), out)
 
 
 def test_grouped_construct_kernels_match_plain(cuda):

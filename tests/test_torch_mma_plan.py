@@ -417,6 +417,82 @@ def test_k4_rows_multiplied_counts_the_tiles():
     assert live.sum() <= slabs <= 16 * live.sum()
 
 
+# ------------------------------------------------------------------ P7 V2-V4
+# The profile probe's slab-head forward runs K4's kernel, tile and plan
+# over the slab heads (csrc/windowed_gather.cu: SlabRows).
+
+
+@pytest.mark.parametrize("cin,cout", [(13, 19), (32, 32)])
+def test_slab_fwd_launches_k4s_plan(monkeypatch, cin, cout):
+    """What ``windowed_slab_fwd`` hands its kernel, caught at the launch (the
+    wrapper made to take the CUDA route with CPU tensors): K4's plan for the
+    same widths (tile width, padded widths, the slab tile's shared memory at
+    27 taps), the features and weights zero-padded to those widths, and
+    the C entry point's 5 pointers and 12 ints in their order."""
+    n, block, wb, k3 = 700, 64, 256, 27
+    rng = np.random.RandomState(cin)
+    rb = np.clip(probe.make_monotone_rulebook(n, k3, rng, group=1), -1, n - 1)
+    geom = wg.prepare_geometry(torch.from_numpy(rb), n, block, wb, 1)
+    f = wg.pad_features(torch.from_numpy(rng.randn(n, cin).astype(np.float32)),
+                        wg.padded_rows(n, wb), torch.bfloat16)
+    w = torch.from_numpy(rng.randn(k3, cin, cout).astype(np.float32)).bfloat16()
+    seen, fwd_operands = {}, wg.fwd_operands
+
+    def operands(feats, weights, p):
+        seen["x"], seen["w"] = fwd_operands(feats, weights, p)
+        return seen["x"], seen["w"]
+
+    monkeypatch.setattr(wg, "_on_cuda", lambda name, t: True)
+    monkeypatch.setattr(wg, "fwd_operands", operands)
+    monkeypatch.setattr(wg.WINDOWED_SLAB_FWD, "launch",
+                        lambda dtype, device, *args: seen.update(dtype=dtype, args=args))
+    nrows = geom.rbb.shape[1] * block
+    out = wg.windowed_slab_fwd(f, geom, w, wb, 1, 2, True)
+    assert out.shape == (nrows, cout) and out.dtype == torch.float32
+    plan = wg.windowed_fwd_plan(nrows, cin, cout, k3, torch.bfloat16)
+    assert plan.co_tile == 32
+    assert (plan.cin_p, plan.cout_p) == ((16, 24) if cin == 13 else (32, 32))
+    assert plan.smem_bytes == bc.gather_gemm_smem(32, 27, torch.bfloat16) == (
+        3 * (128 * 40 + 32 * 40) * 2 + 27 * 128 * 4 + 41 * 4)
+    x, wp = seen["x"], seen["w"]
+    assert x.shape == (f.shape[0], plan.cin_p) and torch.equal(x[:, :cin], f)
+    assert wp.shape == (k3, plan.cin_p, plan.cout_p) and torch.equal(wp[:, :cin, :cout], w)
+    assert not x[:, cin:].any() and not wp[:, cin:].any() and not wp[:, :, cout:].any()
+    assert seen["dtype"] == torch.bfloat16
+    args = seen["args"]
+    assert len(args) == len(wg.WINDOWED_SLAB_FWD.argtypes) - 1  # and the stream
+    assert args[:5] == (x.data_ptr(), geom.rbb.data_ptr(), geom.w0.data_ptr(),
+                        wp.data_ptr(), out.data_ptr())
+    assert args[5:] == (nrows, plan.cin_p, cout, plan.cout_p, k3, geom.rbb.shape[1], block,
+                        wb, 1, 2, 1, plan.co_tile)
+
+
+@pytest.mark.parametrize("windows,rebase", [(2, False), (2, True), (1, False)],
+                         ids=["V2", "V3", "V4"])
+def test_slab_fwd_rows_multiplied_on_the_profile_rulebook(windows, rebase):
+    """The rows the slab tile multiplies for P7 V2-V4 on the profile probe's
+    rulebook (N = 163,840, 27 taps; ``profile_variants``' ``rows``), counted
+    here from the geometry in numpy (16-row slabs of a tap with a live entry)
+    against the live entries: at 70% density every slab holds one, so the
+    tile multiplies 27 N rows, ~1.43x the live entries."""
+    _, _, rb = probe.profile_inputs()
+    nb, n_pad = probe.N // probe.BLOCK, (probe.N // probe.WB + 1) * probe.WB
+    rbb = rb.reshape(probe.PROFILE_K3, nb, probe.BLOCK).astype(np.int64)
+    lo = probe.probe_w0(rbb, probe.WB, n_pad).astype(np.int64)[:, :, None] * probe.WB
+    live = ((rbb >= lo) & (rbb < lo + windows * probe.WB)).reshape(probe.PROFILE_K3, -1)
+    slabs = int(live.reshape(probe.PROFILE_K3, -1, 16).any(2).sum()) * 16
+    label = {(2, False): "V2", (2, True): "V3", (1, False): "V4"}[windows, rebase]
+    v = next(v for v in probe.profile_variants(torch.device("cpu"))
+             if v.name.split()[1] == label)
+    assert v.kernel is wg.WINDOWED_SLAB_FWD
+    assert v.rows == (slabs, int(live.sum()))
+    assert live.sum() <= slabs <= 16 * live.sum()
+    if windows == 2:
+        assert slabs == probe.PROFILE_K3 * probe.N
+        assert 1.40 < slabs / live.sum() < 1.46
+    assert v.flops == 2.0 * live.sum() * probe.PROFILE_C ** 2
+
+
 # ------------------------------------------------------------------ fixed-order sums
 # The sums that replaced atomic index_add_ calls (reproducible steps on the
 # GPU) compute the JAX package's functions, each destination's values added

@@ -3,12 +3,13 @@
 on a GPU: K1 (``band_fwd_core``) and K2 (``band_dxdw_core``) at the
 fine-tune batch's real band plans, K4 (``windowed_conv_fwd``) at
 ``chip_smoke.py`` phase 12's six convs, and P5 ``kd`` (``tile_matmul``) at
-its probe's shape.
+its probe's shape; and of P7 V5 (``window_head_sum``) at its probe's shape.
 
     python tools/experiments/probe_mma_variants_torch.py k1 [variant,...]
     python tools/experiments/probe_mma_variants_torch.py k2 [variant,...]
     python tools/experiments/probe_mma_variants_torch.py k4 [variant,...]
     python tools/experiments/probe_mma_variants_torch.py kd [variant,...]
+    python tools/experiments/probe_mma_variants_torch.py v5 [variant,...]
 
 Each variant is a copy of the kernel sources with a few text edits (K1:
 ``routed`` as built, the compacted tile in f32 and K2's dx tile in bf16;
@@ -18,13 +19,20 @@ CTA, k-chunks and stages) the compacted tile in both; K4: ``slabs`` as
 built, ``compacted`` the other tile, in both dtypes; K2: ``nodw`` / ``nodx`` launch
 only one CTA range, ``onepass`` keeps one TF32 product of three; kd: other
 tile shapes, ``noload`` / ``nomult`` drop the copies or the products,
-``empty`` returns at once), built with the package's nvcc flags into
+``empty`` returns at once; v5: ``nostore`` forms the head sums and writes
+nothing, ``noop`` returns at once, ``alltotal`` has every thread add the
+taps, ``plainst`` / ``wt`` / ``evictfirst`` store without the streaming
+hint, write-through, or with an L2 evict-first policy, ``rows64`` /
+``rows512`` give a CTA other rows), built with the package's nvcc flags into
 ``ponderv2_tpu_torch/csrc/_build/variants/`` in parallel and bound in place
 of the package's build. K1, K2: CUDA events over 5 calls after a warm-up,
 each variant twice (in order, then reversed), f32 and bf16, with the max
 abs error against the plain version. kd: the probe timing of
 ``chip_smoke.py`` phase 13 (CUDA-graph replay, L2 flushed before each call)
-beside ``torch.mm``. Variants that drop work give wrong results on purpose.
+beside ``torch.mm``; v5 the same timing, L2 flushed and warm, in turns,
+beside ``Tensor.fill_`` of the same 21 MB output (a fresh tensor and one
+reused), the least a kernel that writes it could take. Variants that drop
+work give wrong results on purpose.
 """
 
 import ctypes
@@ -43,7 +51,7 @@ from ponderv2_tpu_torch.ops import band_conv as bc  # noqa: E402
 from ponderv2_tpu_torch.ops import probe_kernels as pk  # noqa: E402
 from ponderv2_tpu_torch.ops.cuda_build import BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc  # noqa: E402
 
-HEADERS = ("band_conv_tile.cuh", "band_rows.cuh", "mma_tile.cuh")
+HEADERS = ("band_rows.cuh", "mma_tile.cuh")
 ONEPASS = ("  mma_tf32(d, al, bh[0], bh[1]);\n  mma_tf32(d, ah, bl[0], bl[1]);\n", "")
 K2 = {
     "base": [],
@@ -130,6 +138,45 @@ KD = {
     "n32_wn4_kc32": ("bf16, 32, 1, 4, 32, 10", []),
     "n16_wn2_kc288": ("bf16, 16, 1, 2, 288, 2", []),
     "n8_kc288": ("bf16, 8, 1, 1, 288, 2", []),
+}
+
+# V5: the output stores, or the whole body, dropped
+V5_STORE = "  for (int e = tid; e < nvec; e += HEAD_THREADS) __stcs(v + e, t4);"
+V5_BODY = ("  extern __shared__ float heads[];  // (taps, 2): the rounded head sums; "
+           "then the total\n")
+# every thread adds the taps itself, reading the 54 sums from shared memory
+V5_TOTAL = """  if (tid == 0) {  // one thread adds the taps in order; the others read it
+    float total = 0.f;
+#pragma unroll 9
+    for (int t = 0; t < taps; ++t) total += heads[2 * t] + heads[2 * t + 1];
+    heads[2 * taps] = total;
+  }
+  __syncthreads();
+  const float total = heads[2 * taps];
+"""
+V5_ALL = """  float total = 0.f;
+  for (int t = 0; t < taps; ++t) total += heads[2 * t] + heads[2 * t + 1];
+"""
+# the output stores with an L2 evict-first policy; a CTA's rows
+V5_EVICT_FIRST = """  for (int e = tid; e < nvec; e += HEAD_THREADS) {
+    uint64_t pol;
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(pol));
+    asm volatile("st.global.L2::cache_hint.v4.f32 [%0], {%1, %2, %3, %4}, %5;" ::"l"(v + e),
+                 "f"(total), "f"(total), "f"(total), "f"(total), "l"(pol) : "memory");
+  }"""
+V5_ROWS = "constexpr int HEAD_ROWS = 128;"
+V5 = {
+    "base": [],
+    "nostore": [("probe_kernels.cu", V5_STORE,
+                 V5_STORE.replace("e < nvec;", "e < nvec && total == -1.5e30f;"))],
+    "noop": [("probe_kernels.cu", V5_BODY, V5_BODY + "  if (taps >= 0) return;\n")],
+    "alltotal": [("probe_kernels.cu", V5_TOTAL, V5_ALL)],
+    "plainst": [("probe_kernels.cu", V5_STORE,
+                 V5_STORE.replace("__stcs(v + e, t4)", "v[e] = t4"))],
+    "wt": [("probe_kernels.cu", V5_STORE, V5_STORE.replace("__stcs", "__stwt"))],
+    "evictfirst": [("probe_kernels.cu", V5_STORE, V5_EVICT_FIRST)],
+    "rows64": [("probe_kernels.cu", V5_ROWS, V5_ROWS.replace("128", "64"))],
+    "rows512": [("probe_kernels.cu", V5_ROWS, V5_ROWS.replace("128", "512"))],
 }
 
 
@@ -365,15 +412,39 @@ def run_kd(names):
               f"max_abs_err {m['max_abs_err']:.2e} agree {m['agree']}", flush=True)
 
 
+def run_v5(names):
+    import probe_windowed_torch as probe
+
+    libs = build("probe_kernels", {n: V5[n] for n in names})
+    dev = torch.device("cuda:0")
+    v = next(v for v in probe.profile_variants(dev) if "V5" in v.name)
+    ref = v.run(True)
+    out_buf = torch.empty((probe.N, probe.PROFILE_C), device=dev)
+    fills = {"fill_ fresh": lambda: torch.empty_like(out_buf).fill_(1.5),
+             "fill_ reused": lambda: out_buf.fill_(1.5)}
+    calls = list(libs) + list(fills)
+    for name in calls + calls[::-1]:
+        if name in libs:
+            bind(pk.WINDOW_HEAD_SUM, libs[name])
+            out = v.run(False)
+            torch.cuda.synchronize()
+            fn, equal = (lambda: v.run(False)), torch.equal(out, ref)
+        else:
+            fn, equal = fills[name], None
+        print(f"{name}: L2 cold {probe.graph_ms(fn, 20):.5f} ms, warm "
+              f"{probe.graph_ms(fn, 20, cold=False):.5f} ms; equal to plain {equal}",
+              flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("probe_mma_variants_torch: needs a CUDA GPU", file=sys.stderr)
         return 2
     which = sys.argv[1] if len(sys.argv) > 1 else "kd"
-    table = {"k1": K1, "k2": K2, "k4": K4, "kd": KD}[which]
+    table = {"k1": K1, "k2": K2, "k4": K4, "kd": KD, "v5": V5}[which]
     names = sys.argv[2].split(",") if len(sys.argv) > 2 else list(table)
     print(os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read().strip())
-    {"k1": run_k1, "k2": run_k2, "k4": run_k4, "kd": run_kd}[which](names)
+    {"k1": run_k1, "k2": run_k2, "k4": run_k4, "kd": run_kd, "v5": run_v5}[which](names)
     return 0
 
 

@@ -32,7 +32,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -109,11 +109,12 @@ def live_entries(geom, wb, windows=2):
     return int(_live(geom, wb, windows)[2].sum())
 
 
-def k4_rows_multiplied(geom, wb):
-    """Rows K4 multiplies per output column tile, counted from the geometry
-    as its slab tile (``mma_tile.cuh:gather_gemm``) decides: every 16-row
-    slab that holds a live entry of the tap."""
-    live = _live(geom, wb, 2)[2]
+def k4_rows_multiplied(geom, wb, windows=2):
+    """Rows K4 (or, with ``windows``, the P7 forward over the same tile)
+    multiplies per output column tile, counted from the geometry as its slab
+    tile (``mma_tile.cuh:gather_gemm``) decides: every 16-row slab that
+    holds a live entry of the tap."""
+    live = _live(geom, wb, windows)[2]
     return int(live.reshape(live.shape[0], -1, 16).any(2).sum()) * 16
 
 
@@ -213,8 +214,9 @@ def bound_ms(geom, wb, cin, cout, n_in, dtype, weights=True, windows=2):
 
 
 # H100 SXM (NVIDIA's data sheet, 700 W): HBM bytes/s; dense FLOP/s of bf16
-# on the tensor cores and of f32 on the CUDA cores (the probe kernels that
-# run there, P7 among them)
+# on the tensor cores (the gather-GEMM tiles: P3 k2, P5 kd, P7 V2-V4) and of
+# f32 on the CUDA cores (the probe kernels whose work is f32 adds: P1-P4's
+# row and window sums, P5 ka-kc2, P7 V5's head sums)
 HBM_BYTES_S = 3.35e12
 PEAK_BF16, PEAK_F32 = 989e12, 67e12
 
@@ -234,7 +236,9 @@ class Variant(NamedTuple):
     order). The bound takes ``moved``
     bytes (what the function must read and write, once) and ``flops`` at
     ``peak`` FLOP/s; ``library`` is one PyTorch call computing the same
-    function, or None."""
+    function, or None. ``rows``: for a kernel on a gather-GEMM tile, the
+    rows it multiplies per output column tile and the live entries, counted
+    from the geometry."""
 
     name: str
     replaces: str
@@ -245,6 +249,7 @@ class Variant(NamedTuple):
     flops: float
     peak: float
     library: Optional[Callable] = None
+    rows: Optional[Tuple[int, int]] = None
 
 
 def agree(out, ref, tol):
@@ -349,7 +354,9 @@ def report(v, m):
             + " / ".join(ms(dev, k) for k in dev)
             + f"; kernel L2 warm {m['warm_ms']:.4f}"
             + "; per eager call " + " / ".join(ms(m["eager_ms"], k) for k in dev)
-            + f"; bound {m['bound_ms']:.3e} ms ({m['bound_by']})")
+            + f"; bound {m['bound_ms']:.3e} ms ({m['bound_by']})"
+            + ("" if v.rows is None else f"; rows multiplied {v.rows[0]} against "
+               f"{v.rows[1]} live entries ({v.rows[0] / max(v.rows[1], 1):.2f}x)"))
 
 
 def run_variants(variants, iters):
@@ -403,8 +410,8 @@ def profile_inputs(n=N, k3=PROFILE_K3, seed=0):
 
 def profile_variants(device, n=N, k3=PROFILE_K3):
     """The ablations V2-V5 of ``probe_pallas_profile.py`` on its inputs, as
-    ``Variant``s of the port's entry points (``windowed_slab_fwd``,
-    ``window_head_sum``)."""
+    ``Variant``s of the port's entry points (``windowed_slab_fwd``, on K4's
+    slab tile, with the rows it multiplies; ``window_head_sum``)."""
     import torch
 
     from ponderv2_tpu_torch.ops import probe_kernels as pk
@@ -428,10 +435,12 @@ def profile_variants(device, n=N, k3=PROFILE_K3):
             return fn(x, geom, wt, WB, 1, windows, rebase)
 
         heads = rows_read(geom, WB, windows, slab=True, rebase=rebase)
+        live = live_entries(geom, WB, windows)
         out.append(Variant(
             f"P7 {label}", f"{PROFILE}:{line}", wg.WINDOWED_SLAB_FWD, run, "rel",
             moved_bytes(geom, PROFILE_C, PROFILE_C, heads, torch.bfloat16),
-            2.0 * live_entries(geom, WB, windows) * PROFILE_C * PROFILE_C, PEAK_BF16))
+            2.0 * live * PROFILE_C * PROFILE_C, PEAK_BF16,
+            rows=(k4_rows_multiplied(geom, WB, windows), live)))
     # the plain version sums each head row in the kernel's order: exact
     out.append(Variant(
         "P7 V5 dma-only", f"{PROFILE}:181", pk.WINDOW_HEAD_SUM,

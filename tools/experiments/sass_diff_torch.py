@@ -11,8 +11,11 @@ checkout, such as the parent commit unpacked with ``git archive``) with the
 package's nvcc flags, in parallel, into a temporary directory; disassembles
 both with ``cuobjdump -sass`` and prints, per kernel, ``same`` or ``DIFF``
 with the instruction count of each build. Kernel names are compared without
-the anonymous namespace's per-file hash. Needs the CUDA toolkit, not a GPU.
-Exits 1 if a kernel differs or is missing from one build.
+the anonymous namespace's per-file hash. A kernel whose name is in one build
+only (a template that gained or changed a parameter) is matched by its
+instructions to one of the other build's unmatched kernels, and printed
+``same`` with both names. Needs the CUDA toolkit, not a GPU. Exits 1 if a
+kernel differs or is missing from one build.
 """
 
 import hashlib
@@ -43,6 +46,16 @@ def kernels(lib):
     return out
 
 
+def match_renamed(this, that):
+    """{name here: name in the other build} for kernels whose names are in
+    one build only, paired by equal instructions."""
+    by_code = {}
+    for name in sorted(set(that) - set(this)):
+        by_code.setdefault(that[name], []).append(name)
+    return {name: by_code[this[name]].pop(0) for name in sorted(set(this) - set(that))
+            if by_code.get(this[name])}
+
+
 def main(argv) -> int:
     if not argv:
         print(__doc__.split("\n\n")[1], file=sys.stderr)
@@ -67,11 +80,17 @@ def main(argv) -> int:
         for src in sources:
             this, that = (kernels(procs[t, src][0]) for t in trees)
             print(f"== {src}: {len(this)} kernels here, {len(that)} in {other}")
+            renamed = match_renamed(this, that)
             for name in sorted(set(this) | set(that)):
+                if name in renamed.values():
+                    continue  # printed beside its new name
                 a, b = this.get(name), that.get(name)
+                was = ""
+                if name in renamed:
+                    b, was = that[renamed[name]], f" (other: {renamed[name]})"
                 same = a is not None and a == b
                 differ += not same
-                print(f"{'same' if same else 'DIFF'} {name}: here "
+                print(f"{'same' if same else 'DIFF'} {name}{was}: here "
                       f"{a[1] if a else 'missing'}, other {b[1] if b else 'missing'} instructions")
     print(f"{differ} kernel(s) differ")
     return 1 if differ else 0

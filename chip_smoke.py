@@ -2,7 +2,8 @@
 """GPU smoke run of the PyTorch port: build the band and windowed conv
 kernels and the probe kernels, check them, serve ScanNet-scale scenes,
 train SpUNet-v1m1 at ScanNet's batch, pretrain PonderIndoor-v2 at bench.py's
-workload and run every probe kernel at its probe's shape.
+workload, run every probe kernel at its probe's shape, and train and serve
+the PPT fine-tune recipe from scene files.
 
     python3 chip_smoke.py [--parent-log LOG]
 
@@ -84,7 +85,28 @@ phases; any failure exits non-zero:
     warm too) and per call issued from Python; for P7 V2-V4 (K4's slab
     tile) print the rows multiplied against the live entries; with
     ``--parent-log`` each kernel's time beside that tree's;
-14. print times and peak memory, a JSON line of the kernels, and last
+14. write 36 + 1 of SyntheticDataset's 100k-point scenes into a
+    temporary data root in ScanNet's processed layout and run the paper's
+    fine-tune recipe (``configs/scannet/semseg-ppt-v1m1-0-sc-s3-st-spunet-
+    lovasz-ft.py``: PPT-v1m1 over SpUNet-v1m3 with PDNorm, ScanNetDataset,
+    batch 12) on them, changing only its data roots, epochs (3 steps and
+    one evaluation), weight and save path: train through
+    ``tools/train_torch.py:main_worker`` and check every step's loss,
+    ``contract_ok``, lr and K1/K2/K3 launches against the routing, that
+    every forward got condition "ScanNet" and only its norms' (``bns.1``)
+    running statistics moved, and that the checkpoint loads; compare K1-K3
+    with their plain versions at the batch's convs as in 7, and hold one
+    step's grads from the trained state as in 8, with float64 as the
+    reference: every K1-K3 call of the step against float64 on its own
+    inputs (within 3 x 2^-22 of its sum of |products|, the tiles' stated
+    f32 accuracy), rho the largest ratio of a call's kernel error to its
+    plain f32 error, and each gradient of the kernel path within 1e-3 of
+    max|ref| plus 3 rho x the plain path's difference from the same step
+    in float64, of the plain path and of float64 alike; then serve the val
+    scene (4 rotations)
+    through ``tools/test_torch.py:main_worker`` with the trained weights:
+    K1's launches, every ``contract_ok``, a fragment's logits;
+15. print times and peak memory, a JSON line of the kernels, and last
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -103,6 +125,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs/_test_/semseg_spunet_scannet_synthetic.py")
 TRAIN_CONFIG = os.path.join(ROOT, "configs/_test_/semseg_spunet_scannet_synthetic_train.py")
 PRETRAIN_CONFIG = os.path.join(ROOT, "configs/_test_/pretrain_bench_torch.py")
+# the paper's fine-tune recipe (PPT-v1m1 over SpUNet-v1m3), run on 36 + 1
+# scenes written in ScanNet's layout; its Add transform sets the condition
+PPT_CONFIG = os.path.join(ROOT, "configs/scannet/semseg-ppt-v1m1-0-sc-s3-st-spunet-lovasz-ft.py")
+PPT_TRAIN_SCENES = 36
+PPT_CONDITION = "ScanNet"
 SEED = 0
 # band convs per forward of SpUNet-v1m1 at ScanNet's sparse_shape, from the
 # routing (models/sparse_unet/layers.py:subm_route): L0 runs the last decoder
@@ -130,6 +157,10 @@ BAND_CORES = ("band_fwd_core", "band_dxdw_core", "band_dw_core")
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
 F32_PEAK = "165 TFLOP/s: 3xTF32, a third of the 495 TFLOP/s TF32 rate"
+# the f32 tiles' stated accuracy (csrc/mma_tile.cuh: 3xTF32 keeps "about
+# 3 x 2^-22 of each product"): a K1-K3 output element in f32 is held to
+# this share of its sum of |products| against float64
+TILE_F32_ACCURACY = 3 * 2.0 ** -22
 # what "ms" of a K1-K5 row is (the probe rows say theirs)
 EAGER_TIMING = ("CUDA events around calls issued one by one from Python after a "
                 "warm-up, L2 not flushed")
@@ -414,6 +445,554 @@ def band_plan_of(rb):
     return rb, bc.build_band_plan_auto(rb, 3)
 
 
+def step_probe(records):
+    """A hook class that records each training step in ``records``
+    (``{"steps": [], "conditions": []}``)."""
+    from ponderv2_tpu_torch.engines.hooks import HookBase
+    from ponderv2_tpu_torch.ops import band_conv as bc
+    from ponderv2_tpu_torch.ops import windowed_gather as wg
+
+    class StepProbe(HookBase):
+        """Per step: the synced metrics, the step's K1-K5 launches
+        and the lr the schedule gives; keeps the first batch, the BN
+        running statistics before training and the ``condition`` each
+        forward of the model was given."""
+
+        def before_train(self):
+            model = self.trainer.model
+            records["running_before"] = {k: v.detach().clone() for k, v
+                                         in model.state_dict().items() if "running" in k}
+            model.register_forward_pre_hook(
+                lambda module, args: records["conditions"].append(args[0].get("condition")))
+
+        def before_step(self):
+            self.before = [k.launches for k in bc.KERNELS + wg.KERNELS]
+
+        def after_step(self):
+            trainer = self.trainer
+            metrics = trainer.sync_metrics()
+            metrics["launches"] = [k.launches - b for k, b
+                                   in zip(bc.KERNELS + wg.KERNELS, self.before)]
+            metrics["schedule_lr"] = trainer.schedule(trainer.step - 1)
+            records["steps"].append(metrics)
+            records.setdefault("batch", trainer.comm_info["input_dict"])
+
+    return StepProbe
+
+
+def step_grads(gmodel, inputs, cores=None):
+    """One forward and backward of ``gmodel`` on ``inputs``, with the band
+    cores swapped for ``cores`` (name: function) if given: (loss, grads,
+    K1-K3 launches, seconds)."""
+    import torch
+
+    from ponderv2_tpu_torch.ops import band_conv as bc
+
+    saved = {name: getattr(bc, name) for name in BAND_CORES}
+    if cores:
+        for name, fn in cores.items():
+            setattr(bc, name, fn)
+    on_cuda = next(gmodel.parameters()).is_cuda
+    try:
+        gmodel.zero_grad(set_to_none=True)
+        before = [k.launches for k in bc.KERNELS]
+        if on_cuda:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = gmodel(inputs)
+        out["loss"].backward()
+        if on_cuda:
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launched = [k.launches - b for k, b in zip(bc.KERNELS, before)]
+        grads = {n: p.grad.detach().clone() for n, p in gmodel.named_parameters()
+                 if p.grad is not None}
+        return float(out["loss"].detach()), grads, launched, secs
+    finally:
+        for name, fn in saved.items():
+            setattr(bc, name, fn)
+
+
+def float64_cores(calls):
+    """K1-K3 cores that launch the kernels and, per call, compute the same
+    function in float64 and in plain f32 from the call's own inputs; each
+    call appends (kernel, rows, cin, cout, kernel error, plain f32 error,
+    max sum of |products|) to ``calls``, errors as max abs against
+    float64. K2 appends its dx and its dW."""
+    from ponderv2_tpu_torch.ops import band_conv as bc
+
+    kern = {name: getattr(bc, name) for name in BAND_CORES}
+
+    def f64(*args):
+        return [a.double() if a.is_floating_point() else a for a in args]
+
+    def mag(*args):
+        return [a.double().abs() if a.is_floating_point() else a for a in args]
+
+    def err(out, exact):
+        return (out.double() - exact).abs().max().item()
+
+    def fwd(f, rbt, w0, w, kz, block, window):
+        out = kern["band_fwd_core"](f, rbt, w0, w, kz, block, window)
+        exact = bc.band_fwd_core_plain(*f64(f, rbt, w0, w), kz, block, window)
+        plain = bc.band_fwd_core_plain(f, rbt, w0, w, kz, block, window)
+        m = bc.band_fwd_core_plain(*mag(f, rbt, w0, w), kz, block, window).max().item()
+        calls.append(("K1", f.shape[0], f.shape[1], w.shape[2], err(out, exact),
+                      err(plain, exact), m))
+        return out
+
+    def dxdw(g, f, rbt, w0, wmt, kz, block, window):
+        dx, dwr = kern["band_dxdw_core"](g, f, rbt, w0, wmt, kz, block, window)
+        ex, ew = bc.band_dxdw_core_plain(*f64(g, f, rbt, w0, wmt), kz, block, window)
+        px, pw = bc.band_dxdw_core_plain(g, f, rbt, w0, wmt, kz, block, window)
+        mx, mw = bc.band_dxdw_core_plain(*mag(g, f, rbt, w0, wmt), kz, block, window)
+        calls.append(("K2 dx", f.shape[0], g.shape[1], f.shape[1], err(dx, ex), err(px, ex),
+                      mx.max().item()))
+        calls.append(("K2 dW", f.shape[0], f.shape[1], g.shape[1], err(dwr, ew),
+                      err(pw, ew), mw.max().item()))
+        return dx, dwr
+
+    def dw(f, g, rbt, w0, kz, block, window):
+        out = kern["band_dw_core"](f, g, rbt, w0, kz, block, window)
+        exact = bc.band_dw_core_plain(*f64(f, g, rbt, w0), kz, block, window)
+        plain = bc.band_dw_core_plain(f, g, rbt, w0, kz, block, window)
+        m = bc.band_dw_core_plain(*mag(f, g, rbt, w0), kz, block, window).max().item()
+        calls.append(("K3", f.shape[0], f.shape[1], g.shape[1], err(out, exact),
+                      err(plain, exact), m))
+        return out
+
+    return {"band_fwd_core": fwd, "band_dxdw_core": dxdw, "band_dw_core": dw}
+
+
+def float64_step_grads(gmodel, inputs):
+    """One forward and backward of a float64 copy of ``gmodel`` through the
+    plain versions, every sum in float64 (``ops.scatter.sum_dtype``): the
+    reference a grads check holds both f32 paths to. Each residual block
+    and each conv + norm of SpUNet-v1m3 (the packed strided and inverse
+    convs keep 8 masked copies of their input for the backward) runs under
+    activation checkpointing, so the step fits beside the f32 model.
+    Returns (loss, grads, peak GiB of the step on the card)."""
+    import copy
+    from functools import partial
+
+    import torch
+    from torch.utils.checkpoint import checkpoint
+
+    from ponderv2_tpu_torch.ops import band_conv as bc
+
+    m64 = copy.deepcopy(gmodel).double()
+    for m in m64.modules():
+        if type(m).__name__ in ("PDBasicBlock", "PDConvNorm"):
+            m.forward = partial(checkpoint, m.forward, use_reentrant=False)
+    x64 = {k: v.double() if torch.is_tensor(v) and v.is_floating_point() else v
+           for k, v in inputs.items()}
+    plain = {name: getattr(bc, f"{name}_plain") for name in BAND_CORES}
+    on_cuda = next(gmodel.parameters()).is_cuda
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    loss, grads, _, _ = step_grads(m64, x64, plain)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_cuda else 0.0
+    del m64, x64
+    return loss, grads, peak
+
+
+def grads_kernel_vs_plain(tag, gmodel, inputs, expect, loss_rel, grad_rel,
+                          loss_spread, reference="reordered"):
+    """Two runs of each path, and one reference run that measures the f32
+    rounding a gradient carries. The step is reproducible (cuDNN
+    deterministic, every sum in a fixed order), so the two runs of a path
+    must give equal bits, loss and every gradient. The kernels sum in
+    another order than the plain versions, and the deepest encoder convs'
+    dW, summed over up to ~1M rows into a BN-centred cotangent, cancel; so
+    each gradient is held to ``grad_rel`` of its max|ref| plus 3x its f32
+    rounding, which ``reference`` measures:
+
+    - ``"reordered"``: the plain path's difference from the plain versions
+      summing in another order (``reordered_fwd``);
+    - ``"float64"``: the plain path's difference from the same step in
+      float64 (``float64_step_grads``), times the kernels' precision
+      against plain f32 on this step: one more kernel run holds every
+      K1-K3 call against float64 on its own inputs (``float64_cores``),
+      each output within ``TILE_F32_ACCURACY`` of its sum of |products|,
+      and takes rho, the largest ratio of a call's kernel error to its
+      plain f32 error (at least 1). The kernel path is then held to
+      ``grad_rel`` of max|ref| plus 3 rho x the plain path's float64
+      difference, against the plain path and against float64 alike: no
+      further from float64 than the plain path, scaled by how much
+      coarser the kernels' f32 sums are per call (3xTF32 products on
+      tensor cores against cuBLAS's f32 FMA).
+
+    The loss is held to ``loss_rel`` of the plain path's (plus 3x the
+    reordered difference if ``loss_spread``)."""
+    import torch
+
+    from ponderv2_tpu_torch.ops import band_conv as bc
+
+    plain_cores = {name: getattr(bc, f"{name}_plain") for name in BAND_CORES}
+    reordered_cores = {"band_fwd_core": reordered_fwd,
+                       "band_dxdw_core": reordered_dxdw,
+                       "band_dw_core": reordered_dw}
+    kern = [step_grads(gmodel, inputs) for _ in range(2)]
+    plain = [step_grads(gmodel, inputs, plain_cores) for _ in range(2)]
+    (loss_k, grads_k, launched_k, secs_k), (loss_p, grads_p, launched_p, secs_p) = (
+        kern[0], plain[0])
+    check(launched_k == expect and launched_p == [0, 0, 0],
+          f"{tag}: launches kernel path {launched_k}, plain path {launched_p}")
+    for path, (first, second) in (("kernel", kern), ("plain", plain)):
+        unequal = [n for n, g in first[1].items() if not torch.equal(second[1][n], g)]
+        check(first[0] == second[0] and not unequal,
+              f"{tag}: two runs of the {path} path differ: loss {first[0]!r} vs "
+              f"{second[0]!r}, {len(unequal)} grads, e.g. {unequal[:3]}")
+    check(sorted(grads_k) == sorted(grads_p), f"{tag}: grads of other params")
+    rho = 1.0
+    if reference == "float64":
+        calls = []
+        step_grads(gmodel, inputs, float64_cores(calls))
+        worst = {}
+        for name, n, cin, cout, e_k, e_p, m in calls:
+            check(e_k <= TILE_F32_ACCURACY * m,
+                  f"{tag}: {name} {n} rows {cin}->{cout}: err {e_k:.3e} against float64 > "
+                  f"3 x 2^-22 x max sum|products| {m:.3e}")
+            w = worst.setdefault(name.split()[0], [0.0, 0.0, 0.0])
+            w[0] = max(w[0], e_k / (TILE_F32_ACCURACY * m))
+            w[1] = max(w[1], e_k / max(e_p, 2.0 ** -24 * m))  # e_p no finer than 1 ulp
+            w[2] = max(w[2], e_p / (TILE_F32_ACCURACY * m))
+        rho = max(1.0, max(w[1] for w in worst.values()))
+        print(f"[grad] {tag}: {len(calls)} K1-K3 outputs (K2's dx and dW apart) against "
+              "float64 on their own inputs, as a share of 3 x 2^-22 x max sum|products| "
+              "(kernel, plain f32) and kernel error / plain f32 error at most: " + "; ".join(
+                  f"{k} {a:.3f}, {c:.3f}, {b:.2f}x" for k, (a, b, c) in worst.items())
+              + f"; rho {rho:.3f}", flush=True)
+        loss_r, grads_r, peak = float64_step_grads(gmodel, inputs)
+        check(sorted(grads_r) == sorted(grads_p), f"{tag}: float64 grads of other params")
+        ref_note = (f"float64 plain run: loss {loss_r:.9f}, peak memory "
+                    f"{peak:.3f} GiB")
+    else:
+        loss_r, grads_r = step_grads(gmodel, inputs, reordered_cores)[:2]
+        ref_note = f"reordered plain loss {loss_r:.7f}"
+    spread_l = abs(loss_r - loss_p)
+    check(abs(loss_k - loss_p) <= loss_rel * abs(loss_p)
+          + (3 * spread_l if loss_spread else 0.0),
+          f"{tag}: loss kernel {loss_k} vs plain {loss_p} ({ref_note})")
+    rows, margins = [], []
+    for name, ref in grads_p.items():
+        scale = ref.abs().max().item()
+        err = (grads_k[name] - ref).abs().max().item()
+        # the plain path's f32 rounding, as ``reference`` measures it
+        spread = (grads_r[name].double() - ref.double()).abs().max().item()
+        bound = max(grad_rel * scale + 3 * rho * spread, 1e-30)
+        errs = [(err, "plain")]
+        if reference == "float64":
+            errs.append(((grads_k[name].double() - grads_r[name]).abs().max().item(),
+                         "float64"))
+        for e, against in errs:
+            margins.append((e / bound, name, against, e, scale, spread))
+        rows.append((err / max(scale, 1e-30), spread / max(scale, 1e-30), name))
+    margins.sort()
+    print(f"[grad] {tag}: the 3 grads closest to their bound (err / (grad_rel x "
+          f"max|ref| + 3 x {rho:.3f} x {reference} difference of the plain path)): "
+          + "; ".join(
+              f"{name} vs {against} {m:.3f} (err {e:.3e}, max|ref| {sc:.3e}, {reference} "
+              f"{sp:.3e})" for m, name, against, e, sc, sp in margins[-3:]), flush=True)
+    for m, name, against, err, scale, spread in margins:
+        check(m <= 1.0, f"{tag}: grad {name}: kernel vs {against} {err:.3e} > {grad_rel} x "
+              f"{scale:.3e} + 3 x {rho:.3f} x {reference} {spread:.3e}")
+    rows.sort()
+    strict = sum(r[0] <= 1e-3 for r in rows)
+    print(f"[grad] {tag}: two runs of each path equal bit for bit; loss kernel "
+          f"{loss_k:.7f} plain {loss_p:.7f} ({ref_note}); "
+          f"{strict} of {len(rows)} grads within 1e-3 of their max|ref|; worst "
+          f"{rows[-1][2]} at {rows[-1][0]:.3e} ({reference} plain {rows[-1][1]:.3e}); "
+          f"largest {reference} difference of the plain path "
+          f"{max(r[1] for r in rows):.3e}; forward+backward {1e3 * secs_k:.1f} / "
+          f"{1e3 * kern[1][3]:.1f} ms with the kernels, {1e3 * secs_p:.1f} / "
+          f"{1e3 * plain[1][3]:.1f} ms plain")
+    for ratio, spread, name in rows[-5:]:
+        print(f"[grad]   {name}: kernel vs plain {ratio:.3e}, {reference} vs plain "
+              f"{spread:.3e} (of max|ref|)")
+
+
+def train_and_check(tag, cfg, dev):
+    """Train ``cfg`` (3 steps and its evaluations) through
+    ``tools/train_torch.py:main_worker`` with a ``step_probe`` hook, the
+    K1-K5 counts set to 0 first, and check what each such run must show:
+    every step's loss finite, ``contract_ok``, the lr the schedule gives
+    and the K1/K2/K3 launches ``band_routing`` derives for the first batch;
+    each val forward's band convs; the run's launches in all; the
+    checkpoint holding the trained state and loading into a fresh model.
+    Prints the routing, each step, the step and data times and the peak
+    memory, each line tagged ``[tag]``. Returns a namespace: the trained
+    ``model``, the probe's ``records``, the first batch's model inputs
+    ``b_inputs`` (with its ``condition``) and sparse tensor ``st``, its
+    plans and routing, the checkpoint's ``state``, ``launches``,
+    ``peak_gib`` and ``step_ms``."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from ponderv2_tpu_torch.engines.common import split_batch, with_condition
+    from ponderv2_tpu_torch.models import build_model
+    from ponderv2_tpu_torch.models.default import batch_to_sparse_tensor
+    from ponderv2_tpu_torch.models.sparse_unet.layers import SubMConv
+    from ponderv2_tpu_torch.ops import band_conv as bc
+    from ponderv2_tpu_torch.ops import windowed_gather as wg
+    from ponderv2_tpu_torch.ops.sparse import maybe_sort_by_key
+    from ponderv2_tpu_torch.ops.spconv import SubmPlan
+    from train_torch import main_worker
+
+    records = {"steps": [], "conditions": []}
+    cfg.hooks = list(cfg.hooks) + [dict(type=step_probe(records))]
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in bc.KERNELS + wg.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    trainer = main_worker(cfg)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = [k.launches for k in bc.KERNELS]
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    steps = records["steps"]
+    n_val = len(trainer.val_loader)
+    model = trainer.model
+    val_band = sum(m.last_route.startswith("band") for m in model.modules()
+                   if isinstance(m, SubMConv))  # the last forward was a val one
+    print(f"[{tag}] {len(steps)} steps + {n_val} val forwards in {train_s:.2f} s; "
+          f"launches (K1, K2, K3) {launches}; peak memory {peak_gib:.3f} GiB")
+
+    # the routing of the first batch (derived from its plans)
+    arrays, static = split_batch(records["batch"])
+    b_inputs = with_condition({k: torch.as_tensor(v, device=dev) for k, v in arrays.items()},
+                              static)
+    b_inputs.update(trainer.static_ctx)
+    st, _ = maybe_sort_by_key(batch_to_sparse_tensor(b_inputs))
+    spunet = model.backbone
+    level_rb, level_coords, _ = level_plans(spunet, st)
+    convs, fused, per_step = band_routing(spunet, level_rb)
+    n_band = sum(convs.values())
+    live = int((b_inputs["batch"] >= 0).sum())
+    print(f"[{tag}] routing at batch {cfg.batch_size}: {n_band} band convs per forward "
+          f"({sum(isinstance(rb, SubmPlan) for rb in level_rb)} of 5 levels with attached "
+          f"plans), {per_step[1]} fused backward (K2), {per_step[2]} split (K1 + K3): "
+          f"launches per step {per_step}; {live} live rows of {st.capacity}"
+          + (f"; batch conditions {static['condition']}" if "condition" in static else ""))
+    check(len(steps) == len(trainer.train_loader) == 3, f"{tag}: {len(steps)} steps")
+    for i, m in enumerate(steps):
+        print(f"[{tag}] step {i}: loss {m['loss']:.6f} lr {m['lr']:.6e} contract_ok "
+              f"{m['contract_ok']} launches {m['launches']}")
+        check(np.isfinite(m["loss"]), f"{tag} step {i} loss {m['loss']}")
+        check(m["contract_ok"] == 1.0, f"{tag} step {i} contract_ok False")
+        check(m["lr"] == m["schedule_lr"], f"{tag} step {i} lr {m['lr']} != schedule")
+        check(m["launches"] == per_step + [0, 0],
+              f"{tag} step {i} launches {m['launches']} != routing {per_step}")
+    check(val_band == BAND_CONVS_PER_FORWARD, f"{tag}: val forward ran {val_band} band convs")
+    check(launches == [3 * per_step[0] + n_val * val_band, 3 * per_step[1], 3 * per_step[2]],
+          f"{tag}: training launches {launches}")
+
+    ckpt_path = os.path.join(cfg.save_path, "model", "model_last.pth")
+    ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    fresh = build_model(dict(cfg.model))
+    fresh.load_state_dict(ckpt["state_dict"])
+    check(ckpt["step"] == 3 and all(torch.equal(v.cpu(), fresh.state_dict()[k])
+                                    for k, v in model.state_dict().items()),
+          f"{tag}: the checkpoint does not hold the trained state")
+    batch_times = [v for v, _ in trainer.storage.history("batch_time").values()]
+    data_times = [v for v, _ in trainer.storage.history("data_time").values()]
+    val_miou = trainer.storage.history("val/mIoU").latest()
+    print(f"[{tag}] checkpoint {ckpt_path} (step {ckpt['step']}) loads into a fresh model; "
+          f"val mIoU {val_miou:.4f} (random-init weights after 3 steps)")
+    # IterationTimer's batch_time runs from the end of one step to the end
+    # of the next, so it holds the data wait; the step is the difference
+    step_times = [b - d for b, d in zip(batch_times, data_times)]
+    step_ms = 1e3 * float(np.median(step_times[1:]))
+    print(f"[time] {tag} step (host clock, batch to device .. metrics synced): "
+          f"{', '.join(f'{1e3 * t:.1f}' for t in step_times)} ms, median of the last 2 "
+          f"{step_ms:.1f} ms; data wait {', '.join(f'{1e3 * t:.1f}' for t in data_times)} ms")
+    print(f"[memory] {tag} peak {peak_gib:.3f} GiB")
+    run = SimpleNamespace(
+        model=model, records=records, b_inputs=b_inputs, st=st, level_rb=level_rb,
+        level_coords=level_coords, convs=convs, fused=fused, per_step=per_step,
+        state=ckpt["state_dict"], launches=launches, peak_gib=peak_gib, step_ms=step_ms,
+        n_val=n_val,
+        data_ms=[1e3 * t for t in data_times], ckpt_path=ckpt_path)
+    del trainer, fresh, ckpt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def serve_and_check(tag, cfg, dev):
+    """Serve ``cfg``'s test set through ``tools/test_torch.py:main_worker``
+    with the K1-K3 counts set to 0 first, and check what each such run must
+    show: every ``contract_ok``, ``BAND_CONVS_PER_FORWARD`` band convs in
+    the last forward, and K1 launched that many times per forward, K2 and
+    K3 never. Prints the run, tagged ``[tag]``. Returns a namespace: the
+    ``tester``, its ``forwards``, ``launches``, ``peak_gib`` and
+    ``seconds``."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from ponderv2_tpu_torch.models.sparse_unet.layers import SubMConv
+    from ponderv2_tpu_torch.ops import band_conv as bc
+    from test_torch import main_worker
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in bc.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    tester = main_worker(cfg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = [k.launches for k in bc.KERNELS]
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    forwards = len(tester.fragment_seconds)
+    per_fwd = sum(m.last_route.startswith("band") for m in tester.model.modules()
+                  if isinstance(m, SubMConv))
+    print(f"[{tag}] {forwards} forwards in {seconds:.2f} s; K1 launches {launches[0]}; band "
+          f"convs in the last forward {per_fwd}; peak memory {peak_gib:.3f} GiB")
+    check(per_fwd == BAND_CONVS_PER_FORWARD, f"{tag}: last forward ran {per_fwd} band convs")
+    check(launches == [BAND_CONVS_PER_FORWARD * forwards, 0, 0],
+          f"{tag}: serving launches (K1, K2, K3) {launches} != ({BAND_CONVS_PER_FORWARD} x "
+          f"{forwards}, 0, 0)")
+    check(all(tester.contract_ok), f"{tag}: a forward reported contract_ok False")
+    return SimpleNamespace(tester=tester, forwards=forwards, launches=launches,
+                           peak_gib=peak_gib, seconds=seconds)
+
+
+def write_scannet_scenes(root, n_train, n_val, points=100_000):
+    """ScanNet's processed layout, the one ``ScanNetDataset`` reads:
+    ``{root}/{train,val}/sceneXXXX_00.pth``, each a dict of ``coord``,
+    ``color``, ``normal``, ``semantic_gt20`` and ``instance_gt``, filled with
+    the ``points``-point scenes ``SyntheticDataset`` makes from the seed."""
+    import torch
+
+    from ponderv2_tpu_torch.datasets.defaults import SyntheticDataset
+
+    synth = SyntheticDataset(num_scenes=n_train + n_val, points_per_scene=points, seed=SEED)
+    for i in range(n_train + n_val):
+        scene = synth.make_scene(i)
+        split = "train" if i < n_train else "val"
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        torch.save(dict(coord=scene["coord"], color=scene["color"], normal=scene["normal"],
+                        semantic_gt20=scene["segment"], instance_gt=scene["instance"]),
+                   os.path.join(root, split, f"scene{i:04d}_00.pth"))
+
+
+def ppt_recipe_options(data_root, save_path):
+    """What a run of ``PPT_CONFIG`` on scenes under ``data_root`` changes:
+    the data roots, one epoch with one evaluation (3 steps of the 36 train
+    scenes), no pretrained weight (the recipe's checkpoint is not in the
+    repo) and the save path. Model, criteria, optimizer, scheduler,
+    transforms, batch, point budget and Mix3D stay the recipe's."""
+    return {"data.train.data_root": data_root, "data.val.data_root": data_root,
+            "data.test.data_root": data_root, "epoch": 1, "eval_epoch": 1,
+            "weight": None, "save_path": save_path}
+
+
+def ppt_recipe_phase(dev, tmp, gen, stats):
+    """Phase 14: the PPT fine-tune recipe from scene files. Trains 3 steps
+    and one evaluation (``train_and_check``), checks the condition that
+    reached the model and the norms that moved, holds K1-K3 and the step's
+    grads against their plain versions, and serves the val scene
+    (``serve_and_check``). Adds K1-K3's per-step times to ``stats``;
+    returns the run's records."""
+    import numpy as np
+    import torch
+
+    from ponderv2_tpu_torch.datasets import collate_fn
+    from ponderv2_tpu_torch.engines.common import split_batch, with_condition
+    from ponderv2_tpu_torch.engines.defaults import default_config_parser
+    from ponderv2_tpu_torch.models import build_model
+
+    data_root = os.path.join(tmp, "ppt_scannet")
+    t0 = time.perf_counter()
+    write_scannet_scenes(data_root, PPT_TRAIN_SCENES, 1)
+    print(f"[ppt] wrote {PPT_TRAIN_SCENES} train + 1 val scenes of 100,000 points in "
+          f"ScanNet's layout in {time.perf_counter() - t0:.1f} s")
+
+    # ---- train 3 steps + one evaluation
+    cfg = default_config_parser(PPT_CONFIG, ppt_recipe_options(
+        data_root, os.path.join(tmp, "ppt_train")))
+    cfg.seed = SEED
+    cfg.device = str(dev)
+    run = train_and_check("ppt", cfg, dev)
+    out = {"train_launches": run.launches, "train_peak_gib": run.peak_gib,
+           "step_ms": run.step_ms, "data_ms": run.data_ms}
+
+    # the condition: the recipe's Add sets "ScanNet" on every scene; the
+    # trainer hands the model the first scene's; the head and the backbone
+    # both take index 1 of their conditions, so only bns.1 moves
+    model, records = run.model, run.records
+    n_forwards = 3 + run.n_val
+    ci = model.conditions.index(PPT_CONDITION)
+    check(records["conditions"] == [PPT_CONDITION] * n_forwards
+          and ci == 1 and model.backbone.conditions.index(PPT_CONDITION) == 1,
+          f"conditions that reached the model: {records['conditions']}")
+    moved = sorted(k for k, v in records["running_before"].items()
+                   if not torch.equal(run.state[k], v.cpu()))
+    expected = sorted(k for k in records["running_before"] if f".bns.{ci}." in k)
+    check(moved == expected, f"{len(moved)} running statistics moved, expected "
+          f"{len(expected)} (bns.{ci}): e.g. {sorted(set(moved) ^ set(expected))[:3]}")
+    print(f"[ppt] every forward ({n_forwards}) got condition {PPT_CONDITION!r} (index {ci} "
+          f"of the head's and the backbone's); the {len(moved)} running statistics that "
+          f"moved are exactly those of bns.{ci}")
+    del model, run.model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- K1, K2, K3 against their plain versions at this batch's convs
+    compare_band_kernels(run.convs, run.fused, run.level_rb, run.level_coords, gen,
+                         torch.float32, stats)
+
+    # ---- one step's grads from the trained state, as in 8, with float64
+    # as the reference: this step amplifies f32 rounding ~1e4x, and K1
+    # rounds a few times more than plain f32 per call, so phase 8's
+    # reordered plain term does not bound it (tools/experiments/
+    # ppt_grads_torch.py)
+    gmodel = build_model(dict(cfg.model))
+    gmodel.load_state_dict(run.state)
+    gmodel.to(dev).train()
+    grads_kernel_vs_plain("PPT fine-tune step from the trained state", gmodel, run.b_inputs,
+                          run.per_step, 1e-5, 1e-3, False, reference="float64")
+    del gmodel, run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- serve the val scene with the trained weights (4 rotations)
+    ckpt_path = os.path.join(cfg.save_path, "model", "model_last.pth")
+    scfg = default_config_parser(PPT_CONFIG, {
+        **ppt_recipe_options(data_root, os.path.join(tmp, "ppt_test")), "weight": ckpt_path})
+    scfg.seed = SEED
+    scfg.device = str(dev)
+    served = serve_and_check("ppt", scfg, dev)
+    tester = served.tester
+    out["serve_launches"], out["serve_peak_gib"] = served.launches, served.peak_gib
+    scene = tester.test_dataset[0]
+    n_rot = len(scfg.data.test.test_cfg.aug_transform)
+    check(n_rot == 4 and served.forwards == len(scene["fragment_list"]),
+          f"{served.forwards} forwards for {len(scene['fragment_list'])} fragments")
+    frag = scene["fragment_list"][0]
+    budget = scfg.get("point_budget_test", scfg.point_budget)
+    fb = collate_fn([dict(frag)], point_budget=budget, scene_budget=1)
+    fout = tester.eval_fragment(with_condition(*split_batch(fb)))
+    logits = fout["seg_logits"]
+    check(frag["condition"] == PPT_CONDITION and logits.shape == (budget, 20)
+          and bool(np.isfinite(logits).all()) and bool(fout["contract_ok"]),
+          f"PPT fragment logits {logits.shape}")
+    out["fragment_ms"] = 1e3 * float(np.median(tester.fragment_seconds))
+    print(f"[ppt] served the val scene: {n_rot} rotations, {served.forwards} fragments of "
+          f"{', '.join(str(len(f['coord'])) for f in scene['fragment_list'][:4])}... "
+          f"voxels; every contract_ok True; a fragment's logits ({logits.shape[0]}, "
+          f"{logits.shape[1]}) finite")
+    print(f"[time] PPT per-fragment latency in the tester (median of {served.forwards}, host "
+          f"to logits on host, {budget}-row budget): {out['fragment_ms']:.2f} ms")
+    del tester, served
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def windowed_cases(probe, dev, level_rb, stem):
     """Phase 12's six convs, (label, tap group, rulebook (k3, n) int32 on
     ``dev``, cin, cout): the probe's four shapes (``probe``:
@@ -469,10 +1048,8 @@ def main() -> int:
     from ponderv2_tpu_torch.datasets import build_dataset, collate_fn
     from ponderv2_tpu_torch.engines.common import split_batch
     from ponderv2_tpu_torch.engines.defaults import default_config_parser
-    from ponderv2_tpu_torch.engines.hooks import HookBase
     from ponderv2_tpu_torch.models import build_model
     from ponderv2_tpu_torch.models.default import batch_to_sparse_tensor
-    from ponderv2_tpu_torch.models.sparse_unet.layers import SubMConv
     from ponderv2_tpu_torch.ops import band_conv as bc
     from ponderv2_tpu_torch.ops import probe_kernels as pk
     from ponderv2_tpu_torch.ops import row_gather as rg
@@ -481,7 +1058,6 @@ def main() -> int:
     from ponderv2_tpu_torch.ops.sparse import make_sparse_tensor, maybe_sort_by_key
     from ponderv2_tpu_torch.ops.spconv import SubmPlan, apply_sparse_conv
     from ponderv2_tpu_torch.utils.config import Config
-    from test_torch import main_worker
     from train_torch import main_worker as train_main_worker
     import probe_bisect_torch
     import probe_gather_torch
@@ -630,29 +1206,11 @@ def main() -> int:
         weights = os.path.join(tmp, "spunet_seeded.pth")
         torch.save(seeded_state_dict(model, inputs, dev), weights)
         cfg.weight = weights
-        torch.cuda.reset_peak_memory_stats(dev)
-        for k in bc.KERNELS:
-            k.launches = 0
-        t0 = time.perf_counter()
-        tester = main_worker(cfg)
-        torch.cuda.synchronize()
-        serve_s = time.perf_counter() - t0
-        serve_launches = [k.launches for k in bc.KERNELS]
-        serve_peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-        forwards = len(tester.fragment_seconds)
-        routes = [m.last_route for m in tester.model.modules()
-                  if isinstance(m, SubMConv)]
-        per_fwd = sum(r.startswith("band") for r in routes)
-        print(f"[slice] {forwards} forwards in {serve_s:.2f} s; K1 launches "
-              f"{serve_launches[0]}; band convs in the last forward {per_fwd}; peak "
-              f"memory {serve_peak_gib:.3f} GiB")
+        served = serve_and_check("slice", cfg, dev)
+        tester, forwards, serve_launches = served.tester, served.forwards, served.launches
+        del served
         check(forwards == n_fragments,
               f"expected {n_fragments} forwards, ran {forwards}")
-        check(per_fwd == BAND_CONVS_PER_FORWARD, f"last forward ran {per_fwd} band convs")
-        check(serve_launches == [BAND_CONVS_PER_FORWARD * forwards, 0, 0],
-              f"serving launches (K1, K2, K3) {serve_launches} != "
-              f"({BAND_CONVS_PER_FORWARD} x {forwards}, 0, 0)")
-        check(all(tester.contract_ok), "a forward reported contract_ok False")
         phase_done("4 serving slice")
 
         # ---- 5. one fragment through the plain versions, same weights
@@ -698,101 +1256,14 @@ def main() -> int:
         phase_done("5 serving kernel vs plain")
 
         # ---- 6. the training slice: 3 steps + one evaluation via main_worker
-        def step_probe(records):
-            class StepProbe(HookBase):
-                """Per step: the synced metrics, the step's K1-K5 launches
-                and the lr the schedule gives; keeps the first batch."""
-
-                def before_step(self):
-                    self.before = [k.launches for k in bc.KERNELS + wg.KERNELS]
-
-                def after_step(self):
-                    trainer = self.trainer
-                    metrics = trainer.sync_metrics()
-                    metrics["launches"] = [k.launches - b for k, b
-                                           in zip(bc.KERNELS + wg.KERNELS, self.before)]
-                    metrics["schedule_lr"] = trainer.schedule(trainer.step - 1)
-                    records["steps"].append(metrics)
-                    records.setdefault("batch", trainer.comm_info["input_dict"])
-
-            return StepProbe
-
-        records = {"steps": []}
         tcfg = default_config_parser(TRAIN_CONFIG, {"save_path": os.path.join(tmp, "train")})
         tcfg.seed = SEED
         tcfg.device = "cuda"
-        tcfg.hooks = list(tcfg.hooks) + [dict(type=step_probe(records))]
-        torch.cuda.reset_peak_memory_stats(dev)
-        for k in bc.KERNELS:
-            k.launches = 0
-        t0 = time.perf_counter()
-        trainer = train_main_worker(tcfg)
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        train_launches = [k.launches for k in bc.KERNELS]
-        train_peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-        steps = records["steps"]
-        n_val = len(trainer.val_loader)
-        val_band = sum(m.last_route.startswith("band") for m in trainer.model.modules()
-                       if isinstance(m, SubMConv))  # the last forward was a val one
-        print(f"[train] {len(steps)} steps + {n_val} val forwards in {train_s:.2f} s; "
-              f"launches (K1, K2, K3) {train_launches}; peak memory "
-              f"{train_peak_gib:.3f} GiB")
-
-        # the routing of a training batch (derived, as for serving above)
-        batch12 = records["batch"]
-        b_inputs = {k: torch.as_tensor(v, device=dev)
-                    for k, v in split_batch(batch12)[0].items()}
-        b_inputs.update(trainer.static_ctx)
-        st12, _ = maybe_sort_by_key(batch_to_sparse_tensor(b_inputs))
-        spunet = trainer.model.backbone
-        level_rb, level_coords, _ = level_plans(spunet, st12)
-        tconvs, fused, per_step = band_routing(spunet, level_rb)
-        n_band, n_fused = sum(tconvs.values()), per_step[1]
-        live = int((b_inputs["batch"] >= 0).sum())
-        print(f"[train] routing at batch {tcfg.batch_size}: {n_band} band convs per "
-              f"forward ({sum(isinstance(rb, SubmPlan) for rb in level_rb)} of 5 "
-              f"levels with attached plans), {n_fused} fused backward (K2), "
-              f"{n_band - n_fused} split (K1 + K3): launches per step {per_step}; "
-              f"{live} live rows of {st12.capacity}")
-        check(len(steps) == len(trainer.train_loader) == 3, f"{len(steps)} steps")
-        for i, m in enumerate(steps):
-            print(f"[train] step {i}: loss {m['loss']:.6f} lr {m['lr']:.6e} "
-                  f"contract_ok {m['contract_ok']} launches {m['launches']}")
-            check(np.isfinite(m["loss"]), f"step {i} loss {m['loss']}")
-            check(m["contract_ok"] == 1.0, f"step {i} contract_ok False")
-            check(m["lr"] == m["schedule_lr"], f"step {i} lr {m['lr']} != schedule")
-            check(m["launches"] == per_step + [0, 0],
-                  f"step {i} launches {m['launches']} != routing {per_step}")
-        check(val_band == BAND_CONVS_PER_FORWARD,
-              f"val forward ran {val_band} band convs")
-        check(train_launches == [3 * per_step[0] + n_val * val_band,
-                                 3 * per_step[1], 3 * per_step[2]],
-              f"training launches {train_launches}")
-        ckpt_path = os.path.join(tcfg.save_path, "model", "model_last.pth")
-        ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
-        fresh = build_model(dict(tcfg.model))
-        fresh.load_state_dict(ckpt["state_dict"])
-        check(ckpt["step"] == 3 and all(
-            torch.equal(v.cpu(), fresh.state_dict()[k])
-            for k, v in trainer.model.state_dict().items()),
-            "checkpoint does not hold the trained state")
-        batch_times = [v for v, _ in trainer.storage.history("batch_time").values()]
-        data_times = [v for v, _ in trainer.storage.history("data_time").values()]
-        val_miou = trainer.storage.history("val/mIoU").latest()
-        print(f"[train] checkpoint {ckpt_path} (step {ckpt['step']}) loads into a fresh "
-              f"model; val mIoU {val_miou:.4f} (random-init weights after 3 steps)")
-        # IterationTimer's batch_time runs from the end of one step to the end
-        # of the next, so it holds the data wait; the step is the difference
-        step_times = [b - d for b, d in zip(batch_times, data_times)]
-        print(f"[time] train step (host clock, batch to device .. metrics synced): "
-              f"{', '.join(f'{1e3 * t:.1f}' for t in step_times)} ms, median of "
-              f"the last 2 {1e3 * float(np.median(step_times[1:])):.1f} ms; data "
-              f"wait {', '.join(f'{1e3 * t:.1f}' for t in data_times)} ms")
-        print(f"[memory] training peak {train_peak_gib:.3f} GiB")
-        state = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
-        static_ctx = dict(trainer.static_ctx)
-        del trainer, fresh, ckpt
+        run = train_and_check("train", tcfg, dev)
+        train_launches, state, b_inputs, st12 = run.launches, run.state, run.b_inputs, run.st
+        level_rb, level_coords, tconvs, fused, per_step = (
+            run.level_rb, run.level_coords, run.convs, run.fused, run.per_step)
+        del run
         gc.collect()
         torch.cuda.empty_cache()
         phase_done("6 training slice")
@@ -846,92 +1317,6 @@ def main() -> int:
         phase_done("7 K1/K2/K3 vs plain, training shapes")
 
         # ---- 8. one step's grads from the saved state: kernels vs plain
-        plain_cores = {name: getattr(bc, f"{name}_plain") for name in BAND_CORES}
-        reordered_cores = {"band_fwd_core": reordered_fwd,
-                           "band_dxdw_core": reordered_dxdw,
-                           "band_dw_core": reordered_dw}
-
-        def step_grads(gmodel, inputs, cores=None):
-            saved = {name: getattr(bc, name) for name in BAND_CORES}
-            if cores:
-                for name, fn in cores.items():
-                    setattr(bc, name, fn)
-            try:
-                gmodel.zero_grad(set_to_none=True)
-                before = [k.launches for k in bc.KERNELS]
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                out = gmodel(inputs)
-                out["loss"].backward()
-                torch.cuda.synchronize()
-                secs = time.perf_counter() - t
-                launched = [k.launches - b for k, b in zip(bc.KERNELS, before)]
-                grads = {n: p.grad.detach().clone() for n, p in gmodel.named_parameters()
-                         if p.grad is not None}
-                return float(out["loss"].detach()), grads, launched, secs
-            finally:
-                for name, fn in saved.items():
-                    setattr(bc, name, fn)
-
-        def grads_kernel_vs_plain(tag, gmodel, inputs, expect, loss_rel, grad_rel,
-                                  loss_spread):
-            """Two runs of each path, and one of the plain path summing in
-            another order (``reordered_fwd``). The step is reproducible
-            (cuDNN deterministic, every sum in a fixed order), so the two
-            runs of a path must give equal bits, loss and every gradient.
-            The kernels sum in another order than the plain versions, and
-            the deepest encoder convs' dW, summed over up to ~1M rows into a
-            BN-centred cotangent, cancel; so each gradient is held to
-            ``grad_rel`` of its max|ref| plus 3x its difference between the
-            plain run and the reordered plain run (a real change of
-            summation order); the loss to ``loss_rel`` (plus 3x that
-            difference if ``loss_spread``)."""
-            kern = [step_grads(gmodel, inputs) for _ in range(2)]
-            plain = [step_grads(gmodel, inputs, plain_cores) for _ in range(2)]
-            reordered = step_grads(gmodel, inputs, reordered_cores)
-            (loss_k, grads_k, launched_k, secs_k), (loss_p, grads_p, launched_p, secs_p) = (
-                kern[0], plain[0])
-            check(launched_k == expect and launched_p == [0, 0, 0],
-                  f"{tag}: launches kernel path {launched_k}, plain path {launched_p}")
-            for path, (first, second) in (("kernel", kern), ("plain", plain)):
-                unequal = [n for n, g in first[1].items() if not torch.equal(second[1][n], g)]
-                check(first[0] == second[0] and not unequal,
-                      f"{tag}: two runs of the {path} path differ: loss {first[0]!r} vs "
-                      f"{second[0]!r}, {len(unequal)} grads, e.g. {unequal[:3]}")
-            spread_l = abs(reordered[0] - loss_p)
-            check(abs(loss_k - loss_p) <= loss_rel * abs(loss_p)
-                  + (3 * spread_l if loss_spread else 0.0),
-                  f"{tag}: loss kernel {loss_k} vs plain {loss_p} (reordered {reordered[0]})")
-            check(sorted(grads_k) == sorted(grads_p), f"{tag}: grads of other params")
-            rows, margins = [], []
-            for name, ref in grads_p.items():
-                scale = ref.abs().max().item()
-                err = (grads_k[name] - ref).abs().max().item()
-                spread = (reordered[1][name] - ref).abs().max().item()
-                rows.append((err / max(scale, 1e-30), spread / max(scale, 1e-30), name))
-                margins.append((err / max(grad_rel * scale + 3 * spread, 1e-30), name, err,
-                                scale, spread))
-            margins.sort()
-            print(f"[grad] {tag}: the 3 grads closest to their bound (err / (grad_rel "
-                  "x max|ref| + 3 x reordered)): " + "; ".join(
-                      f"{name} {m:.3f} (err {e:.3e}, max|ref| {sc:.3e}, reordered {sp:.3e})"
-                      for m, name, e, sc, sp in margins[-3:]), flush=True)
-            for m, name, err, scale, spread in margins:
-                check(m <= 1.0, f"{tag}: grad {name}: err {err:.3e} > {grad_rel} x "
-                      f"{scale:.3e} + 3 x reordered {spread:.3e}")
-            rows.sort()
-            strict = sum(r[0] <= 1e-3 for r in rows)
-            print(f"[grad] {tag}: two runs of each path equal bit for bit; loss kernel "
-                  f"{loss_k:.7f} plain {loss_p:.7f} (reordered plain {reordered[0]:.7f}); "
-                  f"{strict} of {len(rows)} grads within 1e-3 of their max|ref|; worst "
-                  f"{rows[-1][2]} at {rows[-1][0]:.3e} (reordered plain {rows[-1][1]:.3e}); "
-                  f"largest reordered-plain difference {max(r[1] for r in rows):.3e}; "
-                  f"forward+backward {1e3 * secs_k:.1f} / {1e3 * kern[1][3]:.1f} ms with the "
-                  f"kernels, {1e3 * secs_p:.1f} / {1e3 * plain[1][3]:.1f} ms plain")
-            for ratio, spread, name in rows[-5:]:
-                print(f"[grad]   {name}: kernel vs plain {ratio:.3e}, reordered plain "
-                      f"{spread:.3e} (of max|ref|)")
-
         gmodel = build_model(dict(tcfg.model)).to(dev)
         gmodel.load_state_dict(state)
         gmodel.train()
@@ -943,7 +1328,7 @@ def main() -> int:
         phase_done("8 grads kernel vs plain")
 
         # ---- 9. the pretrain step: 3 steps of bench.py's workload
-        precords = {"steps": []}
+        precords = {"steps": [], "conditions": []}
         pcfg = default_config_parser(PRETRAIN_CONFIG,
                                      {"save_path": os.path.join(tmp, "pretrain")})
         pcfg.seed = SEED
@@ -1159,7 +1544,12 @@ def main() -> int:
             del out
         phase_done("13 probe kernels")
 
-        # ---- 14. output
+        # ---- 14. the PPT fine-tune recipe from scene files
+        ppt_stats = new_stats()
+        ppt = ppt_recipe_phase(dev, tmp, gen, ppt_stats)
+        phase_done("14 PPT recipe from files")
+
+        # ---- 15. output
         print(f"[time] per fine-tune step at batch {tcfg.batch_size} (f32): "
               + "; ".join(f"{name} {stats[name]['ms']:.3f} ms vs plain "
                           f"{stats[name]['plain_ms']:.3f} ms (bound "
@@ -1168,6 +1558,10 @@ def main() -> int:
               + "; ".join(f"{name} {pstats[name]['ms']:.3f} ms vs plain "
                           f"{pstats[name]['plain_ms']:.3f} ms (bound "
                           f"{pstats[name]['bound_ms']:.3f} ms)" for name in BAND_CORES))
+        print(f"[time] per PPT fine-tune step at batch 12 (f32): "
+              + "; ".join(f"{name} {ppt_stats[name]['ms']:.3f} ms vs plain "
+                          f"{ppt_stats[name]['plain_ms']:.3f} ms (bound "
+                          f"{ppt_stats[name]['bound_ms']:.3f} ms)" for name in BAND_CORES))
         print(f"[time] phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
 
         def entry(name, launches, st):
@@ -1198,6 +1592,8 @@ def main() -> int:
                 row["fine_tune"] = entry(name, train_launches[i], stats[name])
                 row["fine_tune"]["f32_peak"] = F32_PEAK
                 row["serving_launches"] = serve_launches[i]
+                row["ppt_fine_tune"] = entry(name, ppt["train_launches"][i], ppt_stats[name])
+                row["ppt_serving_launches"] = ppt["serve_launches"][i]
             kernels.append(row)
         # the probe kernels: one row per ported probe function, its launches
         # from its own run through the entry point

@@ -3,4 +3,6 @@ from .dataloader import build_dataloader
 from .transform import TRANSFORMS, Compose
 from .utils import collate_fn, point_collate_fn
 
-from . import defaults  # noqa: F401  (registers SyntheticDataset)
+# register the datasets: DefaultDataset, ConcatDataset and the synthetic
+# ones; ScanNet(200), S3DIS and Structured3D
+from . import defaults, s3dis, scannet, structure3d  # noqa: F401

@@ -1,22 +1,161 @@
-"""SyntheticDataset and SyntheticRGBDDataset: procedurally generated
-scenes (with RGB-D views for pretraining), no disk assets.
+"""Dataset bases: DefaultDataset / ConcatDataset over scene files, and
+SyntheticDataset / SyntheticRGBDDataset (procedurally generated scenes,
+with RGB-D views for pretraining; no disk assets).
 
-Copies of ``SyntheticDataset``, ``_lookat_world2cam`` and
-``SyntheticRGBDDataset`` from ``ponderv2_tpu/datasets/defaults.py`` with
-only the import lines changed (see ``transform.py`` for why they are
-copies).
+Copies of ``load_scene``, ``DefaultDataset``, ``ConcatDataset``,
+``SyntheticDataset``, ``_lookat_world2cam`` and ``SyntheticRGBDDataset``
+from ``ponderv2_tpu/datasets/defaults.py`` with only the import lines
+changed (see ``transform.py`` for why they are copies). Scenes are dicts of
+numpy arrays (``coord``, ``color``, ``normal``, ``segment``, ...) in
+``.pth`` (torch pickles of numpy arrays), ``.npz`` or ``.npy`` files.
 """
 
 from __future__ import annotations
 
+import glob
+import os
 from copy import deepcopy
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from .builder import DATASETS
+from ..utils.cache import shared_dict
+from ..utils.logger import get_root_logger
+from .builder import DATASETS, build_dataset
 from .transform import TRANSFORMS, Compose
 
+
+def load_scene(path: str) -> Dict[str, np.ndarray]:
+    if path.endswith(".npz"):
+        return dict(np.load(path, allow_pickle=True))
+    if path.endswith(".npy"):
+        return np.load(path, allow_pickle=True).item()
+    # .pth: torch pickle of a dict of numpy arrays
+    import torch
+
+    data = torch.load(path, map_location="cpu", weights_only=False)
+    return {
+        k: (v.numpy() if hasattr(v, "numpy") else v) for k, v in data.items()
+    }
+
+
+@DATASETS.register_module()
+class DefaultDataset:
+    def __init__(
+        self,
+        split: str = "train",
+        data_root: str = "data/dataset",
+        transform: Optional[List[dict]] = None,
+        test_mode: bool = False,
+        test_cfg: Optional[dict] = None,
+        cache: bool = False,
+        loop: int = 1,
+    ):
+        self.data_root = data_root
+        self.split = split
+        self.transform = Compose(transform or [])
+        self.test_mode = test_mode
+        self.test_cfg = test_cfg if test_mode else None
+        self.cache = cache
+        self.loop = loop if not test_mode else 1
+
+        if test_mode:
+            tc = self.test_cfg or {}
+            self.test_voxelize = (
+                TRANSFORMS.build(tc["voxelize"]) if tc.get("voxelize") else None
+            )
+            self.test_crop = TRANSFORMS.build(tc["crop"]) if tc.get("crop") else None
+            self.post_transform = Compose(tc.get("post_transform", []))
+            self.aug_transform = [Compose(a) for a in tc.get("aug_transform", [[]])]
+
+        self.data_list = self.get_data_list()
+        get_root_logger().info(
+            f"Totally {len(self.data_list)} x {self.loop} samples in {split} set."
+        )
+
+    def get_data_list(self) -> List[str]:
+        if isinstance(self.split, str):
+            splits = [self.split]
+        else:
+            splits = list(self.split)
+        data_list = []
+        for split in splits:
+            data_list += sorted(
+                glob.glob(os.path.join(self.data_root, split, "*"))
+            )
+        return data_list
+
+    def get_data(self, idx: int) -> Dict[str, Any]:
+        path = self.data_list[idx % len(self.data_list)]
+        if self.cache:
+            cache_name = f"ponderv2-{os.path.basename(self.data_root)}-{os.path.basename(path)}"
+            try:
+                return dict(shared_dict(cache_name))
+            except (AssertionError, FileNotFoundError):
+                data = load_scene(path)
+                return dict(shared_dict(cache_name, data))
+        return load_scene(path)
+
+    def get_data_name(self, idx: int) -> str:
+        return os.path.splitext(os.path.basename(self.data_list[idx % len(self.data_list)]))[0]
+
+    def prepare_train_data(self, idx: int) -> Dict[str, Any]:
+        return self.transform(self.get_data(idx))
+
+    def prepare_test_data(self, idx: int) -> Dict[str, Any]:
+        data_dict = self.get_data(idx)
+        segment = data_dict.pop("segment", None)
+        data_dict = self.transform(data_dict)
+        result_dict = dict(name=self.get_data_name(idx))
+        if segment is not None:
+            result_dict["segment"] = segment
+
+        fragment_list = []
+        for aug in self.aug_transform:
+            data = aug(deepcopy(data_dict))
+            if self.test_voxelize is not None:
+                data_part_list = self.test_voxelize(data)["fragment_list"]
+            else:
+                data["index"] = np.arange(data["coord"].shape[0])
+                data_part_list = [data]
+            for part in data_part_list:
+                if self.test_crop is not None:
+                    part = self.test_crop(part)
+                    parts = part if isinstance(part, list) else [part]
+                else:
+                    parts = [part]
+                for p in parts:
+                    fragment_list.append(self.post_transform(p))
+        result_dict["fragment_list"] = fragment_list
+        return result_dict
+
+    def __getitem__(self, idx):
+        if self.test_mode:
+            return self.prepare_test_data(idx)
+        return self.prepare_train_data(idx)
+
+    def __len__(self):
+        return len(self.data_list) * self.loop
+
+
+@DATASETS.register_module()
+class ConcatDataset:
+    def __init__(self, datasets: List[dict], loop: int = 1):
+        self.datasets = [build_dataset(d) for d in datasets]
+        self.loop = loop
+        self.data_list = []
+        for i, ds in enumerate(self.datasets):
+            self.data_list += [(i, j) for j in range(len(ds))]
+        get_root_logger().info(
+            f"Totally {len(self.data_list)} x {self.loop} samples in the concat set."
+        )
+
+    def __getitem__(self, idx):
+        ds_idx, sample_idx = self.data_list[idx % len(self.data_list)]
+        return self.datasets[ds_idx][sample_idx]
+
+    def __len__(self):
+        return len(self.data_list) * self.loop
 
 
 @DATASETS.register_module()

@@ -8,6 +8,8 @@ imports ``optax``). Goes away once that package imports lazily.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import scipy.interpolate
 import scipy.ndimage
@@ -54,6 +56,16 @@ class Collect:
                 axis=1,
             ).astype(np.float32)
         return out
+
+
+@TRANSFORMS.register_module()
+class Add:
+    def __init__(self, keys_dict=None):
+        self.keys_dict = keys_dict or {}
+
+    def __call__(self, data_dict):
+        data_dict.update(copy.deepcopy(self.keys_dict))
+        return data_dict
 
 
 # ------------------------------------------------------------------ geometric

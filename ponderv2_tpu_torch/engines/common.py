@@ -21,6 +21,17 @@ def split_batch(batch: Dict[str, Any]):
     return arrays, static
 
 
+def with_condition(arrays: Dict[str, Any], static: Dict[str, Any]) -> Dict[str, Any]:
+    """``arrays`` plus the batch's ``condition`` (the dataset name an ``Add``
+    transform set) when it has one: the first scene's when collated to a
+    list, as PPT reads it. The JAX engines drop it with the rest of the
+    static half (ROADMAP Queue 3)."""
+    cond = static.get("condition")
+    if isinstance(cond, (list, tuple)):
+        cond = cond[0] if cond else None
+    return arrays if cond is None else {**arrays, "condition": cond}
+
+
 def resolve_device(cfg) -> torch.device:
     """``cfg.device`` when given, else CUDA. Without CUDA an entry point does
     not fall back to the CPU on its own: the caller asks for it."""

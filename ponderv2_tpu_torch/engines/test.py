@@ -24,7 +24,7 @@ from ..utils import comm
 from ..utils.logger import get_root_logger
 from ..utils.misc import AverageMeter, intersection_and_union
 from ..utils.registry import Registry
-from .common import resolve_device, split_batch
+from .common import resolve_device, split_batch, with_condition
 
 TESTERS = Registry("testers")
 
@@ -71,8 +71,10 @@ class TesterBase:
         return build_dataset(dict(self.cfg.data.test))
 
     def eval_fragment(self, arrays: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        """One fragment's forward: its arrays (and its ``condition``, a str)
+        to the device, the outputs back on the host."""
         t0 = time.perf_counter()
-        inputs = {k: torch.as_tensor(v, device=self.device)
+        inputs = {k: torch.as_tensor(v, device=self.device) if k != "condition" else v
                   for k, v in arrays.items()}
         with torch.inference_mode():
             out = self.model({**inputs, **self.static_ctx})
@@ -136,8 +138,7 @@ class SemSegTester(TesterBase):
                 # aligned under collate's row sort; padding rows carry -1
                 batch = collate_fn([dict(frag)], point_budget=point_budget,
                                    scene_budget=1)
-                arrays, _ = split_batch(batch)
-                out = self.eval_fragment(arrays)
+                out = self.eval_fragment(with_condition(*split_batch(batch)))
                 valid = np.asarray(batch["batch"]) >= 0
                 index = np.asarray(batch["index"])[valid]
                 logits = out["seg_logits"][valid]

@@ -24,10 +24,10 @@ from ..models import build_model
 from ..utils.config import Config
 from ..utils.events import EventStorage
 from ..utils.logger import get_root_logger
-from ..utils.optimizer import build_optimizer, set_lr
+from ..utils.optimizer import build_optimizer, fill_missing_grads, set_lr
 from ..utils.registry import Registry
 from ..utils.scheduler import build_scheduler
-from .common import resolve_device, split_batch
+from .common import resolve_device, split_batch, with_condition
 
 TRAINERS = Registry("trainers")
 
@@ -175,10 +175,11 @@ class Trainer(TrainerBase):
         )
 
     # ------------------------------------------------------------------- step
-    def _to_device(self, input_dict) -> Dict[str, torch.Tensor]:
-        arrays, _ = split_batch(input_dict)
-        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
-                for k, v in arrays.items()}
+    def _to_device(self, input_dict) -> Dict[str, Any]:
+        """The batch's arrays on the device, and its ``condition``."""
+        arrays, static = split_batch(input_dict)
+        return with_condition({k: torch.as_tensor(v).to(self.device, non_blocking=True)
+                               for k, v in arrays.items()}, static)
 
     def step_generator(self) -> torch.Generator:
         """The generator of this step's random draws (ray picks, sampler
@@ -195,6 +196,7 @@ class Trainer(TrainerBase):
         out = self.model({**inputs, **self.static_ctx,
                           "generator": self.step_generator()})
         out["loss"].backward()
+        fill_missing_grads(self.optimizer)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         self.step += 1

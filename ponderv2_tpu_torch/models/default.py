@@ -49,11 +49,18 @@ class DefaultSegmentor(nn.Module):
         batch carries ``segment``: the criteria on the logits in input row
         order, masked by the input rows' validity."""
         st = batch_to_sparse_tensor(input_dict)
-        # rows sorted by voxel key: the band plans' windows rely on it
-        st_sorted, inverse = maybe_sort_by_key(st, self.assume_sorted)
-        seg_logits, contract_ok = self.backbone(st_sorted)
-        if inverse is not None:
-            seg_logits = seg_logits[inverse]
+        if getattr(self.backbone, "takes_input_dict", False):
+            # a model as the backbone (PPT-v1m1 in backbone_mode, as the
+            # ScanNet200 fine-tune config wraps it): it reads the input_dict
+            bout = self.backbone(input_dict)
+            seg_logits = bout.get("feat", bout.get("seg_logits"))
+            contract_ok = bout["contract_ok"]
+        else:
+            # rows sorted by voxel key: the band plans' windows rely on it
+            st_sorted, inverse = maybe_sort_by_key(st, self.assume_sorted)
+            seg_logits, contract_ok = self.backbone(st_sorted)
+            if inverse is not None:
+                seg_logits = seg_logits[inverse]
         out = {"seg_logits": seg_logits, "contract_ok": contract_ok}
         if "segment" in input_dict:
             out["loss"] = self.criteria(seg_logits, input_dict["segment"], st.mask)

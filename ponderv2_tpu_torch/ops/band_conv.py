@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .scatter import ordered_scatter_add
+from .scatter import ordered_scatter_add, sum_dtype
 
 BLOCK = 256
 WINDOW = 384
@@ -331,15 +331,17 @@ def band_fwd_core_plain(features: torch.Tensor, rbt: torch.Tensor,
                         w0: torch.Tensor, weights: torch.Tensor, kz: int,
                         block: int, window: int) -> torch.Tensor:
     """Plain PyTorch version of K1: per tap, a masked row gather and a matmul
-    of the compute-dtype values in f32, as K1 multiplies and sums them. The
+    of the compute-dtype values in f32, as K1 multiplies and sums them (in
+    f64 for f64 values, a float64 reference: ``sum_dtype``). The
     loop keeps the transient at (N, Cin); a batched gather over all taps
     would materialize 27 x N x Cin."""
     n = features.shape[0]
     k3, _, cout = weights.shape
-    wf = weights.float()
-    out = torch.zeros((n, cout), dtype=torch.float32, device=features.device)
+    acc = sum_dtype(features.dtype)
+    wf = weights.to(acc)
+    out = torch.zeros((n, cout), dtype=acc, device=features.device)
     for t in range(k3):
-        out += _tap_rows(features, rbt, w0, t, n, kz, block, window).float() @ wf[t]
+        out += _tap_rows(features, rbt, w0, t, n, kz, block, window).to(acc) @ wf[t]
     return out
 
 
@@ -574,14 +576,15 @@ def band_dxdw_core_plain(g: torch.Tensor, features: torch.Tensor,
                          w_mirT: torch.Tensor, kz: int, block: int,
                          window: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K2: per tap, one masked gather of ``g``
-    through ``rbt`` serves both matmuls, in f32 as in K2."""
+    through ``rbt`` serves both matmuls, in f32 as in K2 (f64 for f64)."""
     n, cin = features.shape
     k3, cout, _ = w_mirT.shape
-    ff, wf = features.float(), w_mirT.float()
-    dx = torch.zeros((n, cin), dtype=torch.float32, device=g.device)
-    dwr = torch.empty((k3, cin, cout), dtype=torch.float32, device=g.device)
+    acc = sum_dtype(g.dtype)
+    ff, wf = features.to(acc), w_mirT.to(acc)
+    dx = torch.zeros((n, cin), dtype=acc, device=g.device)
+    dwr = torch.empty((k3, cin, cout), dtype=acc, device=g.device)
     for t in range(k3):
-        rows = _tap_rows(g, rbt, w0, t, n, kz, block, window).float()
+        rows = _tap_rows(g, rbt, w0, t, n, kz, block, window).to(acc)
         dx += rows @ wf[t]
         dwr[t] = ff.T @ rows
     return dx, dwr
@@ -622,13 +625,14 @@ def band_dw_core_plain(features: torch.Tensor, g: torch.Tensor,
                        rbt: torch.Tensor, w0: torch.Tensor, kz: int, block: int,
                        window: int) -> torch.Tensor:
     """Plain PyTorch version of K3: per tap, a masked gather of ``g`` and one
-    TN matmul, in f32 as in K3."""
+    TN matmul, in f32 as in K3 (f64 for f64)."""
     n, cin = features.shape
     k3, cout = rbt.shape[1], g.shape[1]
-    ff = features.float()
-    dwr = torch.empty((k3, cin, cout), dtype=torch.float32, device=g.device)
+    acc = sum_dtype(features.dtype)
+    ff = features.to(acc)
+    dwr = torch.empty((k3, cin, cout), dtype=acc, device=g.device)
     for t in range(k3):
-        dwr[t] = ff.T @ _tap_rows(g, rbt, w0, t, n, kz, block, window).float()
+        dwr[t] = ff.T @ _tap_rows(g, rbt, w0, t, n, kz, block, window).to(acc)
     return dwr
 
 
@@ -658,7 +662,8 @@ def _overflow_residual(src, ov_src, ov_dst, order, counts, w_taps, n_out,
     tap through ``order``/``counts``, get one matmul per tap; each output row
     sums its entries in tap order (``ordered_scatter_add``)."""
     cout = w_taps.shape[2]
-    out = torch.zeros((n_out, cout), dtype=torch.float32, device=src.device)
+    acc_dt = sum_dtype(compute_dtype)
+    out = torch.zeros((n_out, cout), dtype=acc_dt, device=src.device)
     n_live = sum(counts)
     if n_live == 0:
         return out
@@ -666,11 +671,11 @@ def _overflow_residual(src, ov_src, ov_dst, order, counts, w_taps, n_out,
     i = ov_dst[:n_live][order].to(torch.int64)
     g = src[j].to(compute_dtype)
     w = w_taps.to(compute_dtype)
-    acc = torch.empty((n_live, cout), dtype=torch.float32, device=src.device)
+    acc = torch.empty((n_live, cout), dtype=acc_dt, device=src.device)
     start = 0
     for t, c in enumerate(counts):
         if c:
-            acc[start:start + c] = (g[start:start + c] @ w[t]).float()
+            acc[start:start + c] = (g[start:start + c] @ w[t]).to(acc_dt)
             start += c
     return ordered_scatter_add(out, i, acc)
 
@@ -680,8 +685,8 @@ def _overflow_dw(f, g, plan: BandPlan, compute_dtype):
     -> (K^3, Cin, Cout) f32, slot t holding dW[mirror t] as the cores' dwr
     does. Grouped by tap like ``_overflow_residual``."""
     counts = plan.ov_counts
-    out = torch.zeros((len(counts), f.shape[1], g.shape[1]), dtype=torch.float32,
-                      device=f.device)
+    acc = sum_dtype(compute_dtype)
+    out = torch.zeros((len(counts), f.shape[1], g.shape[1]), dtype=acc, device=f.device)
     n_live = sum(counts)
     if n_live == 0:
         return out
@@ -690,7 +695,7 @@ def _overflow_dw(f, g, plan: BandPlan, compute_dtype):
     start = 0
     for t, c in enumerate(counts):
         if c:
-            out[t] = (fe[start:start + c].T @ ge[start:start + c]).float()
+            out[t] = (fe[start:start + c].T @ ge[start:start + c]).to(acc)
             start += c
     return out
 

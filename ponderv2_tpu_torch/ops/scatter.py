@@ -21,6 +21,13 @@ def _clean_ids(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     return torch.where(bad, num_segments, segment_ids).to(torch.int64)
 
 
+def sum_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype sums of ``dtype`` values run in: f32 for bf16 and f32 (as
+    the kernels sum), f64 for f64 (a float64 reference run of the plain
+    versions)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 # rows bound for no output row are spread over this many dump rows: on CUDA
 # the ordered sum handles one destination's rows in turn, so a single dump
 # row taking every padding row would serialize them

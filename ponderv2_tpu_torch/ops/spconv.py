@@ -24,7 +24,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from . import hashing
-from .scatter import DUMP_ROWS, dump_ids, ordered_scatter_add
+from .scatter import DUMP_ROWS, dump_ids, ordered_scatter_add, sum_dtype
 from .sparse import unique_voxels
 
 
@@ -313,20 +313,21 @@ def apply_sparse_conv(
     """Gather-GEMM-accumulate over kernel taps, one tap at a time.
 
     features: (N_in, Cin); rulebook: (K^3, N_out) int32 (-1 = inactive);
-    weights: (K^3, Cin, Cout); out_mask: (N_out,) bool. Accumulates in f32.
+    weights: (K^3, Cin, Cout); out_mask: (N_out,) bool. Accumulates in f32
+    (f64 for f64 operands: ``sum_dtype``).
     The per-tap loop never materializes the (K^3, N, Cin) gather."""
     k3, n_out = rulebook.shape
     cdt = precision_dtype or features.dtype
     f = features.to(cdt)
     w = weights.to(cdt)
-    out = torch.zeros(n_out, weights.shape[2], dtype=torch.float32,
-                      device=features.device)
+    acc = sum_dtype(cdt)
+    out = torch.zeros(n_out, weights.shape[2], dtype=acc, device=features.device)
     for k in range(k3):
         idx = rulebook[k]
         live = (idx >= 0)[:, None]
         g = f[idx.clamp(min=0).to(torch.int64)]
         g = torch.where(live, g, torch.zeros((), dtype=cdt, device=g.device))
-        out += (g @ w[k]).float()
+        out += (g @ w[k]).to(acc)
     out = torch.where(out_mask[:, None], out, torch.zeros((), device=out.device))
     return out.to(features.dtype)
 
@@ -359,14 +360,15 @@ class _SubmConvSymmetric(torch.autograd.Function):
         gc = g.to(cdt)
         fc = features.to(cdt)
         zero = torch.zeros((), dtype=cdt, device=g.device)
-        dx = torch.zeros(features.shape, dtype=torch.float32, device=g.device)
-        dw = torch.empty(weights.shape, dtype=torch.float32, device=g.device)
+        acc = sum_dtype(cdt)
+        dx = torch.zeros(features.shape, dtype=acc, device=g.device)
+        dw = torch.empty(weights.shape, dtype=acc, device=g.device)
         for k in range(k3):
             midx = rulebook[k3 - 1 - k]
             gg = torch.where((midx >= 0)[:, None],
                              gc[midx.clamp(min=0).to(torch.int64)], zero)
-            dw[k] = (fc.T @ gg).float()
-            dx += (gg @ weights[k].to(cdt).T).float()
+            dw[k] = (fc.T @ gg).to(acc)
+            dx += (gg @ weights[k].to(cdt).T).to(acc)
         return dx.to(features.dtype), dw.to(weights.dtype), None, None, None
 
 
@@ -382,15 +384,16 @@ def subm_conv_symmetric(features: torch.Tensor, rulebook: torch.Tensor,
 
 
 def _packed_tap_matmul(features, tap, weights, compute_dtype):
-    """(N, Cin) x per-row tap-selected (Cin, Cout) -> (N, Cout) f32: one
-    masked matmul per tap (K^3-fold FLOPs, as in the JAX package)."""
+    """(N, Cin) x per-row tap-selected (Cin, Cout) -> (N, Cout) f32 (f64 for
+    f64): one masked matmul per tap (K^3-fold FLOPs, as in the JAX package)."""
     k3 = weights.shape[0]
     x = features.to(compute_dtype)
     w = weights.to(compute_dtype)
     zero = torch.zeros((), dtype=compute_dtype, device=x.device)
-    out = torch.zeros(x.shape[0], w.shape[2], dtype=torch.float32, device=x.device)
+    acc = sum_dtype(compute_dtype)
+    out = torch.zeros(x.shape[0], w.shape[2], dtype=acc, device=x.device)
     for t in range(k3):
-        out += (torch.where((tap == t)[:, None], x, zero) @ w[t]).float()
+        out += (torch.where((tap == t)[:, None], x, zero) @ w[t]).to(acc)
     return out
 
 
@@ -412,7 +415,7 @@ def strided_conv_packed(
     live = parent >= 0
     y = torch.where(live[:, None], y, torch.zeros((), device=y.device))
     dst = dump_ids(parent, ~live, out_capacity)
-    out = torch.zeros(out_capacity + DUMP_ROWS, weights.shape[2], dtype=torch.float32,
+    out = torch.zeros(out_capacity + DUMP_ROWS, weights.shape[2], dtype=y.dtype,
                       device=features.device)
     out = ordered_scatter_add(out, dst, y)[:out_capacity]
     out = torch.where(out_mask[:, None], out, torch.zeros((), device=out.device))

@@ -20,6 +20,16 @@ port's ``PonderIndoor-v2``: the backbone as above, UNet3D-v1m2 conv kernels
 transposed-conv kernels ``(kx, ky, kz, out, in)`` -> ``ConvTranspose3d``
 ``(in, out, kx, ky, kz)``, Dense kernels -> ``nn.Linear`` weights, and the
 ``constants`` collection's CLIP ``class_embedding``.
+
+``state_dict_from_jax_spunet_v1m3`` and ``state_dict_from_jax_ppt_v1m1``
+invert ``convert_spunet_v1m3`` and ``convert_ppt_v1m1`` for the port's
+``SpUNet-v1m3`` and ``PPT-v1m1``: the flat ``stem_conv`` / ``down{s}`` /
+``up{s}`` kernels -> ``conv_input.conv`` / ``down.{s}.conv`` /
+``up.{ref}.conv``, every PDNorm's ``bn_{cond}`` -> ``bns.{i}`` in
+``conditions`` order (or ``bn``), its ``modulation`` Dense -> the Linear
+``modulation.1``, the block shortcut ``proj`` / ``proj_bn`` ->
+``proj_conv`` / ``proj_norm``, ``context.embedding`` ->
+``embedding_table.weight``, and ``constants.class_embedding`` -> the buffer.
 """
 
 from __future__ import annotations
@@ -151,6 +161,86 @@ def state_dict_from_jax_ponder_indoor(variables: Mapping, channels: Sequence[int
         out["logit_scale"] = np.asarray(params["logit_scale"], np.float32).reshape(())
     if "mask_token" in params:
         out["mask_token"] = np.asarray(params["mask_token"])
+    constants = variables.get("constants") or {}
+    if "class_embedding" in constants:
+        out["class_embedding"] = np.asarray(constants["class_embedding"])
+    return out
+
+
+def _pdnorm(out, name, p, s, conditions) -> None:
+    if "bn" in p:  # decouple=False
+        _bn(out, f"{name}.bn", p["bn"], s["bn"])
+    else:
+        for i, c in enumerate(conditions):
+            _bn(out, f"{name}.bns.{i}", p[f"bn_{c}"], s[f"bn_{c}"])
+    if "modulation" in p:
+        _dense(out, f"{name}.modulation.1", p["modulation"])
+
+
+def _pd_block(out, name, p, s, conditions) -> None:
+    out[f"{name}.conv1.weight"] = _kernel(p["conv1"]["kernel"])
+    _pdnorm(out, f"{name}.bn1", p["bn1"], s["bn1"], conditions)
+    out[f"{name}.conv2.weight"] = _kernel(p["conv2"]["kernel"])
+    _pdnorm(out, f"{name}.bn2", p["bn2"], s["bn2"], conditions)
+    if "proj" in p:
+        w = np.asarray(p["proj"]["kernel"])
+        out[f"{name}.proj_conv.weight"] = w.reshape(1, 1, 1, *w.shape)
+        _pdnorm(out, f"{name}.proj_norm", p["proj_bn"], s["proj_bn"], conditions)
+
+
+def _block_tree(params, stats, prefix, b, first):
+    """Block ``b`` of a stage: scanned (``{prefix}_blocks``, stacked from
+    block ``first``) or standalone (``{prefix}_block{b}``)."""
+    if f"{prefix}_block{b}" in params:
+        return params[f"{prefix}_block{b}"], stats[f"{prefix}_block{b}"]
+    return (_unstack(params[f"{prefix}_blocks"]["blocks"], b - first),
+            _unstack(stats[f"{prefix}_blocks"]["blocks"], b - first))
+
+
+def state_dict_from_jax_spunet_v1m3(params: Mapping, batch_stats: Mapping,
+                                    layers: Sequence[int],
+                                    conditions: Sequence[str]) -> Dict[str, np.ndarray]:
+    """``params``/``batch_stats``: the JAX SpUNet-v1m3 collections (numpy
+    leaves), scanned or not; ``conditions`` the backbone's own order.
+    Returns the reference state_dict of numpy arrays."""
+    num_stages = len(layers) // 2
+    out: Dict[str, np.ndarray] = {}
+    out["conv_input.conv.weight"] = _kernel(params["stem_conv"]["kernel"])
+    _pdnorm(out, "conv_input.bn", params["stem_bn"], batch_stats["stem_bn"], conditions)
+    for s in range(num_stages):
+        out[f"down.{s}.conv.weight"] = _kernel(params[f"down{s}"]["kernel"])
+        _pdnorm(out, f"down.{s}.bn", params[f"down{s}_bn"], batch_stats[f"down{s}_bn"],
+                conditions)
+        for b in range(layers[s]):
+            _pd_block(out, f"enc.{s}.block{b}",
+                      *_block_tree(params, batch_stats, f"enc{s}", b, 0), conditions)
+    for s in range(num_stages):
+        ref = num_stages - 1 - s
+        out[f"up.{ref}.conv.weight"] = _kernel(params[f"up{s}"]["kernel"])
+        _pdnorm(out, f"up.{ref}.bn", params[f"up{s}_bn"], batch_stats[f"up{s}_bn"],
+                conditions)
+        for b in range(layers[num_stages + s]):
+            _pd_block(out, f"dec.{ref}.block{b}",
+                      *_block_tree(params, batch_stats, f"dec{s}", b, 1), conditions)
+    if "final" in params:
+        _dense(out, "final", params["final"])
+    return out
+
+
+def state_dict_from_jax_ppt_v1m1(variables: Mapping, layers: Sequence[int],
+                                 conditions: Sequence[str]) -> Dict[str, np.ndarray]:
+    """``variables``: the JAX PPT-v1m1 collections ``params``,
+    ``batch_stats`` and (optionally) ``constants``, with numpy leaves;
+    ``conditions`` the backbone's order. Returns the port's state_dict of
+    numpy arrays."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: Dict[str, np.ndarray] = {
+        f"backbone.{k}": v for k, v in state_dict_from_jax_spunet_v1m3(
+            params["backbone_net"], stats["backbone_net"], layers, conditions).items()}
+    out["embedding_table.weight"] = np.asarray(params["context"]["embedding"])
+    if "proj_head" in params:
+        _dense(out, "proj_head", params["proj_head"])
+        out["logit_scale"] = np.asarray(params["logit_scale"], np.float32).reshape(())
     constants = variables.get("constants") or {}
     if "class_embedding" in constants:
         out["class_embedding"] = np.asarray(constants["class_embedding"])

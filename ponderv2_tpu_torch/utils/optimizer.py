@@ -76,6 +76,17 @@ def build_optimizer(cfg: Dict, model: torch.nn.Module) -> torch.optim.Optimizer:
     return OPTIMIZERS.build(cfg)
 
 
+def fill_missing_grads(optimizer: torch.optim.Optimizer) -> None:
+    """Give every parameter the backward did not reach a zero gradient.
+    optax updates every leaf, so a parameter no path of this step touched
+    (the norms of PDNorm's other conditions) still takes its weight decay
+    and momentum there; ``torch.optim`` would skip it."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
+
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
     """Set every group's lr to ``lr`` times its ``lr_ratio``."""
     for group in optimizer.param_groups:

@@ -355,6 +355,72 @@ def test_segmentor_cuda_matches_cpu(cuda):
     assert _rel_err(gpu["seg_logits"].cpu(), ref["seg_logits"]) <= 1e-4
 
 
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+@pytest.mark.parametrize("adaptive", [True, False], ids=["adaptive", "plain"])
+def test_pdbatchnorm_cuda_matches_cpu(cuda, adaptive, train):
+    """PDBatchNorm on the GPU gives the CPU's output (1e-5 of max|ref|) and
+    moves only the selected condition's running statistics."""
+    from ponderv2_tpu_torch.models.norm import PDBatchNorm
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(5000, 96, generator=gen) * 2 + 0.5
+    mask = torch.rand(5000, generator=gen) > 0.1
+    context = torch.randn(256, generator=gen)
+    norm = PDBatchNorm(96, adaptive=adaptive).train(train)
+    with torch.no_grad():
+        for p in norm.parameters():
+            p.uniform_(0.5, 1.5, generator=gen)
+    before = {k: v.clone() for k, v in norm.state_dict().items()}
+    gpu = PDBatchNorm(96, adaptive=adaptive).train(train).to(cuda)
+    gpu.load_state_dict(before)
+    with torch.no_grad():
+        ref = norm(x, mask, 1, context)
+        out = gpu(x.to(cuda), mask.to(cuda), 1, context.to(cuda))
+    assert _rel_err(out.cpu(), ref) <= 1e-5
+    for name, v in gpu.state_dict().items():
+        assert _rel_err(v.cpu(), norm.state_dict()[name]) <= 1e-5, name
+        moved = not torch.equal(v.cpu(), before[name])
+        assert moved == (train and name.startswith("bns.1.running")), name
+
+
+V1M3 = dict(type="SpUNet-v1m3", in_channels=6, num_classes=0, base_channels=16,
+            channels=(16, 32, 64, 96, 96, 64, 48, 72), layers=(1,) * 8,
+            context_channels=32)
+
+
+def test_spunet_v1m3_cuda_matches_cpu(cuda):
+    """A narrow SpUNet-v1m3 forward on the GPU (K1 on every band conv)
+    matches the same model on the CPU (plain versions throughout) within
+    K1's f32 bound here, 1e-4 of max|ref|, for two conditions."""
+    from ponderv2_tpu_torch.ops.sparse import make_sparse_tensor
+
+    model = build_model(dict(V1M3)).eval()
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():  # per-condition norms that differ
+        for name, v in list(model.named_parameters()) + list(model.named_buffers()):
+            if ".bns." in name and not name.endswith("num_batches_tracked"):
+                v.uniform_(0.5, 1.5, generator=gen)
+    gpu = build_model(dict(V1M3)).eval().to(cuda)
+    gpu.load_state_dict(model.state_dict())
+    coords = _scene(4000, (100, 100, 40))
+    coords = coords[coords[:, 0] <= 0]  # one scene and the padding rows
+    st = make_sparse_tensor(torch.randn(len(coords), 6, generator=gen), coords,
+                            (1024, 1024, 512), 1)
+    gst = make_sparse_tensor(st.features.to(cuda), coords.to(cuda), (1024, 1024, 512), 1)
+    context = torch.randn(32, generator=gen)
+    outs = []
+    for cond in ("ScanNet", "S3DIS"):
+        with torch.inference_mode():
+            ref, ok_ref = model(st, cond, context)
+            before = bc.BAND_FWD.launches
+            out, ok = gpu(gst, cond, context.to(cuda))
+        assert bc.BAND_FWD.launches - before == 16
+        assert bool(ok) and bool(ok_ref)
+        assert _rel_err(out.cpu(), ref) <= 1e-4
+        outs.append(out)
+    assert not torch.equal(outs[0], outs[1])
+
+
 def _monotone_rulebook(n, k3, group, spread, seed=0):
     """Group-coherent per-tap shifts, as sorted rulebooks have; 30% absent."""
     rng = np.random.RandomState(seed)

@@ -2,6 +2,7 @@
 port's independence from JAX."""
 
 import os
+import random
 import re
 import subprocess
 import sys
@@ -153,6 +154,10 @@ class TestTrainDataPath:
 
         import ponderv2_tpu.datasets.dataloader as jdl
         import ponderv2_tpu.datasets.defaults as jdef
+        import ponderv2_tpu.datasets.s3dis as js3
+        import ponderv2_tpu.datasets.scannet as jsc
+        import ponderv2_tpu.datasets.structure3d as jst
+        import ponderv2_tpu.utils.cache as jcache
         import ponderv2_tpu.datasets.ppt_vocab as jvocab
         import ponderv2_tpu.datasets.preprocessing.scannet200_constants as jsc200
         import ponderv2_tpu.datasets.transform as jtr
@@ -162,6 +167,10 @@ class TestTrainDataPath:
         import ponderv2_tpu.utils.timer as jtm
         import ponderv2_tpu_torch.datasets.dataloader as tdl
         import ponderv2_tpu_torch.datasets.defaults as tdef
+        import ponderv2_tpu_torch.datasets.s3dis as ts3
+        import ponderv2_tpu_torch.datasets.scannet as tsc
+        import ponderv2_tpu_torch.datasets.structure3d as tst
+        import ponderv2_tpu_torch.utils.cache as tcache
         import ponderv2_tpu_torch.datasets.ppt_vocab as tvocab
         import ponderv2_tpu_torch.datasets.preprocessing.scannet200_constants as tsc200
         import ponderv2_tpu_torch.datasets.transform as ttr
@@ -185,13 +194,24 @@ class TestTrainDataPath:
             (jdef, tdef, ["_lookat_world2cam", "SyntheticRGBDDataset"]),
             (jclip, tclip, ["_fallback_embeddings", "_find_committed_asset",
                             "get_text_embeddings"]),
+            # the file-backed datasets of the PPT fine-tune recipe
+            (jdef, tdef, ["load_scene", "DefaultDataset", "ConcatDataset"]),
+            (jtr, ttr, ["Add"]),
+            (jsc, tsc, ["ScanNetDataset", "ScanNet200Dataset"]),
+            (js3, ts3, ["S3DISDataset"]),
+            (jst, tst, ["Structured3DDataset"]),
         ]
         for jmod, tmod, names in copies:
             for name in names:
                 assert inspect.getsource(getattr(tmod, name)) == inspect.getsource(
                     getattr(jmod, name)), f"{tmod.__name__}.{name}"
-        # the data modules the configs import, whole (utils/config.py:PORTED_MODULES)
-        for jmod, tmod in [(jvocab, tvocab), (jsc200, tsc200)]:
+        for jmod, tmod, names in [(jsc, tsc, ["VALID_CLASS_IDS_20", "CLASS_NAMES_20"]),
+                                  (js3, ts3, ["S3DIS_CLASS_NAMES"])]:
+            for name in names:
+                assert getattr(tmod, name) == getattr(jmod, name), name
+        # the data modules the configs import and the scene cache, whole
+        # (utils/config.py:PORTED_MODULES)
+        for jmod, tmod in [(jvocab, tvocab), (jsc200, tsc200), (jcache, tcache)]:
             with open(jmod.__file__, "rb") as fj, open(tmod.__file__, "rb") as ft:
                 assert fj.read() == ft.read(), tmod.__name__
 
@@ -281,8 +301,199 @@ def test_semseg_tester_votes_match_jax(tmp_path, np_global_seed):
         assert metrics["jax"][k] == metrics["torch"][k]
 
 
+# -------------------------------------------------- file-backed datasets
+# The PPT fine-tune recipes' datasets read processed scenes from data_root:
+# small ones are written to tmp_path in each dataset's layout.
+
+PPT_CONFIGS = {
+    "scannet": "configs/scannet/semseg-ppt-v1m1-0-sc-s3-st-spunet-lovasz-ft.py",
+    "scannet200": "configs/scannet200/semseg-ppt-v1m1-0-spunet-lovasz-ft.py",
+    "s3dis": "configs/s3dis/semseg-ppt-v1m1-0-s3-sc-st-spunet-lovasz-ft.py",
+}
+
+
+def write_scene_files(root, points=1500):
+    """Processed scenes, dicts of numpy arrays in ``.pth`` files: ScanNet's
+    ``{train,val}/sceneXXXX_XX.pth``, S3DIS's ``Area_N/room.pth`` and
+    Structured3D's ``train/scene_XXXXX/room_N/`` directories. Returns
+    {dataset: data_root}."""
+    rng = np.random.RandomState(0)
+
+    def scene(**labels):
+        out = dict(coord=rng.uniform(0, 3, (points, 3)).astype(np.float32),
+                   color=rng.randint(0, 256, (points, 3)).astype(np.uint8),
+                   normal=rng.randn(points, 3).astype(np.float32),
+                   instance_gt=rng.randint(-1, 9, points).astype(np.int16))
+        out.update({k: rng.randint(-1, n, points).astype(np.int16)
+                    for k, n in labels.items()})
+        return out
+
+    files = {
+        "scannet/train/scene0000_00.pth": scene(semantic_gt20=20, semantic_gt200=200),
+        "scannet/train/scene0001_01.pth": scene(semantic_gt20=20, semantic_gt200=200),
+        "scannet/val/scene0002_00.pth": scene(semantic_gt20=20, semantic_gt200=200),
+        "s3dis/Area_1/office_1.pth": scene(semantic_gt=13),
+        "s3dis/Area_2/hallway_3.pth": scene(semantic_gt=13),
+        "s3dis/Area_5/office_2.pth": scene(semantic_gt=13),
+        "structured3d/train/scene_00000/room_1/room.pth": scene(semantic_gt25=25),
+        "structured3d/train/scene_00001/room_0/room.pth": scene(semantic_gt25=25),
+    }
+    for rel, data in files.items():
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save(data, path)
+    return {name: os.path.join(root, name) for name in ("scannet", "s3dis", "structured3d")}
+
+
+def assert_same_tree(a, b, where=""):
+    """Byte-equal nested dicts, lists and arrays."""
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and sorted(a) == sorted(b), where
+        for k in a:
+            assert_same_tree(a[k], b[k], f"{where}.{k}")
+    elif isinstance(a, list):
+        assert isinstance(b, list) and len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_same_tree(x, y, f"{where}[{i}]")
+    else:
+        assert_same(a, b, where)
+
+
+def ppt_data_cfgs(data_roots):
+    """Each dataset's (train, test) configs: the PPT recipes' transforms and
+    test_cfg (Structured3D takes ScanNet's) on the written scenes."""
+    cfgs = {}
+    for name, path in PPT_CONFIGS.items():
+        data = TConfig.fromfile(os.path.join(ROOT, path)).data
+        root = data_roots["s3dis" if name == "s3dis" else "scannet"]
+        cfgs[name] = [dict(data[split], data_root=root) for split in ("train", "test")]
+    cfgs["s3dis"][0]["split"] = ("Area_1", "Area_2")
+    cfgs["structured3d"] = [
+        dict(c, type="Structured3DDataset", split="train", data_root=data_roots["structured3d"])
+        for c in cfgs["scannet"]]
+    return cfgs
+
+
+@pytest.mark.parametrize("name", ["scannet", "scannet200", "s3dis", "structured3d"])
+def test_file_dataset_items_and_fragments_match_jax(tmp_path, np_global_seed, name):
+    """ScanNet, ScanNet200, S3DIS and Structured3D over scene files, with the
+    recipes' transforms (every random augmentation, ``Add``'s condition)
+    and test plan (rotations x fragments): byte-equal train items and
+    test fragments, and equal collated batches."""
+    train_cfg, test_cfg = ppt_data_cfgs(write_scene_files(str(tmp_path)))[name]
+    for cfg in (train_cfg, test_cfg):
+        jds, tds = jbuild_dataset(dict(cfg)), tbuild_dataset(dict(cfg))
+        assert len(jds) == len(tds) >= 1 and jds.data_list == tds.data_list
+        for i in range(len(jds)):
+            np_global_seed()
+            j = jds[i]
+            np_global_seed()
+            t = tds[i]
+            assert_same_tree(j, t, f"{name}[{i}]")
+        if cfg is train_cfg:
+            assert t["condition"] == {"s3dis": "S3DIS"}.get(name, "ScanNet")
+            assert t["segment"].dtype == np.int64
+            assert t["feat"].shape[1] == (3 if name == "s3dis" else 6)  # S3DIS: color
+            batches = []
+            for ds, collate in ((jds, jcollate), (tds, tcollate)):
+                np_global_seed()
+                items = [ds[0], ds[-1]]
+                random.seed(0)  # Mix3D's draw
+                batches.append(collate(items, point_budget=4096, mix_prob=0.8,
+                                       scene_budget=2))
+            bj, bt = batches
+            assert_same_tree(bj, bt, f"{name} batch")
+            assert bt["condition"] == [t["condition"]] * 2
+        else:
+            assert len(t["fragment_list"]) >= len(cfg["test_cfg"]["aug_transform"]) >= 1
+            assert all(f["condition"] == t["fragment_list"][0]["condition"]
+                       for f in t["fragment_list"])
+
+
+def test_concat_dataset_and_limited_annotation_match_jax(tmp_path, np_global_seed):
+    """``ConcatDataset`` over ScanNet and S3DIS, and ScanNet with an
+    ``lr_file`` scene list and an ``la_file`` of labelled points: the same
+    items as the JAX package's."""
+    roots = write_scene_files(str(tmp_path))
+    lr_file = tmp_path / "lr.txt"
+    lr_file.write_text("scene0001_01\nscene0000_00\n")
+    la_file = tmp_path / "la.pth"
+    # plain ints: the datasets read it with torch.load's default weights_only
+    torch.save({"scene0001_01": list(range(0, 1500, 7)),
+                "scene0000_00": list(range(3, 1500, 11))}, la_file)
+    cfgs = [
+        dict(type="ConcatDataset", loop=2, datasets=[
+            dict(type="ScanNetDataset", split="train", data_root=roots["scannet"]),
+            dict(type="S3DISDataset", split=("Area_1", "Area_5"), data_root=roots["s3dis"])]),
+        dict(type="ScanNetDataset", data_root=roots["scannet"], lr_file=str(lr_file),
+             la_file=str(la_file)),
+    ]
+    for cfg in cfgs:
+        jds, tds = jbuild_dataset(dict(cfg)), tbuild_dataset(dict(cfg))
+        assert len(jds) == len(tds)
+        for i in range(len(jds)):
+            assert_same_tree(jds[i], tds[i], f"{cfg['type']}[{i}]")
+    assert tds.get_data_name(0) == "scene0001_01" and len(tds) == 2
+    assert int((tds[0]["segment"] >= 0).sum()) <= 215
+    assert len(tbuild_dataset(dict(cfgs[0]))) == 2 * 4
+
+
+def _flat(d, prefix=""):
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def test_chip_smoke_ppt_phase_keeps_the_recipe(tmp_path):
+    """``chip_smoke.py`` phase 14 runs the ScanNet PPT recipe with only its
+    data roots, epochs, weight and save path changed (plus what the config
+    parser derives: the seed and the train loop), and the scenes it writes
+    read back through ``ScanNetDataset`` as SyntheticDataset made them."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from ponderv2_tpu_torch.datasets.defaults import SyntheticDataset
+    from ponderv2_tpu_torch.engines.defaults import default_config_parser
+
+    opts = chip_smoke.ppt_recipe_options(str(tmp_path / "data"), str(tmp_path / "save"))
+    base = _flat(TConfig.fromfile(chip_smoke.PPT_CONFIG).to_dict())
+    run = _flat(default_config_parser(chip_smoke.PPT_CONFIG, dict(opts)).to_dict())
+    changed = {k for k in base.keys() | run.keys() if base.get(k) != run.get(k)}
+    assert changed <= set(opts) | {"seed", "data.train.loop"}
+    assert run["model.type"] == "PPT-v1m1" and run["batch_size"] == 12
+    assert run["data.train.type"] == "ScanNetDataset"
+
+    chip_smoke.write_scannet_scenes(str(tmp_path / "data"), 2, 1, points=500)
+    synth = SyntheticDataset(num_scenes=3, points_per_scene=500, seed=chip_smoke.SEED)
+    for split, idx in (("train", [0, 1]), ("val", [2])):
+        ds = tbuild_dataset(dict(type="ScanNetDataset", split=split,
+                                 data_root=str(tmp_path / "data")))
+        assert len(ds) == len(idx)
+        for i, j in enumerate(idx):
+            want = synth.make_scene(j)
+            assert_same_tree(ds.get_data(i), {k: want[k] for k in (
+                "coord", "color", "normal", "segment", "instance")}, f"{split}[{i}]")
+
+
+def test_add_transform_copies_its_values():
+    """``Add`` sets each key to a fresh copy of its value, as the JAX one."""
+    from ponderv2_tpu.datasets.transform import TRANSFORMS as JTRANSFORMS
+    from ponderv2_tpu_torch.datasets.transform import TRANSFORMS as TTRANSFORMS
+
+    keys = dict(condition="ScanNet", extra=[1, 2])
+    for registry in (JTRANSFORMS, TTRANSFORMS):
+        add = registry.build(dict(type="Add", keys_dict=keys))
+        out = add({"coord": np.zeros((2, 3))})
+        assert out["condition"] == "ScanNet" and out["extra"] == [1, 2]
+        out["extra"].append(3)
+        assert add({})["extra"] == [1, 2]
+
+
 _BLOCKED_IMPORT_CHECK = r"""
-import importlib.abc, sys
+import importlib.abc, os, sys
 BLOCKED = {"jax", "jaxlib", "flax", "optax", "ponderv2_tpu"}
 
 class Block(importlib.abc.MetaPathFinder):
@@ -305,11 +516,16 @@ import ponderv2_tpu_torch.ops.probe_kernels
 import ponderv2_tpu_torch.ops.row_gather
 import ponderv2_tpu_torch.ops.windowed_gather
 import ponderv2_tpu_torch.models.ponder.ponder_indoor
+import ponderv2_tpu_torch.models.point_prompt_training.ppt
+import ponderv2_tpu_torch.models.sparse_unet.spunet_pdnorm
+import ponderv2_tpu_torch.datasets.scannet, ponderv2_tpu_torch.datasets.s3dis
+import ponderv2_tpu_torch.datasets.structure3d, ponderv2_tpu_torch.utils.cache
 import ponderv2_tpu_torch.utils.clip_text
 import ponderv2_tpu_torch.utils.convert
 sys.path.insert(0, root + "/tools/experiments")
 import chip_smoke, probe_windowed_torch, test_torch, train_torch
 import probe_bisect_torch, probe_gather_torch, profile_pretrain_torch, profile_semseg_torch
+import ppt_grads_torch
 from ponderv2_tpu_torch.datasets import build_dataset, collate_fn
 from ponderv2_tpu_torch.models import build_model
 from ponderv2_tpu_torch.utils.config import Config
@@ -341,6 +557,45 @@ pout = pmodel({**{k: torch.as_tensor(v) for k, v in pb.items() if isinstance(v, 
                "generator": torch.Generator().manual_seed(0)})
 pout["loss"].backward()
 assert bool(torch.isfinite(pout["loss"])) and bool(pout["contract_ok"])
+
+# the PPT fine-tune recipes, unchanged but for data_root: their datasets read
+# scene files written here, and their models (ScanNet200's a DefaultSegmentor
+# around PPT-v1m1 in backbone_mode) run a full-width training forward and
+# backward on the CPU
+import shutil, tempfile
+torch.set_num_threads(2)
+data_root = tempfile.mkdtemp()
+rng = np.random.RandomState(0)
+for rel in ("train/scene0000_00.pth", "val/scene0001_00.pth", "Area_1/office_1.pth",
+            "Area_5/office_2.pth"):
+    n = 2000
+    os.makedirs(os.path.dirname(os.path.join(data_root, rel)), exist_ok=True)
+    torch.save(dict(coord=rng.uniform(0, 3, (n, 3)).astype(np.float32),
+                    color=rng.randint(0, 256, (n, 3)).astype(np.uint8),
+                    normal=rng.randn(n, 3).astype(np.float32),
+                    semantic_gt20=rng.randint(-1, 20, n), semantic_gt200=rng.randint(-1, 200, n),
+                    semantic_gt=rng.randint(-1, 13, n), instance_gt=rng.randint(-1, 9, n)),
+               os.path.join(data_root, rel))
+for name in ("scannet/semseg-ppt-v1m1-0-sc-s3-st-spunet-lovasz-ft.py",
+             "scannet200/semseg-ppt-v1m1-0-spunet-lovasz-ft.py",
+             "s3dis/semseg-ppt-v1m1-0-s3-sc-st-spunet-lovasz-ft.py"):
+    rcfg = Config.fromfile(os.path.join(root, "configs", name))
+    items = {}
+    for split in ("train", "val", "test"):
+        rcfg.data[split].data_root = data_root
+        items[split] = build_dataset(dict(rcfg.data[split]))[0]
+    assert items["train"]["condition"] == rcfg.data.train.transform[-2].keys_dict.condition
+    assert items["test"]["fragment_list"][0]["condition"] == items["train"]["condition"]
+    rmodel = build_model(dict(rcfg.model))
+    rb = collate_fn([items["train"]], point_budget=2048, scene_budget=1)
+    rout = rmodel.train()({**{k: torch.as_tensor(v) for k, v in rb.items()
+                              if isinstance(v, np.ndarray)},
+                           "spatial_shape": tuple(rcfg.sparse_shape), "batch_size": 1,
+                           "condition": rb["condition"]})
+    rout["loss"].backward()
+    assert rout["seg_logits"].shape == (2048, rcfg.data.num_classes)
+    assert bool(rout["contract_ok"]) and bool(torch.isfinite(rout["loss"]))
+shutil.rmtree(data_root)
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("NO_JAX_OK")
 """
@@ -348,12 +603,15 @@ print("NO_JAX_OK")
 
 def test_port_imports_and_runs_without_jax():
     """``ponderv2_tpu_torch``, ``chip_smoke.py``, ``tools/test_torch.py``,
-    ``tools/train_torch.py``, the two profilers and the probe entry points
-    ``tools/experiments/probe_{windowed,gather,bisect}_torch.py`` import,
-    the pretrain configs load, and a segmentor forward and a
-    PonderIndoor-v2 training step's forward and backward run on the CPU,
-    with jax/jaxlib/flax/optax/ponderv2_tpu blocked; no port source names
-    them in an import statement."""
+    ``tools/train_torch.py``, the two profilers, the probe entry points
+    ``tools/experiments/probe_{windowed,gather,bisect}_torch.py`` and
+    ``tools/experiments/ppt_grads_torch.py`` import,
+    the pretrain configs load, a segmentor forward and a PonderIndoor-v2
+    training step's forward and backward run on the CPU, and the three PPT
+    fine-tune recipes build their datasets (over scene files) and models,
+    the ScanNet one running a training forward and backward, with
+    jax/jaxlib/flax/optax/ponderv2_tpu blocked; no port source names them in
+    an import statement."""
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT_CHECK, ROOT],
         capture_output=True, text=True, timeout=300, cwd=ROOT)
@@ -366,6 +624,7 @@ def test_port_imports_and_runs_without_jax():
                os.path.join(ROOT, "tools", "experiments", "probe_windowed_torch.py"),
                os.path.join(ROOT, "tools", "experiments", "probe_gather_torch.py"),
                os.path.join(ROOT, "tools", "experiments", "probe_bisect_torch.py"),
+               os.path.join(ROOT, "tools", "experiments", "ppt_grads_torch.py"),
                os.path.join(ROOT, "tools", "profile_pretrain_torch.py"),
                os.path.join(ROOT, "tools", "profile_semseg_torch.py"),
                os.path.join(ROOT, "configs", "_test_", "pretrain_bench_torch.py")]

@@ -17,7 +17,8 @@ Each variant is a copy of the kernel sources with a few text edits (K1:
 slabs, in both dtypes; ``compacted`` and ``rRRR_kcKK_nsN`` (other rows per
 CTA, k-chunks and stages) the compacted tile in both; K4: ``slabs`` as
 built, ``compacted`` the other tile, in both dtypes; K2: ``nodw`` / ``nodx`` launch
-only one CTA range, ``onepass`` keeps one TF32 product of three; kd: other
+only one CTA range, ``onepass`` keeps one TF32 product of three; K1, K2: ``kstep`` adds each
+k-step's products into the output with round-to-nearest adds; kd: other
 tile shapes, ``noload`` / ``nomult`` drop the copies or the products,
 ``empty`` returns at once; v5: ``nostore`` forms the head sums and writes
 nothing, ``noop`` returns at once, ``alltotal`` has every thread add the
@@ -27,7 +28,8 @@ hint, write-through, or with an L2 evict-first policy, ``rows64`` /
 ``ponderv2_tpu_torch/csrc/_build/variants/`` in parallel and bound in place
 of the package's build. K1, K2: CUDA events over 5 calls after a warm-up,
 each variant twice (in order, then reversed), f32 and bf16, with the max
-abs error against the plain version. kd: the probe timing of
+abs error against the plain version, and the plain version's and each
+variant's error against the plain version in float64 (of max|out|). kd: the probe timing of
 ``chip_smoke.py`` phase 13 (CUDA-graph replay, L2 flushed before each call)
 beside ``torch.mm``; v5 the same timing, L2 flushed and warm, in turns,
 beside ``Tensor.fill_`` of the same 21 MB output (a fresh tensor and one
@@ -53,11 +55,46 @@ from ponderv2_tpu_torch.ops.cuda_build import BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc
 
 HEADERS = ("band_rows.cuh", "mma_tile.cuh")
 ONEPASS = ("  mma_tf32(d, al, bh[0], bh[1]);\n  mma_tf32(d, ah, bl[0], bl[1]);\n", "")
+# gg_mult's f32 path (K1's compacted tile, K2's dx slabs) with each k-step's
+# three TF32 products summed from zero and added into the output with
+# round-to-nearest adds, instead of a stage's KC / 8 k-steps kept in one
+# tensor-core accumulator (which rounds toward zero)
+KSTEP = [
+    ("mma_tile.cuh", """    float part[NTILES][4];  // this stage's sum, see kStageSums
+#pragma unroll
+    for (int q = 0; q < NTILES; ++q) part[q][0] = part[q][1] = part[q][2] = part[q][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KC; kk += 8) {
+      uint32_t araw[4], ah[4], al[4];""", """#pragma unroll
+    for (int kk = 0; kk < KC; kk += 8) {
+      float part[NTILES][4];
+#pragma unroll
+      for (int q = 0; q < NTILES; ++q) part[q][0] = part[q][1] = part[q][2] = part[q][3] = 0.f;
+      uint32_t araw[4], ah[4], al[4];"""),
+    ("mma_tile.cuh", """        mma_3xtf32(part[q], ah, al, bh, bl);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < NTILES; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[q][e] += part[q][e];
+  }
+}""", """        mma_3xtf32(part[q], ah, al, bh, bl);
+      }
+#pragma unroll
+      for (int q = 0; q < NTILES; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[q][e] += part[q][e];
+    }
+  }
+}"""),
+]
 K2 = {
     "base": [],
     "nodw": [("band_conv_bwd.cu", "  if (b < ndw) {\n", "  if (b < ndw) {\n    return;\n")],
     "nodx": [("band_conv_bwd.cu", "    b -= ndw;\n", "    return;\n    b -= ndw;\n")],
     "onepass": [("mma_tile.cuh", *ONEPASS)],
+    "kstep": KSTEP,
 }
 # K1: the tile follows the dtype (kCompact: f32 compacted, bf16 slabs);
 # a variant edits that choice or the compacted tile's shape.
@@ -67,6 +104,7 @@ K1 = {
     "routed": [],
     "slabs": [("band_conv.cu", K1_CHOICE, "constexpr bool kCompact = false;")],
     "compacted": [("band_conv.cu", K1_CHOICE, "constexpr bool kCompact = true;")],
+    "kstep": KSTEP,
     **{f"r{r}_kc{k}_ns{n}": [("band_conv.cu", K1_CHOICE, "constexpr bool kCompact = true;"),
                              ("band_conv.cu", K1_LINE, f"#define K1_TILE {r}, {k}, {n}")]
        for r, k, n in [(128, 32, 2), (128, 32, 3), (64, 32, 3)]},
@@ -271,14 +309,22 @@ def time_variants(kernel, libs, convs, make_args, core, plain):
             args = make_args(plan, n, cin, cout, valid, dtype, gen)
             ref = plain(*args)
             ref = ref if isinstance(ref, tuple) else (ref,)
-            line = []
+            exact = plain(*(a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+                            for a in args))
+            exact = exact if isinstance(exact, tuple) else (exact,)
+
+            def vs64(out):
+                return max(((o.double() - e).abs().max() / e.abs().max()).item()
+                           for o, e in zip(out, exact))
+
+            line = [f"plain vs float64 {vs64(ref):.2e}"]
             for name in list(libs) + list(libs)[::-1]:
                 bind(kernel, libs[name])
                 out = core(*args)
                 out = out if isinstance(out, tuple) else (out,)
                 err = max(cs.max_err(o, r)[0] for o, r in zip(out, ref))
                 ms = cs.cuda_ms(lambda: core(*args), 5)
-                line.append(f"{name} {ms:.3f} ms (err {err:.1e})")
+                line.append(f"{name} {ms:.3f} ms (err {err:.1e}, vs float64 {vs64(out):.2e})")
             print(f"L{level} {n} rows, {live} live entries (rows multiplied per column "
                   f"tile: compacted {compacted}, slabs {slabs}), {cin}->{cout} "
                   f"{str(dtype)[6:]}: " + "; ".join(line), flush=True)
@@ -380,7 +426,7 @@ def run_k4(names):
                 err = cs.max_err(wg.windowed_conv_fwd(f, geom, wc, probe.WB, group), ref)[0]
                 ms = cs.cuda_ms(lambda: wg.windowed_conv_fwd(f, geom, wc, probe.WB, group), 5)
                 totals[name, dtype] = totals.get((name, dtype), 0.0) + ms / 2
-                line.append(f"{name} {ms:.3f} ms (err {err:.1e})")
+                line.append(f"{name} {ms:.3f} ms (err {err:.1e}, vs float64 {vs64(out):.2e})")
             print(f"{label} {n} rows, {probe.live_entries(geom, probe.WB)} live entries (rows "
                   f"multiplied per column tile: compacted {rows[True]}, slabs {rows[False]}), "
                   f"{cin}->{cout} {str(dtype)[6:]}: " + "; ".join(line), flush=True)

@@ -2,8 +2,9 @@
 """GPU smoke run of the PyTorch port: build the band and windowed conv
 kernels and the probe kernels, check them, serve ScanNet-scale scenes,
 train SpUNet-v1m1 at ScanNet's batch, pretrain PonderIndoor-v2 at bench.py's
-workload, run every probe kernel at its probe's shape, and train and serve
-the PPT fine-tune recipe from scene files.
+workload, run every probe kernel at its probe's shape, train and serve the
+PPT fine-tune recipe from scene files, and run the paper's multi-dataset
+pretrain from RGB-D scene files.
 
     python3 chip_smoke.py [--parent-log LOG]
 
@@ -82,7 +83,9 @@ phases; any failure exits non-zero:
     summed in another order: P3 ``k2`` through K4, P5 ``kd``, P7 V2-V4) and
     time kernel, plain version and library call on the device (replayed
     from a CUDA graph, the L2 flushed before each call; the kernel with it
-    warm too) and per call issued from Python; for P7 V2-V4 (K4's slab
+    warm too) and per call issued from Python, and beside the window copies
+    (P3 ``k0``, P4 A-D), which no single call computes, a slice's ``copy_``
+    into the same output as a floor; for P7 V2-V4 (K4's slab
     tile) print the rows multiplied against the live entries; with
     ``--parent-log`` each kernel's time beside that tree's;
 14. write 36 + 1 of SyntheticDataset's 100k-point scenes into a
@@ -106,7 +109,25 @@ phases; any failure exits non-zero:
     scene (4 rotations)
     through ``tools/test_torch.py:main_worker`` with the trained weights:
     K1's launches, every ``contract_ok``, a fragment's logits;
-15. print times and peak memory, a JSON line of the kernels, and last
+15. write SyntheticRGBDDataset's 100k-point scenes, each with 6 views of
+    480 x 640 from its z-buffer, in the Structured3D (16 rooms), ScanNet (8
+    scenes) and S3DIS (8 rooms) RGB-D layouts and units, and run the
+    paper's multi-dataset pretrain (``configs/scannet/pretrain-ponder-ppt-
+    v1m1-0-sc-s3-st-spunet.py``: PonderIndoor-v2 over SpUNet-v1m1 with
+    three conditions, MultiDatasetTrainer, batch 8, f32) on them, changing
+    only its data roots, epochs (one round: 4 steps), save path and, on a
+    host with fewer than 72 CPUs, ``num_worker``, with the backbone's
+    ``remat`` on (the JAX default; the step does not fit in 80 GB without
+    it, and the backward runs each band conv's K1 again): check the 4 steps and
+    ``len(train_loader)``, the conditions that reached the model in order
+    (Structured3D, Structured3D, ScanNet, S3DIS) and the class subset each
+    used, the lr against OneCycle over 4 steps, every loss term and
+    ``contract_ok``, and K1/K2/K3 launches against each batch's routing;
+    compare K1-K3 with their plain versions at the first batch's convs as
+    in 7, hold every K1-K3 call of a step against float64 as in 14, and
+    one step's grads from the seeded state as in 8 (if that bound fails,
+    as in 14);
+16. print times and peak memory, a JSON line of the kernels, and last
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -130,6 +151,17 @@ PRETRAIN_CONFIG = os.path.join(ROOT, "configs/_test_/pretrain_bench_torch.py")
 PPT_CONFIG = os.path.join(ROOT, "configs/scannet/semseg-ppt-v1m1-0-sc-s3-st-spunet-lovasz-ft.py")
 PPT_TRAIN_SCENES = 36
 PPT_CONDITION = "ScanNet"
+# the paper's multi-dataset pretrain (PonderIndoor-v2 over SpUNet-v1m1 with
+# three conditions, MultiDatasetTrainer), run on scenes written in the
+# Structured3D, ScanNet and S3DIS RGB-D layouts: Structured3D's 16 rooms give
+# its 2 batches of 8, ScanNet's and S3DIS's 8 one each, so one epoch is one
+# round of the config's ratios 2 / 1 / 1
+MULTI_CONFIG = os.path.join(ROOT, "configs/scannet/pretrain-ponder-ppt-v1m1-0-sc-s3-st-spunet.py")
+MULTI_SCENES = {"Structured3D": 16, "ScanNet": 8, "S3DIS": 8}
+MULTI_ORDER = ["Structured3D", "Structured3D", "ScanNet", "S3DIS"]
+MULTI_VIEWS = 6  # per room; the config picks 5
+MULTI_VIEW_HW = (480, 640)
+S3DIS_TRAIN_AREAS = ("Area_1", "Area_2", "Area_3", "Area_4", "Area_6")
 SEED = 0
 # band convs per forward of SpUNet-v1m1 at ScanNet's sparse_shape, from the
 # routing (models/sparse_unet/layers.py:subm_route): L0 runs the last decoder
@@ -242,7 +274,9 @@ def level_plans(spunet, st):
 
 def band_routing(spunet, level_rb):
     """The band convs of one forward and their backward route: ({(level,
-    cin, cout): count}, {key: fused}, K1/K2/K3 launches per train step)."""
+    cin, cout): count}, {key: fused}, K1/K2/K3 launches per train step).
+    Under the backbone's ``remat`` the backward runs each band conv's
+    forward (K1) again."""
     from ponderv2_tpu_torch.ops import band_conv as bc
 
     convs = band_convs(spunet, level_rb)
@@ -250,7 +284,8 @@ def band_routing(spunet, level_rb):
              for key in convs}
     n_band = sum(convs.values())
     n_fused = sum(c for key, c in convs.items() if fused[key])
-    return convs, fused, [n_band + (n_band - n_fused), n_fused, n_band - n_fused]
+    n_fwd = n_band * (2 if getattr(spunet, "remat", False) else 1)
+    return convs, fused, [n_fwd + (n_band - n_fused), n_fused, n_band - n_fused]
 
 
 def bound_ms(moved_bytes, flops, dtype):
@@ -326,12 +361,14 @@ def band_op_bound(op, plan, n, cin, cout, dtype):
     return bound_ms(moved, flops, dtype)
 
 
-def compare_band_kernels(convs, fused, level_rb, level_coords, gen, dtype, stats):
+def compare_band_kernels(convs, fused, level_rb, level_coords, gen, dtype, stats,
+                         fwd_runs=1):
     """K1, K2 and K3 against their plain versions at every band conv of
     ``convs`` ({(level, cin, cout): count per forward}), in f32 (1e-4 of
     max(|ref|, 1)) and bf16 (3e-2 of max|ref|); each op the train step runs
     on a conv is timed in ``dtype`` and added, times its count, to
-    ``stats[core]`` (ms, plain_ms, bound_ms, bytes_ms, ops_ms, err, err_bf16)."""
+    ``stats[core]`` (ms, plain_ms, bound_ms, bytes_ms, ops_ms, err, err_bf16);
+    the forward ``fwd_runs`` times (2 under the backbone's ``remat``)."""
     import torch
 
     from ponderv2_tpu_torch.ops import band_conv as bc
@@ -385,9 +422,10 @@ def compare_band_kernels(convs, fused, level_rb, level_coords, gen, dtype, stats
                 t_k = cuda_ms(lambda: kern(*timed), 5)
                 t_p = cuda_ms(lambda: plain(*timed), 3)
                 b, b_bytes, b_ops = band_op_bound(op, plan, n, cin, cout, dtype)
+                runs_per_step = count * (fwd_runs if op == "fwd" else 1)
                 for key, v in (("ms", t_k), ("plain_ms", t_p), ("bound_ms", b),
                                ("bytes_ms", b_bytes), ("ops_ms", b_ops)):
-                    st[key] += count * v
+                    st[key] += runs_per_step * v
                 timing = f" {t_k:.3f}/{t_p:.3f} ms (bound {b:.4f})"
             line.append(f"{op} err {max(e for e, _ in errs):.2e} "
                         f"bf16 {max(e for e, _ in errs_b):.2e}{timing}")
@@ -447,7 +485,10 @@ def band_plan_of(rb):
 
 def step_probe(records):
     """A hook class that records each training step in ``records``
-    (``{"steps": [], "conditions": []}``)."""
+    (``{"steps": [], "conditions": []}``, and every batch when it holds
+    ``"batches": []``)."""
+    import torch
+
     from ponderv2_tpu_torch.engines.hooks import HookBase
     from ponderv2_tpu_torch.ops import band_conv as bc
     from ponderv2_tpu_torch.ops import windowed_gather as wg
@@ -455,8 +496,8 @@ def step_probe(records):
     class StepProbe(HookBase):
         """Per step: the synced metrics, the step's K1-K5 launches
         and the lr the schedule gives; keeps the first batch, the BN
-        running statistics before training and the ``condition`` each
-        forward of the model was given."""
+        running statistics before training, and the ``condition`` each
+        forward of the model was given and the loss terms it returned."""
 
         def before_train(self):
             model = self.trainer.model
@@ -464,6 +505,9 @@ def step_probe(records):
                                          in model.state_dict().items() if "running" in k}
             model.register_forward_pre_hook(
                 lambda module, args: records["conditions"].append(args[0].get("condition")))
+            model.register_forward_hook(lambda module, args, out: records.setdefault(
+                "terms", []).append({k: v.detach() for k, v in out.items()
+                                     if k.endswith("loss") and torch.is_tensor(v)}))
 
         def before_step(self):
             self.before = [k.launches for k in bc.KERNELS + wg.KERNELS]
@@ -476,6 +520,8 @@ def step_probe(records):
             metrics["schedule_lr"] = trainer.schedule(trainer.step - 1)
             records["steps"].append(metrics)
             records.setdefault("batch", trainer.comm_info["input_dict"])
+            if "batches" in records:
+                records["batches"].append(trainer.comm_info["input_dict"])
 
     return StepProbe
 
@@ -564,13 +610,41 @@ def float64_cores(calls):
     return {"band_fwd_core": fwd, "band_dxdw_core": dxdw, "band_dw_core": dw}
 
 
+def calls_vs_float64(tag, gmodel, inputs):
+    """One step of ``gmodel`` on ``inputs`` with the kernels, each K1-K3
+    call held against float64 on its own inputs (``float64_cores``): every
+    output within ``TILE_F32_ACCURACY`` of its sum of |products|. Prints
+    each kernel's worst share of that bound (and plain f32's) and its
+    largest ratio of kernel to plain f32 error; returns rho, the largest of
+    those ratios (at least 1)."""
+    calls = []
+    step_grads(gmodel, inputs, float64_cores(calls))
+    worst = {}
+    for name, n, cin, cout, e_k, e_p, m in calls:
+        check(e_k <= TILE_F32_ACCURACY * m,
+              f"{tag}: {name} {n} rows {cin}->{cout}: err {e_k:.3e} against float64 > "
+              f"3 x 2^-22 x max sum|products| {m:.3e}")
+        w = worst.setdefault(name.split()[0], [0.0, 0.0, 0.0])
+        w[0] = max(w[0], e_k / (TILE_F32_ACCURACY * m))
+        w[1] = max(w[1], e_k / max(e_p, 2.0 ** -24 * m))  # e_p no finer than 1 ulp
+        w[2] = max(w[2], e_p / (TILE_F32_ACCURACY * m))
+    rho = max(1.0, max(w[1] for w in worst.values()))
+    print(f"[grad] {tag}: {len(calls)} K1-K3 outputs (K2's dx and dW apart) against "
+          "float64 on their own inputs, as a share of 3 x 2^-22 x max sum|products| "
+          "(kernel, plain f32) and kernel error / plain f32 error at most: " + "; ".join(
+              f"{k} {a:.3f}, {c:.3f}, {b:.2f}x" for k, (a, b, c) in worst.items())
+          + f"; rho {rho:.3f}", flush=True)
+    return rho
+
+
 def float64_step_grads(gmodel, inputs):
     """One forward and backward of a float64 copy of ``gmodel`` through the
     plain versions, every sum in float64 (``ops.scatter.sum_dtype``): the
     reference a grads check holds both f32 paths to. Each residual block
-    and each conv + norm of SpUNet-v1m3 (the packed strided and inverse
-    convs keep 8 masked copies of their input for the backward) runs under
-    activation checkpointing, so the step fits beside the f32 model.
+    and each conv + norm of the backbone (SpUNet-v1m3's or v1m1's; the
+    packed strided and inverse convs keep 8 masked copies of their input
+    for the backward) runs under activation checkpointing, so the step fits
+    beside the f32 model.
     Returns (loss, grads, peak GiB of the step on the card)."""
     import copy
     from functools import partial
@@ -582,7 +656,7 @@ def float64_step_grads(gmodel, inputs):
 
     m64 = copy.deepcopy(gmodel).double()
     for m in m64.modules():
-        if type(m).__name__ in ("PDBasicBlock", "PDConvNorm"):
+        if type(m).__name__ in ("PDBasicBlock", "PDConvNorm", "BasicBlock", "ConvBNRelu"):
             m.forward = partial(checkpoint, m.forward, use_reentrant=False)
     x64 = {k: v.double() if torch.is_tensor(v) and v.is_floating_point() else v
            for k, v in inputs.items()}
@@ -646,23 +720,7 @@ def grads_kernel_vs_plain(tag, gmodel, inputs, expect, loss_rel, grad_rel,
     check(sorted(grads_k) == sorted(grads_p), f"{tag}: grads of other params")
     rho = 1.0
     if reference == "float64":
-        calls = []
-        step_grads(gmodel, inputs, float64_cores(calls))
-        worst = {}
-        for name, n, cin, cout, e_k, e_p, m in calls:
-            check(e_k <= TILE_F32_ACCURACY * m,
-                  f"{tag}: {name} {n} rows {cin}->{cout}: err {e_k:.3e} against float64 > "
-                  f"3 x 2^-22 x max sum|products| {m:.3e}")
-            w = worst.setdefault(name.split()[0], [0.0, 0.0, 0.0])
-            w[0] = max(w[0], e_k / (TILE_F32_ACCURACY * m))
-            w[1] = max(w[1], e_k / max(e_p, 2.0 ** -24 * m))  # e_p no finer than 1 ulp
-            w[2] = max(w[2], e_p / (TILE_F32_ACCURACY * m))
-        rho = max(1.0, max(w[1] for w in worst.values()))
-        print(f"[grad] {tag}: {len(calls)} K1-K3 outputs (K2's dx and dW apart) against "
-              "float64 on their own inputs, as a share of 3 x 2^-22 x max sum|products| "
-              "(kernel, plain f32) and kernel error / plain f32 error at most: " + "; ".join(
-                  f"{k} {a:.3f}, {c:.3f}, {b:.2f}x" for k, (a, b, c) in worst.items())
-              + f"; rho {rho:.3f}", flush=True)
+        rho = calls_vs_float64(tag, gmodel, inputs)
         loss_r, grads_r, peak = float64_step_grads(gmodel, inputs)
         check(sorted(grads_r) == sorted(grads_p), f"{tag}: float64 grads of other params")
         ref_note = (f"float64 plain run: loss {loss_r:.9f}, peak memory "
@@ -991,6 +1049,268 @@ def ppt_recipe_phase(dev, tmp, gen, stats):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def write_multidataset_scenes(root, counts=None, points=100_000, views=MULTI_VIEWS,
+                              hw=MULTI_VIEW_HW):
+    """``SyntheticRGBDDataset``'s scenes (``points`` points, labels in each
+    dataset's class count: 25, 20, 13) with ``views`` views each rendered by
+    its z-buffer at ``hw`` (a centre crop of its square image; the
+    intrinsics follow), written in each RGB-D dataset's layout and units
+    under ``root`` for ``counts`` ({dataset: rooms or scenes}, default
+    ``MULTI_SCENES``):
+
+    - Structured3D, as ``preprocess_structured3d.py:parse_scene`` writes it:
+      ``structured3d/train/scene_XXXXX/room_R.pth`` (``coord``, ``color``
+      uint8, ``normal``, ``semantic_gt`` (N, 1) int16) and
+      ``room_R_rgbd/frame_K.pth`` (``intrinsic``, ``extrinsic`` cam2world,
+      ``rgb`` uint8, ``depth`` int32 mm with 65535 where there is none,
+      ``depth_mask``, ``semantic_map``);
+    - ScanNet: ``scannet/train/sceneXXXX_00.pth`` (as
+      ``write_scannet_scenes``) and ``scannet_rgbd/sceneXXXX_00/K.npz``
+      (``color``, ``depth`` in m, ``pose`` cam2world, ``intrinsic``,
+      ``label``);
+    - S3DIS, as ``preprocess_s3dis.py:parse_room`` writes it:
+      ``s3dis/Area_A/office_I.pth`` (``coord``, ``color``, ``normal``,
+      ``semantic_gt``, ``instance_gt``) and ``office_I_rgbd/*.pth`` (as
+      Structured3D's, ``depth`` uint16 in 1/4000 m).
+
+    Returns {"structured3d", "scannet", "scannet_rgbd", "s3dis": root}."""
+    import numpy as np
+    import torch
+
+    from ponderv2_tpu_torch.datasets.defaults import SyntheticRGBDDataset
+
+    counts = counts or MULTI_SCENES
+    H, W = hw
+    crop = (W - H) // 2
+    roots = {name: os.path.join(root, name)
+             for name in ("structured3d", "scannet", "scannet_rgbd", "s3dis")}
+
+    def scenes(n, num_classes, seed):
+        synth = SyntheticRGBDDataset(num_scenes=n, points_per_scene=points,
+                                     num_classes=num_classes, num_cameras=views,
+                                     image_size=W, seed=seed)
+        for i in range(n):
+            s = synth.make_scene(i)
+            for key in ("rgb", "depth", "semantic2d"):
+                s[key] = s[key][:, crop:crop + H]
+            s["intrinsic"] = s["intrinsic"].astype(np.float64)
+            s["intrinsic"][:, 1, 2] -= crop
+            s["cam2world"] = np.linalg.inv(s["extrinsic"].astype(np.float64))
+            yield i, s
+
+    def save(obj, *path):
+        os.makedirs(os.path.dirname(os.path.join(*path)), exist_ok=True)
+        torch.save(obj, os.path.join(*path))
+
+    def view(s, v, depth):
+        valid = s["depth"][v] > 0
+        return dict(intrinsic=s["intrinsic"][v], extrinsic=s["cam2world"][v],
+                    rgb=s["rgb"][v].astype(np.uint8), depth=depth, depth_mask=valid,
+                    semantic_map=np.where(valid, s["semantic2d"][v], -1))
+
+    for i, s in scenes(counts["Structured3D"], 25, SEED):
+        room = os.path.join(roots["structured3d"], "train", f"scene_{i // 2:05d}",
+                            f"room_{i % 2}")
+        save(dict(coord=s["coord"], color=s["color"].astype(np.uint8), normal=s["normal"],
+                  semantic_gt=s["segment"].astype(np.int16)[:, None]), room + ".pth")
+        for v in range(views):
+            mm = np.round(s["depth"][v] * 1000.0).astype(np.int32)
+            save(view(s, v, np.where(mm > 0, mm, 65535)), room + "_rgbd", f"frame_{v}.pth")
+    for i, s in scenes(counts["ScanNet"], 20, SEED + 1000):
+        name = f"scene{i:04d}_00"
+        save(dict(coord=s["coord"], color=s["color"], normal=s["normal"],
+                  semantic_gt20=s["segment"], instance_gt=s["instance"]),
+             roots["scannet"], "train", f"{name}.pth")
+        os.makedirs(os.path.join(roots["scannet_rgbd"], name), exist_ok=True)
+        for v in range(views):
+            np.savez(os.path.join(roots["scannet_rgbd"], name, f"{v:06d}.npz"),
+                     color=s["rgb"][v].astype(np.uint8), depth=s["depth"][v],
+                     pose=s["cam2world"][v].astype(np.float32),
+                     intrinsic=s["intrinsic"][v].astype(np.float32),
+                     label=s["semantic2d"][v].astype(np.int16))
+    for i, s in scenes(counts["S3DIS"], 13, SEED + 2000):
+        room = os.path.join(roots["s3dis"], S3DIS_TRAIN_AREAS[i % len(S3DIS_TRAIN_AREAS)],
+                            f"office_{i}")
+        save(dict(coord=s["coord"], color=s["color"].astype(np.uint8), normal=s["normal"],
+                  semantic_gt=s["segment"].astype(np.int16)[:, None],
+                  instance_gt=s["instance"].astype(np.int16)[:, None]), room + ".pth")
+        for v in range(views):
+            depth = np.round(s["depth"][v] * 4000.0).astype(np.uint16)
+            save(view(s, v, depth), room + "_rgbd", f"cam{v}_0_{v}.pth")
+    return roots
+
+
+def multi_pretrain_options(roots, save_path, num_worker=None):
+    """What a run of ``MULTI_CONFIG`` on the scenes of
+    ``write_multidataset_scenes`` changes: the data roots, one epoch
+    (``epoch`` = ``eval_epoch`` = 1: one round of 4 batches), the save path
+    and, where given, ``num_worker``; and the backbone's ``remat`` on, the
+    JAX package's default, which the port's SpUNet-v1m1 leaves off (without
+    it the first step runs out of the H100's 80 GB). Model widths,
+    conditions, transforms, batch, point budget, dtype, optimizer and
+    schedule stay the config's."""
+    opts = {"data.train.datasets.0.data_root": roots["structured3d"],
+            "data.train.datasets.1.data_root": roots["scannet"],
+            "data.train.datasets.1.rgbd_root": roots["scannet_rgbd"],
+            "data.train.datasets.2.data_root": roots["s3dis"],
+            "epoch": 1, "eval_epoch": 1, "save_path": save_path,
+            "model.backbone.remat": True}
+    if num_worker is not None:
+        opts["num_worker"] = num_worker
+    return opts
+
+
+def multi_pretrain_phase(dev, tmp, gen, stats):
+    """Phase 15: the paper's multi-dataset pretrain from files. Writes the
+    scenes, trains one epoch (4 steps) through ``tools/train_torch.py:
+    main_worker`` with the K1-K5 counts set to 0 first, and checks the steps
+    (conditions in order, the class subset each used, the lr against
+    OneCycle over 4 steps, losses, ``contract_ok``, K1-K3 launches against
+    each batch's routing); holds K1-K3 against their plain versions at the
+    first batch's convs (timed in f32 into ``stats``), each K1-K3 call of a
+    step against float64, and one step's grads from the seeded state, kernel
+    path against plain. Returns the run's launches and times."""
+    import numpy as np
+    import torch
+
+    from ponderv2_tpu_torch.engines.common import split_batch, with_condition
+    from ponderv2_tpu_torch.engines.defaults import default_config_parser
+    from ponderv2_tpu_torch.models import build_model
+    from ponderv2_tpu_torch.models.default import batch_to_sparse_tensor
+    from ponderv2_tpu_torch.ops import band_conv as bc
+    from ponderv2_tpu_torch.ops import windowed_gather as wg
+    from ponderv2_tpu_torch.ops.sparse import maybe_sort_by_key
+    from ponderv2_tpu_torch.utils.scheduler import build_scheduler
+    from train_torch import main_worker
+
+    t0 = time.perf_counter()
+    roots = write_multidataset_scenes(os.path.join(tmp, "multi_data"))
+    h, w = MULTI_VIEW_HW
+    print(f"[multi] wrote {MULTI_SCENES} rooms or scenes of 100,000 points, {MULTI_VIEWS} "
+          f"views of {h} x {w} each, in each dataset's layout in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- train one epoch: one round, Structured3D x2, ScanNet, S3DIS
+    cpus = os.cpu_count()
+    num_worker = None if cpus >= 3 * 24 else max(1, cpus // 3)
+    cfg = default_config_parser(MULTI_CONFIG, multi_pretrain_options(
+        roots, os.path.join(tmp, "multi_train"), num_worker))
+    cfg.seed = SEED
+    cfg.device = str(dev)
+    print(f"[multi] os.cpu_count() {cpus}: num_worker {cfg.num_worker} per dataset "
+          f"(the config's 24 for each of 3 loaders wants 72)")
+    records = {"steps": [], "conditions": [], "batches": []}
+    cfg.hooks = list(cfg.hooks) + [dict(type=step_probe(records))]
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in bc.KERNELS + wg.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    trainer = main_worker(cfg)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = [k.launches for k in bc.KERNELS]
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    model, steps = trainer.model, records["steps"]
+    spunet = model.backbone
+    print(f"[multi] {len(steps)} steps in {train_s:.2f} s; launches (K1, K2, K3) "
+          f"{launches}; peak memory {peak_gib:.3f} GiB; backbone remat {spunet.remat}")
+    check(len(steps) == len(trainer.train_loader) == len(MULTI_ORDER),
+          f"multi: {len(steps)} steps, len(train_loader) {len(trainer.train_loader)}")
+    check(records["conditions"] == MULTI_ORDER,
+          f"multi: conditions that reached the model {records['conditions']}")
+    subsets = [len(model.valid_index[model.conditions.index(c)]) for c in MULTI_ORDER]
+    n_emb = model.class_embedding.shape[0]
+    check(subsets == [25, 25, 20, 13] and n_emb == 36,
+          f"multi: class subsets {subsets} of {n_emb} rows")
+    schedule = build_scheduler(dict(cfg.scheduler), len(MULTI_ORDER))
+
+    step_ms = [1e3 * (b - d) for (b, _), (d, _) in zip(
+        trainer.storage.history("batch_time").values(),
+        trainer.storage.history("data_time").values())]
+    data_ms = [1e3 * d for d, _ in trainer.storage.history("data_time").values()]
+    first = None
+    for i, (m, batch) in enumerate(zip(steps, records["batches"])):
+        arrays, static = split_batch(batch)
+        inputs = with_condition({k: torch.as_tensor(v, device=dev)
+                                 for k, v in arrays.items()}, static)
+        inputs.update(trainer.static_ctx)
+        st, _ = maybe_sort_by_key(batch_to_sparse_tensor(inputs))
+        level_rb, level_coords, _ = level_plans(spunet, st)
+        convs, fused, per_step = band_routing(spunet, level_rb)
+        live = int((inputs["batch"] >= 0).sum())
+        terms = {k: float(v) for k, v in records["terms"][i].items()}
+        print(f"[multi] step {i} ({static['condition'][0]}, {subsets[i]} classes of "
+              f"{n_emb}): loss {m['loss']:.6f} lr {m['lr']:.6e} contract_ok "
+              f"{m['contract_ok']} launches {m['launches']} (routing {per_step}: "
+              f"{sum(convs.values())} band convs, {per_step[1]} fused); {live} live rows; "
+              f"step {step_ms[i]:.1f} ms, data wait {data_ms[i]:.1f} ms; "
+              + " ".join(f"{k} {v:.4f}" for k, v in terms.items() if k != "loss"))
+        check(static["condition"] == [MULTI_ORDER[i]] * cfg.batch_size,
+              f"multi step {i}: batch conditions {static['condition']}")
+        check(np.isfinite(m["loss"]) and "ppt_loss" in terms
+              and all(np.isfinite(v) for v in terms.values()),
+              f"multi step {i}: loss terms {m['loss']} {terms}")
+        check(m["contract_ok"] == 1.0, f"multi step {i} contract_ok False")
+        check(m["lr"] == m["schedule_lr"] and abs(m["lr"] - schedule(i)) <= 1e-12 * m["lr"],
+              f"multi step {i} lr {m['lr']} != OneCycle over 4 steps {schedule(i)}")
+        check(m["launches"] == per_step + [0, 0],
+              f"multi step {i} launches {m['launches']} != routing {per_step}")
+        if first is None:
+            first = (inputs, level_rb, level_coords, convs, fused, per_step)
+        else:
+            del inputs, st, level_rb, level_coords
+    del records["batches"]
+    by_cond = {}
+    for c, ms in zip(MULTI_ORDER, step_ms):
+        by_cond.setdefault(c, []).append(ms)
+    print(f"[time] multi-dataset pretrain step by condition (host clock, batch to device .. "
+          f"metrics synced): " + "; ".join(f"{c} {', '.join(f'{v:.1f}' for v in ms)} ms"
+                                           for c, ms in by_cond.items())
+          + f"; data wait {', '.join(f'{v:.1f}' for v in data_ms)} ms")
+    print(f"[memory] multi-dataset pretrain peak {peak_gib:.3f} GiB")
+    check(launches == [sum(m["launches"][j] for m in steps) for j in range(3)],
+          f"multi: launches {launches} outside the steps")
+    gmodel_cfg = dict(cfg.model)
+    del trainer, model, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- K1, K2, K3 against their plain versions at the first batch's convs
+    inputs, level_rb, level_coords, convs, fused, per_step = first
+    compare_band_kernels(convs, fused, level_rb, level_coords, gen, torch.float32, stats,
+                         fwd_runs=2 if spunet.remat else 1)
+    del level_rb, level_coords
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- each K1-K3 call of a step against float64, and the step's grads
+    # from the seeded state, kernel path against plain (phase 8's bound; if
+    # it fails, phase 14's float64 form)
+    gmodel = build_model(gmodel_cfg)
+    gmodel.reset_parameters(torch.Generator().manual_seed(SEED))
+    gmodel.to(dev).train()
+    B, V, H, W = inputs["depth"].shape
+    draws = gmodel.draw_noise(torch.Generator(device=dev).manual_seed(SEED), B, V, H * W)
+    inputs = {**inputs, "draws": draws}
+    tag = "multi-dataset pretrain step from the seeded state (f32)"
+    calls_vs_float64(tag, gmodel, inputs)
+    try:
+        grads_kernel_vs_plain(tag, gmodel, inputs, per_step, 1e-5, 1e-3, False)
+        holds = "phase 8's (reordered plain)"
+    except RuntimeError as e:
+        print(f"[grad] {tag}: phase 8's bound failed ({e}); holding it to phase 14's "
+              "float64 form", flush=True)
+        grads_kernel_vs_plain(tag, gmodel, inputs, per_step, 1e-5, 1e-3, False,
+                              reference="float64")
+        holds = "phase 14's (float64)"
+    print(f"[grad] {tag}: the bound that holds is {holds}")
+    del gmodel, inputs, draws
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"train_launches": launches, "peak_gib": peak_gib, "step_ms": step_ms,
+            "data_ms": data_ms, "grads_bound": holds}
 
 
 def windowed_cases(probe, dev, level_rb, stem):
@@ -1549,7 +1869,12 @@ def main() -> int:
         ppt = ppt_recipe_phase(dev, tmp, gen, ppt_stats)
         phase_done("14 PPT recipe from files")
 
-        # ---- 15. output
+        # ---- 15. the multi-dataset pretrain from files
+        multi_stats = new_stats()
+        multi = multi_pretrain_phase(dev, tmp, gen, multi_stats)
+        phase_done("15 multi-dataset pretrain from files")
+
+        # ---- 16. output
         print(f"[time] per fine-tune step at batch {tcfg.batch_size} (f32): "
               + "; ".join(f"{name} {stats[name]['ms']:.3f} ms vs plain "
                           f"{stats[name]['plain_ms']:.3f} ms (bound "
@@ -1562,6 +1887,11 @@ def main() -> int:
               + "; ".join(f"{name} {ppt_stats[name]['ms']:.3f} ms vs plain "
                           f"{ppt_stats[name]['plain_ms']:.3f} ms (bound "
                           f"{ppt_stats[name]['bound_ms']:.3f} ms)" for name in BAND_CORES))
+        print(f"[time] per multi-dataset pretrain step at batch 8 (f32, the first batch's "
+              f"convs): " + "; ".join(f"{name} {multi_stats[name]['ms']:.3f} ms vs plain "
+                                      f"{multi_stats[name]['plain_ms']:.3f} ms (bound "
+                                      f"{multi_stats[name]['bound_ms']:.3f} ms)"
+                                      for name in BAND_CORES))
         print(f"[time] phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
 
         def entry(name, launches, st):
@@ -1594,6 +1924,8 @@ def main() -> int:
                 row["serving_launches"] = serve_launches[i]
                 row["ppt_fine_tune"] = entry(name, ppt["train_launches"][i], ppt_stats[name])
                 row["ppt_serving_launches"] = ppt["serve_launches"][i]
+                row["multi_pretrain"] = entry(name, multi["train_launches"][i],
+                                              multi_stats[name])
             kernels.append(row)
         # the probe kernels: one row per ported probe function, its launches
         # from its own run through the entry point
@@ -1604,7 +1936,7 @@ def main() -> int:
                 "replaces": v.replaces, "launches": launches,
                 **{key: m[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms", "warm_ms",
-                                           "eager_ms")},
+                                           "eager_ms", "floor_ms")},
                 "timing": probe.TIMING})
         print(json.dumps({"kernels": kernels}))
     finally:

@@ -1,10 +1,13 @@
-"""Structured3D semantic-segmentation dataset.
+"""Structured3D datasets.
 
-A copy of ``Structured3DDataset`` from ``ponderv2_tpu/datasets/structure3d.py``
-with only the import lines changed (see ``transform.py`` for why it is a
-copy): rooms as ``{data_root}/{split}/scene_*/room_*/`` directories of one
-``.pth`` (or ``.npz``) scene, or as scene files under ``{split}/``. The
-RGB-D pretraining variant is not ported yet.
+``Structured3DDataset`` is ``ponderv2_tpu/datasets/structure3d.py``'s with
+one change: its room list skips the ``room_*_rgbd`` view folders, which the
+JAX list takes for rooms (ROADMAP Queue 3). Rooms are
+``{data_root}/{split}/scene_*/room_*.pth`` files (as
+``preprocess_structured3d.py`` writes them) or ``room_*/`` directories of
+one ``.pth`` (or ``.npz``) scene, else scene files under ``{split}/``.
+``Structured3DRGBDDataset`` (the RGB-D pretraining variant) takes its rooms
+from that list and each room's views from ``room_*_rgbd/``.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import numpy as np
 
 from .builder import DATASETS
 from .defaults import DefaultDataset, load_scene
+from .s3dis import RGBDViews
 
 
 @DATASETS.register_module()
@@ -28,9 +32,10 @@ class Structured3DDataset(DefaultDataset):
             splits = list(self.split)
         data_list = []
         for split in splits:
-            data_list += sorted(
-                glob.glob(os.path.join(self.data_root, split, "scene_*/room_*"))
-            ) or sorted(glob.glob(os.path.join(self.data_root, split, "*")))
+            data_list += [p for p in (
+                sorted(glob.glob(os.path.join(self.data_root, split, "scene_*/room_*")))
+                or sorted(glob.glob(os.path.join(self.data_root, split, "*"))))
+                if not p.endswith("_rgbd")]
         return data_list
 
     def get_data(self, idx: int) -> Dict[str, Any]:
@@ -61,3 +66,16 @@ class Structured3DDataset(DefaultDataset):
             else np.full(out["coord"].shape[0], -1, np.int64)
         )
         return out
+
+
+@DATASETS.register_module()
+class Structured3DRGBDDataset(RGBDViews, Structured3DDataset):
+    """``Structured3DDataset``'s rooms that have views under
+    ``room_*_rgbd/``, read as ``s3dis.py:read_rgbd_views`` reads them; the
+    preprocessor's depth is in mm
+    (``preprocess_structured3d.py:Structured3DReader.read_depth``). The JAX
+    dataset lists ``{split}/*`` instead, which finds no room in the
+    preprocessor's layout, and applies a ``depth_mask`` only from the scene
+    dict (ROADMAP Queue 3)."""
+
+    depth_scale = 1000.0

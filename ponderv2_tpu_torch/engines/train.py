@@ -7,9 +7,9 @@ running stats), the ``torch.optim`` optimizer and the step count, and
 ``run_step`` is: batch to the device, forward, ``loss.backward()``,
 ``optimizer.step()`` at ``schedule(step)``, ``zero_grad``. Conv plans are
 built on the device inside the step; a config's ``host_plans`` key is
-accepted and has no effect. Not ported yet: the data-parallel mesh branch,
-the host plan prefetch (``engines/plan_prefetch.py``) and
-``MultiDatasetTrainer``.
+accepted and has no effect. ``MultiDatasetTrainer`` trains on the
+round-robin ``MultiDatasetDataloader``. Not ported yet: the data-parallel
+mesh branch and the host plan prefetch (``engines/plan_prefetch.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..datasets import build_dataloader, build_dataset
+from ..datasets.dataloader import MultiDatasetDataloader
 from ..models import build_model
 from ..utils.config import Config
 from ..utils.events import EventStorage
@@ -230,3 +231,21 @@ class Trainer(TrainerBase):
                 "the band plan budgets. Refusing to continue training."
             )
         return metrics
+
+
+@TRAINERS.register_module("MultiDatasetTrainer")
+class MultiDatasetTrainer(Trainer):
+    """``Trainer`` over a ``ConcatDataset`` of several datasets, one batch
+    from one dataset at a time (``MultiDatasetDataloader``); each batch's
+    ``condition`` reaches the model (``Trainer._to_device``)."""
+
+    def build_train_loader(self):
+        cfg = self.cfg
+        return MultiDatasetDataloader(
+            build_dataset(dict(cfg.data.train)),
+            batch_size_per_dataset=cfg.batch_size,
+            num_workers=cfg.get("num_worker", 0),
+            point_budget=cfg.get("point_budget"),
+            mix_prob=cfg.get("mix_prob", 0.0),
+            seed=cfg.get("seed", 0),
+        )

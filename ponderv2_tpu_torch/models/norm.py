@@ -14,10 +14,26 @@ Prompt-Driven BatchNorm of SpUNet-v1m3, one ``MaskedBatchNorm`` per condition
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import torch
 from torch import nn
+
+# > 0 while a forward runs again for the backward (activation checkpointing):
+# the running statistics moved in the first run and must not move twice
+_RECOMPUTING = [0]
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Within: every ``MaskedBatchNorm`` normalizes with its batch statistics
+    but leaves its running statistics as they are."""
+    _RECOMPUTING[0] += 1
+    try:
+        yield
+    finally:
+        _RECOMPUTING[0] -= 1
 
 
 class MaskedBatchNorm(nn.Module):
@@ -50,6 +66,8 @@ class MaskedBatchNorm(nn.Module):
         count = m.sum().clamp(min=1.0)
         mean = s1 / count
         var = (s2 / count - mean * mean).clamp(min=0.0)
+        if _RECOMPUTING[0]:
+            return mean, var
         with torch.no_grad():
             unbiased = var * count / (count - 1.0).clamp(min=1.0)
             self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)

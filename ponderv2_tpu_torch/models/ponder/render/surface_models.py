@@ -54,6 +54,10 @@ class SurfaceModel(nn.Module):
         super().__init__()
         field_cfg = dict(field or {})
         field_cfg.pop("type", None)
+        # the volume's channel count is given; a config's own ``feature_dim``
+        # (the pretrain configs set the projection's 128) is ignored, as the
+        # JAX field infers its input width from the volume
+        field_cfg.pop("feature_dim", None)
         self.field = SDFField(feature_dim=feature_dim, **field_cfg)
         self.collider = COLLIDERS.build(dict(collider or {"type": "AABBBoxCollider"}))
         self.sampler = SAMPLERS.build(dict(sampler or {"type": "NeuSSampler"}))

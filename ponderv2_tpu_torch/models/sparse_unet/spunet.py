@@ -9,20 +9,26 @@ concat, and a linear head. Module names are the reference PyTorch ones, so
 ``final.*``, where decoder step ``s`` runs module index
 ``ref = num_stages - 1 - s`` (the reference builds up/dec ascending and runs
 them reversed). A Python loop replaces the JAX package's ``nn.scan``.
+``remat`` (off by default; the JAX package's is on) runs each BasicBlock and
+ConvBNRelu of a training forward under activation checkpointing, as its
+``nn.remat``: the backward runs the unit's forward again, band convs (K1)
+included, with the running statistics held (``norm.py:recomputing``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.sparse import SparseTensor
 from ...ops.spconv import StridedPlan, plan_contract_flags
 from ...utils.misc import as_dtype
 from ..builder import MODELS
-from ..norm import MaskedBatchNorm
+from ..norm import MaskedBatchNorm, recomputing
 from .layers import InverseConv, StridedConv, SubMConv
 from .plans import (
     build_spunet_plans_auto,
@@ -114,9 +120,11 @@ class SpUNet(nn.Module):
         bn_momentum: float = 0.01,
         capacities: Optional[Sequence[int]] = None,
         compute_dtype: Optional[torch.dtype] = None,
+        remat: bool = False,
     ):
         super().__init__()
         self.num_classes = num_classes
+        self.remat = remat
         self.channels = tuple(channels)
         self.layers = tuple(layers)
         self.capacities = tuple(capacities) if capacities is not None else None
@@ -163,6 +171,14 @@ class SpUNet(nn.Module):
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         _reset_all(self, generator)
 
+    def _unit(self, module: nn.Module, *args):
+        """``module(*args)``; under ``remat`` in a training forward that
+        records grads, activation-checkpointed."""
+        if self.remat and self.training and torch.is_grad_enabled():
+            return checkpoint(module, *args, use_reentrant=False,
+                              context_fn=lambda: (contextlib.nullcontext(), recomputing()))
+        return module(*args)
+
     def forward(self, st: SparseTensor, plans=None):
         """Returns ``(logits (N, num_classes), contract_ok () bool)``.
         ``contract_ok`` ANDs every plan contract flag, including the ``ok``
@@ -176,30 +192,30 @@ class SpUNet(nn.Module):
         contract = plan_contract_flags(plans.stem)
         band_flags: List[torch.Tensor] = []
 
-        x = self.conv_input(st, plans.stem, band_flags)
+        x = self._unit(self.conv_input, st, plans.stem, band_flags)
 
         skips = [x]
         for s in range(num_stages):
             out_coords, rb, parent, tap = plans.strided[s]
-            x = self.down[s](x, StridedPlan(out_coords, rb, shapes[s + 1],
-                                            parent, tap))
+            x = self._unit(self.down[s], x, StridedPlan(out_coords, rb, shapes[s + 1],
+                                                        parent, tap))
             rb = plans.subm[s]
             contract += plan_contract_flags(rb)
             for block in self.enc[s].values():
-                x = block(x, rb, band_flags)
+                x = self._unit(block, x, rb, band_flags)
             skips.append(x)
 
         for s in range(num_stages):
             ref = num_stages - 1 - s
             skip = skips[ref]
             _, _, parent, tap = plans.strided[ref]
-            x = self.up[ref](x, skip.coords, skip.spatial_shape, plans.inv[s],
-                             parent, tap)
+            x = self._unit(self.up[ref], x, skip.coords, skip.spatial_shape,
+                           plans.inv[s], parent, tap)
             x = x.replace_features(torch.cat([x.features, skip.features], 1))
             rb = plans.l0 if ref == 0 else plans.subm[ref - 1]
             contract += plan_contract_flags(rb)
             for block in self.dec[ref].values():
-                x = block(x, rb, band_flags)
+                x = self._unit(block, x, rb, band_flags)
 
         flags = contract + band_flags
         dev = st.features.device

@@ -183,15 +183,19 @@ class Config:
 
     # ---------------------------------------------------------------- merging
     def merge_from_dict(self, options: Dict[str, Any]) -> None:
-        """Apply dotted-key overrides, e.g. ``{"data.train.loop": 2}``."""
+        """Apply dotted-key overrides, e.g. ``{"data.train.loop": 2}``; a
+        number indexes a list, e.g. ``data.train.datasets.0.data_root``."""
         for full_key, value in options.items():
             d = self._cfg_dict
             parts = full_key.split(".")
             for part in parts[:-1]:
-                if part not in d or not isinstance(d[part], dict):
+                if isinstance(d, list):
+                    d = d[int(part)]
+                    continue
+                if part not in d or not isinstance(d[part], (dict, list)):
                     d[part] = ConfigDict()
                 d = d[part]
-            d[parts[-1]] = _to_config_dict(value)
+            d[int(parts[-1]) if isinstance(d, list) else parts[-1]] = _to_config_dict(value)
 
     # ------------------------------------------------------------------- dump
     @property

@@ -156,7 +156,6 @@ class TestTrainDataPath:
         import ponderv2_tpu.datasets.defaults as jdef
         import ponderv2_tpu.datasets.s3dis as js3
         import ponderv2_tpu.datasets.scannet as jsc
-        import ponderv2_tpu.datasets.structure3d as jst
         import ponderv2_tpu.utils.cache as jcache
         import ponderv2_tpu.datasets.ppt_vocab as jvocab
         import ponderv2_tpu.datasets.preprocessing.scannet200_constants as jsc200
@@ -169,7 +168,6 @@ class TestTrainDataPath:
         import ponderv2_tpu_torch.datasets.defaults as tdef
         import ponderv2_tpu_torch.datasets.s3dis as ts3
         import ponderv2_tpu_torch.datasets.scannet as tsc
-        import ponderv2_tpu_torch.datasets.structure3d as tst
         import ponderv2_tpu_torch.utils.cache as tcache
         import ponderv2_tpu_torch.datasets.ppt_vocab as tvocab
         import ponderv2_tpu_torch.datasets.preprocessing.scannet200_constants as tsc200
@@ -199,7 +197,10 @@ class TestTrainDataPath:
             (jtr, ttr, ["Add"]),
             (jsc, tsc, ["ScanNetDataset", "ScanNet200Dataset"]),
             (js3, ts3, ["S3DISDataset"]),
-            (jst, tst, ["Structured3DDataset"]),
+            # the multi-dataset pretrain's; S3DISRGBDDataset, Structured3DDataset
+            # and Structured3DRGBDDataset differ from the JAX ones where those
+            # fail (tests/test_torch_multidataset.py)
+            (jsc, tsc, ["ScanNetRGBDDataset"]),
         ]
         for jmod, tmod, names in copies:
             for name in names:
@@ -520,12 +521,13 @@ import ponderv2_tpu_torch.models.point_prompt_training.ppt
 import ponderv2_tpu_torch.models.sparse_unet.spunet_pdnorm
 import ponderv2_tpu_torch.datasets.scannet, ponderv2_tpu_torch.datasets.s3dis
 import ponderv2_tpu_torch.datasets.structure3d, ponderv2_tpu_torch.utils.cache
+import ponderv2_tpu_torch.datasets.dataloader
 import ponderv2_tpu_torch.utils.clip_text
 import ponderv2_tpu_torch.utils.convert
 sys.path.insert(0, root + "/tools/experiments")
 import chip_smoke, probe_windowed_torch, test_torch, train_torch
 import probe_bisect_torch, probe_gather_torch, profile_pretrain_torch, profile_semseg_torch
-import ppt_grads_torch
+import ppt_grads_torch, multi_pretrain_torch
 from ponderv2_tpu_torch.datasets import build_dataset, collate_fn
 from ponderv2_tpu_torch.models import build_model
 from ponderv2_tpu_torch.utils.config import Config
@@ -596,6 +598,25 @@ for name in ("scannet/semseg-ppt-v1m1-0-sc-s3-st-spunet-lovasz-ft.py",
     assert rout["seg_logits"].shape == (2048, rcfg.data.num_classes)
     assert bool(rout["contract_ok"]) and bool(torch.isfinite(rout["loss"]))
 shutil.rmtree(data_root)
+
+# the multi-dataset pretrain: its three RGB-D datasets over scene files in
+# their layouts, one round of its loader, its trainer
+from ponderv2_tpu_torch.datasets.dataloader import MultiDatasetDataloader
+from ponderv2_tpu_torch.engines.train import TRAINERS
+assert "MultiDatasetTrainer" in TRAINERS
+data_root = tempfile.mkdtemp()
+roots = chip_smoke.write_multidataset_scenes(
+    data_root, counts={"Structured3D": 2, "ScanNet": 1, "S3DIS": 1}, points=500, views=2,
+    hw=(12, 16))
+mcfg = Config.fromfile(chip_smoke.MULTI_CONFIG)
+mcfg.merge_from_dict({k: v for k, v in chip_smoke.multi_pretrain_options(roots, data_root).items()
+                      if k.startswith("data.")})
+mcfg.merge_from_dict({f"data.train.datasets.{i}.num_cameras": 2 for i in range(3)})
+loader = MultiDatasetDataloader(build_dataset(dict(mcfg.data.train)), batch_size_per_dataset=1,
+                                point_budget=2048)
+assert len(loader) == 4
+assert [b["condition"] for b in loader] == [[c] for c in chip_smoke.MULTI_ORDER]
+shutil.rmtree(data_root)
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("NO_JAX_OK")
 """
@@ -604,14 +625,16 @@ print("NO_JAX_OK")
 def test_port_imports_and_runs_without_jax():
     """``ponderv2_tpu_torch``, ``chip_smoke.py``, ``tools/test_torch.py``,
     ``tools/train_torch.py``, the two profilers, the probe entry points
-    ``tools/experiments/probe_{windowed,gather,bisect}_torch.py`` and
-    ``tools/experiments/ppt_grads_torch.py`` import,
+    ``tools/experiments/probe_{windowed,gather,bisect}_torch.py``,
+    ``tools/experiments/ppt_grads_torch.py`` and
+    ``tools/experiments/multi_pretrain_torch.py`` import,
     the pretrain configs load, a segmentor forward and a PonderIndoor-v2
     training step's forward and backward run on the CPU, and the three PPT
     fine-tune recipes build their datasets (over scene files) and models,
-    the ScanNet one running a training forward and backward, with
-    jax/jaxlib/flax/optax/ponderv2_tpu blocked; no port source names them in
-    an import statement."""
+    the ScanNet one running a training forward and backward, and the
+    multi-dataset pretrain's datasets and loader run one round over scene
+    files, with jax/jaxlib/flax/optax/ponderv2_tpu blocked; no port source
+    names them in an import statement."""
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT_CHECK, ROOT],
         capture_output=True, text=True, timeout=300, cwd=ROOT)
@@ -625,6 +648,7 @@ def test_port_imports_and_runs_without_jax():
                os.path.join(ROOT, "tools", "experiments", "probe_gather_torch.py"),
                os.path.join(ROOT, "tools", "experiments", "probe_bisect_torch.py"),
                os.path.join(ROOT, "tools", "experiments", "ppt_grads_torch.py"),
+               os.path.join(ROOT, "tools", "experiments", "multi_pretrain_torch.py"),
                os.path.join(ROOT, "tools", "profile_pretrain_torch.py"),
                os.path.join(ROOT, "tools", "profile_semseg_torch.py"),
                os.path.join(ROOT, "configs", "_test_", "pretrain_bench_torch.py")]

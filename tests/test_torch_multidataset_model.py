@@ -1,0 +1,179 @@
+"""PyTorch port vs JAX package: PonderIndoor-v2 with the multi-dataset
+pretrain's three conditions.
+
+The model of ``configs/_test_/pretrain_synthetic.py`` (test widths) with
+the multi-dataset config's conditions (Structured3D, ScanNet, S3DIS), its
+36-name class vocabulary with each condition's ``valid_index`` subset, and
+its PPT loss weight 1.0, on ``test_torch_pretrain_step.py``'s batch and
+seeded weights (carried to JAX by ``convert_ponder_indoor`` and back by
+``state_dict_from_jax_ponder_indoor``):
+
+- per condition, the loss and its terms of one training forward against
+  JAX ``model.apply`` with ``condition`` in the input (Structured3D,
+  ScanNet), or against the step's metrics (S3DIS), 1e-3 relative;
+- one SGD step at "S3DIS" against ``make_train_step`` with ``condition`` in
+  its ``static_ctx``: every grad within 1e-2 of its max|ref| and every
+  parameter's and running statistic's update within 1e-2 of its max|ref
+  update|, the tolerances and floors of ``test_torch_pretrain_step.py``
+  (whose docstring says why the whole step is held that loosely).
+
+The JAX backbone runs with ``remat=False`` (ROADMAP Queue 3).
+"""
+
+import os
+import sys
+from types import SimpleNamespace
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import optax
+import pytest
+import torch
+
+from ponderv2_tpu.engines.train import TrainState, make_train_step
+from ponderv2_tpu.models import build_model as jbuild
+from ponderv2_tpu.utils.optimizer import build_optimizer as jbuild_optimizer
+from ponderv2_tpu.utils.scheduler import build_scheduler as jbuild_scheduler
+from ponderv2_tpu_torch.datasets.ppt_vocab import PPT_CLASS_NAMES, PPT_VALID_INDEX
+from ponderv2_tpu_torch.models import build_model as tbuild
+from ponderv2_tpu_torch.utils.convert import state_dict_from_jax_ponder_indoor
+from ponderv2_tpu_torch.utils.optimizer import build_optimizer, set_lr
+from ponderv2_tpu_torch.utils.scheduler import build_scheduler
+from test_torch_pretrain_step import (CFG, GRAD_REL, LOSS_REL, SEED, assert_rel,
+                                      port_draws, pretrain_batch, seeded_state_dict)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+from convert_torch_checkpoint import convert_ponder_indoor  # noqa: E402
+
+CONDITIONS = ("Structured3D", "ScanNet", "S3DIS")
+MODEL = dict(CFG.model, conditions=CONDITIONS, class_name=PPT_CLASS_NAMES,
+             valid_index=PPT_VALID_INDEX, ppt_loss_weight=1.0)
+TERMS = ("loss", "ppt_loss") + tuple(CFG.metric_keys)
+TOTAL_STEPS = 10
+
+
+@pytest.fixture(autouse=True)
+def _torch_state():
+    dtype, threads = torch.get_default_dtype(), torch.get_num_threads()
+    torch.set_default_dtype(torch.float32)
+    torch.set_num_threads(2)
+    yield
+    torch.set_default_dtype(dtype)
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    """The seeded weights, the JAX forward's loss terms at Structured3D and
+    ScanNet, and one JAX train step at S3DIS: its metrics, grads and the
+    state after it, in the port's names."""
+    arrays = pretrain_batch()
+    ctx = dict(spatial_shape=tuple(CFG.sparse_shape), batch_size=2)
+    channels, layers = CFG.model.backbone.channels, CFG.model.backbone.layers
+    levels = CFG.model.projection.num_levels
+    model = tbuild(dict(MODEL))
+    init = seeded_state_dict(model)
+    params, stats, constants = convert_ponder_indoor(init, channels, layers, levels)
+    jmodel = jbuild(dict(MODEL, backbone=dict(MODEL["backbone"], remat=False)))
+    variables = jax.tree.map(jnp.asarray, {"params": params, "batch_stats": stats,
+                                           "constants": constants})
+    jarr = {k: jnp.asarray(v) for k, v in arrays.items()}
+    key = jax.random.fold_in(jax.random.PRNGKey(SEED), 0)  # the train step's at step 0
+    terms = {}
+    for cond in CONDITIONS[:2]:
+        fwd = jax.jit(lambda v, a, rng, cond=cond: jmodel.apply(
+            v, {**a, **ctx, "condition": cond, "rng": rng}, train=True,
+            mutable=["batch_stats", "diagnostics"])[0])
+        out = fwd(variables, jarr, key)
+        terms[cond] = {k: float(out[k]) for k in TERMS}
+
+    capture = optax.GradientTransformation(
+        lambda p: jax.tree.map(jnp.zeros_like, p), lambda g, s, p=None: (g, g))
+    schedule = jbuild_scheduler(dict(CFG.scheduler), TOTAL_STEPS)
+    jparams = jax.tree.map(jnp.asarray, params)
+    tx = optax.chain(capture, jbuild_optimizer(dict(CFG.optimizer), jparams, schedule))
+    state = TrainState(step=jnp.zeros((), jnp.int32), params=jparams,
+                       batch_stats=jax.tree.map(jnp.asarray, stats),
+                       opt_state=tx.init(jparams),
+                       constants=jax.tree.map(jnp.asarray, constants))
+    step = make_train_step(jmodel, tx, schedule, {**ctx, "condition": "S3DIS"},
+                           metric_keys=TERMS[1:], rng_seed=SEED)
+    state, metrics = step(state, jarr)
+    terms["S3DIS"] = {k: float(metrics[k]) for k in TERMS}
+
+    def to_port(p, s):
+        return state_dict_from_jax_ponder_indoor(
+            jax.device_get({"params": p, "batch_stats": s, "constants": constants}),
+            channels, layers, levels)
+
+    return SimpleNamespace(arrays=arrays, ctx=ctx, init=init, key=key, terms=terms,
+                           lr=float(metrics["lr"]), contract_ok=float(metrics["contract_ok"]),
+                           grads=to_port(state.opt_state[0], stats),
+                           after=to_port(state.params, state.batch_stats))
+
+
+def port_forward(model, run, condition):
+    B, V, H, W = run.arrays["depth"].shape
+    inputs = {k: torch.from_numpy(v) for k, v in run.arrays.items()}
+    return model({**inputs, **run.ctx, "condition": condition,
+                  "draws": port_draws(model, run.key, B, V, H * W)})
+
+
+@pytest.mark.parametrize("condition", CONDITIONS)
+def test_loss_terms_per_condition_match_jax(jax_run, condition):
+    """Each condition's loss and terms (its ``valid_index`` rows of the 36
+    class embeddings in the semantic and PPT losses) against JAX; the
+    conditions' PPT losses differ, so the subset is taken."""
+    model = tbuild(dict(MODEL))
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in jax_run.init.items()})
+    model.train()
+    ci = CONDITIONS.index(condition)
+    assert model.class_embedding.shape[0] == 36
+    assert len(model.valid_index[ci]) == (25, 20, 13)[ci]
+    with torch.no_grad():
+        out = port_forward(model, jax_run, condition)
+    for k in TERMS:
+        assert_rel(float(out[k]), jax_run.terms[condition][k], LOSS_REL, f"{condition} {k}")
+    ppt = [jax_run.terms[c]["ppt_loss"] for c in CONDITIONS]
+    assert len(set(ppt)) == 3
+
+
+def test_sgd_step_at_s3dis_matches_jax_train_step(jax_run):
+    """One SGD step at "S3DIS": the lr, every grad, and every parameter's
+    and running statistic's update against ``make_train_step``."""
+    model = tbuild(dict(MODEL))
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in jax_run.init.items()})
+    model.train()
+    opt = build_optimizer(dict(CFG.optimizer), model)
+    tsched = build_scheduler(dict(CFG.scheduler), TOTAL_STEPS)
+    set_lr(opt, tsched(0))
+    assert tsched(0) == pytest.approx(jax_run.lr, rel=1e-6)
+    out = port_forward(model, jax_run, "S3DIS")
+    out["loss"].backward()
+    assert bool(out["contract_ok"]) and jax_run.contract_ok == 1.0
+    failures = []
+
+    def check(*args, **kw):
+        try:
+            assert_rel(*args, **kw)
+        except AssertionError as e:
+            failures.append(str(e).splitlines()[0])
+
+    grads = {n: p.grad.numpy() for n, p in model.named_parameters()}
+    top = max(np.abs(jax_run.grads[n]).max() for n in grads)
+    for name, g in grads.items():
+        floor = top if np.abs(jax_run.grads[name]).max() < GRAD_REL * top else None
+        check(g, jax_run.grads[name], GRAD_REL, f"grad {name}", scale=floor)
+    opt.step()
+    before, after = jax_run.init, jax_run.after
+    for name, v in model.state_dict().items():
+        if name == "class_embedding":
+            np.testing.assert_array_equal(v.numpy(), after[name])
+            continue
+        ref = after[name] - before[name]
+        floor = max(np.abs(ref).max(), 1e3 * np.finfo(np.float32).eps
+                    * np.abs(after[name]).max(), tsched(0) * top if name in grads else 0.0)
+        check(v.numpy() - before[name], ref, GRAD_REL, f"update {name}", scale=floor)
+    assert not failures, "\n".join(failures)

@@ -13,9 +13,13 @@ weight matmul). Each variant runs at its probe's shape on its probe's
 inputs (``RandomState(0)``, drawn as the probe draws them). It prints the
 kernel's device time with the L2 cache flushed before each call
 (``probe_windowed_torch.measure``) beside its plain version's,
-the library call's where one PyTorch call computes the same function, and
-the bound, and whether the kernel agrees with the plain version. It needs a
-CUDA device and refuses to run without one.
+the library call's where one PyTorch call computes the same function
+(``torch.cat`` for P5 ``kb``, ``torch.sum`` for ``kc2``, ``torch.mm`` for
+``kd``), and the bound, and whether the kernel agrees with the plain
+version. The window copies (P3 ``k0``, P4 A-D) sum 4 windows per block,
+which no single call does; beside them it times a floor, a slice's
+``copy_`` into an output of the same shape. It needs a CUDA device and
+refuses to run without one.
 """
 
 from __future__ import annotations
@@ -102,7 +106,8 @@ def p3_variants(device):
     return [
         Variant("P3 k0 window-copy", f"{BISECT}:68", pk.WINDOW_COPY_SUM,
                 _pair(pk.window_copy_sum, pk.window_copy_sum_plain, x, w0, WB, B),
-                "exact", window + out_bytes, float(k3 * N * C), PEAK_F32),
+                "exact", window + out_bytes, float(k3 * N * C), PEAK_F32,
+                floor=slice_copy(x)),
         Variant("P3 k1 onehot-lo", f"{BISECT}:78", rg.GATHER_SUM,
                 _pair(rg.window_gather_sum, rg.window_gather_sum_plain, x, rb, w0, B, WB),
                 "exact", gathered + 4 * (rb.numel() + w0.numel()) + out_bytes,
@@ -112,6 +117,16 @@ def p3_variants(device):
                 "rel", moved_bytes(geom, C, C, rows_read(geom, WB), torch.bfloat16),
                 2.0 * live_entries(geom, WB) * C * C, PEAK_BF16),
     ]
+
+
+def slice_copy(x):
+    """A window copy's floor: ``copy_`` of the first ``N`` rows of ``x``
+    into an (N, C) f32 output, one window read per block instead of 4
+    summed."""
+    import torch
+
+    out = torch.empty((N, C), dtype=torch.float32, device=x.device)
+    return "a slice's copy_ to the (N, C) f32 output", lambda: out.copy_(x[:N])
 
 
 def p4_variants(device):
@@ -140,7 +155,7 @@ def p4_variants(device):
         out.append(Variant(f"P4 {label}", f"{BISECT2}:{line}", pk.WINDOW_COPY_SUM,
                            _pair(pk.window_copy_sum, pk.window_copy_sum_plain, x, table,
                                  WB, B, extra),
-                           "exact", moved, float(adds), PEAK_F32))
+                           "exact", moved, float(adds), PEAK_F32, floor=slice_copy(x)))
     return out
 
 
@@ -156,13 +171,16 @@ def p5_variants(device):
     rb = torch.from_numpy(rb).to(device)
     w = torch.from_numpy(w).to(device).bfloat16()
     g = torch.from_numpy(g).to(device).bfloat16()
+    cat_out = torch.empty((b, 9 * C), dtype=torch.float32, device=device)
+    slices = [x[:, p % 8 * C:(p % 8 + 1) * C] for p in range(9)]
     return [
         Variant("P5 ka eye-transpose", f"{BISECT3}:54", pk.SLAB_SLOTS,
                 _pair(pk.slab_slots, pk.slab_slots_plain, rb), "exact",
                 4 * b + b * 8 * 4, float(2 * b), PEAK_F32),
         Variant("P5 kb lane-concat9", f"{BISECT3}:65", pk.LANE_CONCAT,
                 _pair(pk.lane_concat, pk.lane_concat_plain, x, C, 9), "exact",
-                x.numel() * 2 + b * 9 * C * 4, 0.0, PEAK_F32),
+                x.numel() * 2 + b * 9 * C * 4, 0.0, PEAK_F32,
+                lambda: torch.cat(slices, 1, out=cat_out)),
         Variant("P5 kc2 sublane-slices", f"{BISECT3}:83", pk.SUM_ROWS,
                 _pair(pk.sum_rows, pk.sum_rows_plain, rb, 9), "exact",
                 4 * 9 * b + 4 * b, float(9 * b), PEAK_F32,

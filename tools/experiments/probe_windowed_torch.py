@@ -238,7 +238,9 @@ class Variant(NamedTuple):
     ``peak`` FLOP/s; ``library`` is one PyTorch call computing the same
     function, or None. ``rows``: for a kernel on a gather-GEMM tile, the
     rows it multiplies per output column tile and the live entries, counted
-    from the geometry."""
+    from the geometry. ``floor``: (what it is, a PyTorch call) that writes
+    the same output from as many input rows but computes less, timed
+    beside as a floor where no single call computes the function."""
 
     name: str
     replaces: str
@@ -250,6 +252,7 @@ class Variant(NamedTuple):
     peak: float
     library: Optional[Callable] = None
     rows: Optional[Tuple[int, int]] = None
+    floor: Optional[Tuple[str, Callable]] = None
 
 
 def agree(out, ref, tol):
@@ -328,7 +331,8 @@ def measure(v, out, iters):
     the kernel's device time with the L2 warm from the call before
     (``warm_ms``) and the time per call issued one by one from Python
     (``eager_ms``, ``cuda_ms``: CUDA events around ``iters`` calls after a
-    warm-up), host overhead included. A dict of those, ``agree``,
+    warm-up), host overhead included, and the floor call's device time
+    (``floor_ms``, None without one). A dict of those, ``agree``,
     ``max_abs_err``, ``bound_ms`` and ``bound_by``."""
     ok, err = agree(out, v.run(True), v.tol)
     b, term = bound_of(v.moved, v.flops, v.peak)
@@ -339,7 +343,8 @@ def measure(v, out, iters):
     return {"agree": ok, "max_abs_err": err, "ms": device["kernel"],
             "plain_ms": device["plain"], "library_ms": device["library"],
             "bound_ms": b, "bound_by": term,
-            "warm_ms": graph_ms(calls["kernel"], iters, cold=False), "eager_ms": eager}
+            "warm_ms": graph_ms(calls["kernel"], iters, cold=False), "eager_ms": eager,
+            "floor_ms": graph_ms(v.floor[1], iters) if v.floor else None}
 
 
 def report(v, m):
@@ -356,7 +361,9 @@ def report(v, m):
             + "; per eager call " + " / ".join(ms(m["eager_ms"], k) for k in dev)
             + f"; bound {m['bound_ms']:.3e} ms ({m['bound_by']})"
             + ("" if v.rows is None else f"; rows multiplied {v.rows[0]} against "
-               f"{v.rows[1]} live entries ({v.rows[0] / max(v.rows[1], 1):.2f}x)"))
+               f"{v.rows[1]} live entries ({v.rows[0] / max(v.rows[1], 1):.2f}x)")
+            + ("" if v.floor is None else f"; floor, {v.floor[0]} (not the same function): "
+               f"{m['floor_ms']:.4f} ms, L2 cold"))
 
 
 def run_variants(variants, iters):

@@ -1,9 +1,15 @@
 """Where one pretrain step's time goes, on a CUDA GPU.
 
-    python tools/profile_pretrain_torch.py [--out DIR]
+    python tools/profile_pretrain_torch.py [--out DIR] [--config CFG] [--scenes DIR]
 
-Builds the port's ``Trainer`` on ``configs/_test_/pretrain_bench_torch.py``
-(bench.py's PonderIndoor-v2 workload: batch 2, bf16) with seeded weights,
+Builds the config's trainer (``cfg.train.type``; by default on
+``configs/_test_/pretrain_bench_torch.py``, bench.py's PonderIndoor-v2
+workload: batch 2, bf16) with seeded weights.
+With ``--scenes DIR`` it first writes ``chip_smoke.py``'s phase-15 RGB-D
+scene files (Structured3D, ScanNet and S3DIS layouts) under DIR and runs
+the config with phase 15's options (data roots, one epoch, ``remat``,
+``num_worker`` for this host), for the multi-dataset pretrain
+(``configs/scannet/pretrain-ponder-ppt-v1m1-0-sc-s3-st-spunet.py``). It
 takes the loader's first batch, runs 2 warm-up steps on it, then prints (as
 one JSON line) the host-clock median of 3 steps (batch to device ..
 ``loss.backward()``, SGD step, synchronised), the peak memory, and from a
@@ -34,22 +40,32 @@ BAND_KERNELS = {"K1": "band_fwd_kernel", "K2": "band_dxdw_kernel", "K3": "band_d
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="directory for table + trace")
+    ap.add_argument("--config", default=os.path.join(ROOT, "configs/_test_/pretrain_bench_torch.py"))
+    ap.add_argument("--scenes", metavar="DIR", default=None,
+                    help="write chip_smoke.py's phase-15 scene files here and train on them")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_pretrain_torch: needs a CUDA GPU")
     from ponderv2_tpu_torch.engines.defaults import default_config_parser
-    from ponderv2_tpu_torch.engines.train import Trainer
+    from ponderv2_tpu_torch.engines.train import TRAINERS
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = default_config_parser(
-        os.path.join(ROOT, "configs/_test_/pretrain_bench_torch.py"),
-        {"save_path": tempfile.mkdtemp(prefix="profile_pretrain_"), "seed": 0,
-         "device": "cuda", "hooks": []})
-    trainer = Trainer(cfg)
+    save_path = tempfile.mkdtemp(prefix="profile_pretrain_")
+    options = {}
+    if args.scenes:
+        import chip_smoke
+
+        cpus = os.cpu_count()
+        options = chip_smoke.multi_pretrain_options(
+            chip_smoke.write_multidataset_scenes(args.scenes), save_path,
+            None if cpus >= 3 * 24 else max(1, cpus // 3))
+    options.update({"save_path": save_path, "seed": 0, "device": "cuda", "hooks": []})
+    cfg = default_config_parser(args.config, options)
+    trainer = TRAINERS.build(dict(type=cfg.get("train", {}).get("type", "Trainer"), cfg=cfg))
     trainer.comm_info["input_dict"] = next(iter(trainer.train_loader))
 
     def step():

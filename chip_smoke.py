@@ -3,13 +3,14 @@
 kernels and the probe kernels, check them, serve ScanNet-scale scenes,
 train SpUNet-v1m1 at ScanNet's batch, pretrain PonderIndoor-v2 at bench.py's
 workload, run every probe kernel at its probe's shape, train and serve the
-PPT fine-tune recipe from scene files, and run the paper's multi-dataset
-pretrain from RGB-D scene files.
+PPT fine-tune recipe from scene files, run the paper's multi-dataset
+pretrain from RGB-D scene files, and train and evaluate its instance
+segmentation recipe from scene files with instance labels.
 
     python3 chip_smoke.py [--parent-log LOG]
 
-Needs one CUDA GPU (Hopper: the kernels are built for sm_90a) and runs in
-phases; any failure exits non-zero:
+Needs one CUDA GPU (Hopper: the kernels are built for sm_90a) and the
+repo around it, and runs in phases; any failure exits non-zero:
 
 1. print the card's name and power limit; refuse to run without CUDA;
 2. build every kernel with nvcc, one process per source in parallel: K1
@@ -33,8 +34,9 @@ phases; any failure exits non-zero:
    width; check K1's launch count, every ``contract_ok`` and the logits;
 5. run one fragment again with K1 replaced by its plain version and compare
    the logits;
-6. train ``configs/_test_/semseg_spunet_scannet_synthetic_train.py``
-   through ``tools/train_torch.py:main_worker``: 3 steps of 12 scenes
+6. train ``configs/_test_/semseg_spunet_scannet_synthetic_train.py`` (the
+   backbone's ``remat`` off) through ``tools/train_torch.py:main_worker``:
+   3 steps of 12 scenes
    (1,572,864-row budget) at full width and depth, then one SemSegEvaluator
    pass; check every step's loss, ``contract_ok``, lr and K1/K2/K3 launch
    counts against the routing, and that the checkpoint loads;
@@ -116,9 +118,9 @@ phases; any failure exits non-zero:
     v1m1-0-sc-s3-st-spunet.py``: PonderIndoor-v2 over SpUNet-v1m1 with
     three conditions, MultiDatasetTrainer, batch 8, f32) on them, changing
     only its data roots, epochs (one round: 4 steps), save path and, on a
-    host with fewer than 72 CPUs, ``num_worker``, with the backbone's
-    ``remat`` on (the JAX default; the step does not fit in 80 GB without
-    it, and the backward runs each band conv's K1 again): check the 4 steps and
+    host with fewer than 72 CPUs, ``num_worker`` (the backbone's ``remat``
+    is on, its default: the step does not fit in 80 GB without it, and the
+    backward runs each band conv's K1 again): check the 4 steps and
     ``len(train_loader)``, the conditions that reached the model in order
     (Structured3D, Structured3D, ScanNet, S3DIS) and the class subset each
     used, the lr against OneCycle over 4 steps, every loss term and
@@ -127,7 +129,22 @@ phases; any failure exits non-zero:
     in 7, hold every K1-K3 call of a step against float64 as in 14, and
     one step's grads from the seeded state as in 8 (if that bound fails,
     as in 14);
-16. print times and peak memory, a JSON line of the kernels, and last
+16. write 36 + 4 of SyntheticDataset's 100k-point scenes in ScanNet's
+    layout, each box an instance (``scene_instance_ids``), and run the
+    paper's instance-segmentation recipe (``configs/scannet/insseg-ppt-v1m1-
+    0-pointgroup-spunet-ft.py``: PG-v1m1 over PPT-v1m1 in backbone_mode over
+    SpUNet-v1m3, batch 12, f32) on them, changing only its data roots,
+    epochs (3 steps and one evaluation), weight and save path: train through
+    ``tools/train_torch.py:main_worker`` with the checks of 14 and each
+    step's time, data wait, peak memory, live rows and loss terms; the
+    recipe's ``InsSegEvaluator`` over the 4 val scenes (each scene's
+    forward, host clustering, proposals and AP times; its mAP re-scored from
+    its own proposals; the native clustering's calls); the ground truth as
+    predictions (the neighbour cap with the full offset, mAP50 1.0 with half
+    of it); the native clustering against its plain version; K1-K3 against
+    their plain versions at the first batch's convs as in 7, and the seeded
+    first batch's grads as in 15;
+17. print times and peak memory, a JSON line of the kernels, and last
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -162,6 +179,15 @@ MULTI_ORDER = ["Structured3D", "Structured3D", "ScanNet", "S3DIS"]
 MULTI_VIEWS = 6  # per room; the config picks 5
 MULTI_VIEW_HW = (480, 640)
 S3DIS_TRAIN_AREAS = ("Area_1", "Area_2", "Area_3", "Area_4", "Area_6")
+# the paper's ScanNet instance-segmentation recipe (PG-v1m1 over PPT-v1m1 in
+# backbone_mode over SpUNet-v1m3), run on 36 + 4 scenes written in ScanNet's
+# layout with one instance per box
+INSSEG_CONFIG = os.path.join(ROOT, "configs/scannet/insseg-ppt-v1m1-0-pointgroup-spunet-ft.py")
+INSSEG_TRAIN_SCENES, INSSEG_VAL_SCENES = 36, 4
+INSSEG_TERMS = ("seg_loss", "bias_l1_loss", "bias_cosine_loss")
+# the plain (numpy) clustering runs on the trained model's val scene only
+# below this many neighbour pairs (its Python BFS visits each)
+INSSEG_PLAIN_PAIRS = 5_000_000
 SEED = 0
 # band convs per forward of SpUNet-v1m1 at ScanNet's sparse_shape, from the
 # routing (models/sparse_unet/layers.py:subm_route): L0 runs the last decoder
@@ -500,7 +526,8 @@ def step_probe(records):
         forward of the model was given and the loss terms it returned."""
 
         def before_train(self):
-            model = self.trainer.model
+            trainer = self.trainer
+            model = trainer.model
             records["running_before"] = {k: v.detach().clone() for k, v
                                          in model.state_dict().items() if "running" in k}
             model.register_forward_pre_hook(
@@ -508,12 +535,41 @@ def step_probe(records):
             model.register_forward_hook(lambda module, args, out: records.setdefault(
                 "terms", []).append({k: v.detach() for k, v in out.items()
                                      if k.endswith("loss") and torch.is_tensor(v)}))
+            if "val" in records:
+                # each val batch, its forward's output and seconds, and the
+                # seconds and proposals of each host clustering
+                eval_step, propose = trainer.eval_step, model.propose_instances
+
+                def timed_eval_step(input_dict):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    out = eval_step(input_dict)
+                    torch.cuda.synchronize()
+                    records["val"].append(dict(batch=input_dict, out=out,
+                                               seconds=time.perf_counter() - t))
+                    return out
+
+                def timed_propose(*args):
+                    t = time.perf_counter()
+                    proposals = propose(*args)
+                    records["val"][-1].update(proposals=proposals,
+                                              cluster_s=time.perf_counter() - t)
+                    return proposals
+
+                trainer.eval_step = timed_eval_step
+                model.propose_instances = timed_propose
 
         def before_step(self):
             self.before = [k.launches for k in bc.KERNELS + wg.KERNELS]
+            if "peaks" in records:  # each step's own peak, the run's kept apart
+                records["peak_floor"] = max(records.get("peak_floor", 0),
+                                            torch.cuda.max_memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
 
         def after_step(self):
             trainer = self.trainer
+            if "peaks" in records:
+                records["peaks"].append(torch.cuda.max_memory_allocated())
             metrics = trainer.sync_metrics()
             metrics["launches"] = [k.launches - b for k, b
                                    in zip(bc.KERNELS + wg.KERNELS, self.before)]
@@ -670,6 +726,18 @@ def float64_step_grads(gmodel, inputs):
     return loss, grads, peak
 
 
+def tightest_margins_line(tag, margins, rho, reference, k=3):
+    """The ``[grad]`` line of the ``k`` gradients closest to their bound,
+    the tightest first. ``margins``: (err / bound, name, against, err,
+    max|ref|, difference of the plain path) per gradient and reference."""
+    tightest = sorted(margins, reverse=True)[:k]
+    return (f"[grad] {tag}: the {len(tightest)} grads closest to their bound, tightest "
+            f"first (err / (grad_rel x max|ref| + 3 x {rho:.3f} x {reference} difference "
+            f"of the plain path)): " + "; ".join(
+                f"{name} vs {against} {m:.3f} (err {e:.3e}, max|ref| {sc:.3e}, {reference} "
+                f"{sp:.3e})" for m, name, against, e, sc, sp in tightest))
+
+
 def grads_kernel_vs_plain(tag, gmodel, inputs, expect, loss_rel, grad_rel,
                           loss_spread, reference="reordered"):
     """Two runs of each path, and one reference run that measures the f32
@@ -746,12 +814,7 @@ def grads_kernel_vs_plain(tag, gmodel, inputs, expect, loss_rel, grad_rel,
         for e, against in errs:
             margins.append((e / bound, name, against, e, scale, spread))
         rows.append((err / max(scale, 1e-30), spread / max(scale, 1e-30), name))
-    margins.sort()
-    print(f"[grad] {tag}: the 3 grads closest to their bound (err / (grad_rel x "
-          f"max|ref| + 3 x {rho:.3f} x {reference} difference of the plain path)): "
-          + "; ".join(
-              f"{name} vs {against} {m:.3f} (err {e:.3e}, max|ref| {sc:.3e}, {reference} "
-              f"{sp:.3e})" for m, name, against, e, sc, sp in margins[-3:]), flush=True)
+    print(tightest_margins_line(tag, margins, rho, reference), flush=True)
     for m, name, against, err, scale, spread in margins:
         check(m <= 1.0, f"{tag}: grad {name}: kernel vs {against} {err:.3e} > {grad_rel} x "
               f"{scale:.3e} + 3 x {rho:.3f} x {reference} {spread:.3e}")
@@ -770,7 +833,15 @@ def grads_kernel_vs_plain(tag, gmodel, inputs, expect, loss_rel, grad_rel,
               f"{spread:.3e} (of max|ref|)")
 
 
-def train_and_check(tag, cfg, dev):
+def spunet_of(model):
+    """The sparse U-Net under ``model``'s wrappers (segmentor, PPT, PG)."""
+    m = model.backbone
+    while not hasattr(m, "enc"):
+        m = m.backbone
+    return m
+
+
+def train_and_check(tag, cfg, dev, records=None, val_metric="val/mIoU"):
     """Train ``cfg`` (3 steps and its evaluations) through
     ``tools/train_torch.py:main_worker`` with a ``step_probe`` hook, the
     K1-K5 counts set to 0 first, and check what each such run must show:
@@ -783,7 +854,9 @@ def train_and_check(tag, cfg, dev):
     ``model``, the probe's ``records``, the first batch's model inputs
     ``b_inputs`` (with its ``condition``) and sparse tensor ``st``, its
     plans and routing, the checkpoint's ``state``, ``launches``,
-    ``peak_gib`` and ``step_ms``."""
+    ``peak_gib`` and ``step_ms``. ``records`` may ask the probe for more
+    (``step_probe``; ``"peaks": []`` each step's peak memory); ``val_metric``
+    is the evaluation's storage key to print."""
     from types import SimpleNamespace
 
     import numpy as np
@@ -799,7 +872,7 @@ def train_and_check(tag, cfg, dev):
     from ponderv2_tpu_torch.ops.spconv import SubmPlan
     from train_torch import main_worker
 
-    records = {"steps": [], "conditions": []}
+    records = records if records is not None else {"steps": [], "conditions": []}
     cfg.hooks = list(cfg.hooks) + [dict(type=step_probe(records))]
     torch.cuda.reset_peak_memory_stats(dev)
     for k in bc.KERNELS + wg.KERNELS:
@@ -809,7 +882,8 @@ def train_and_check(tag, cfg, dev):
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = [k.launches for k in bc.KERNELS]
-    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    peak_gib = max(torch.cuda.max_memory_allocated(dev), records.get("peak_floor", 0),
+                   *records.get("peaks", [])) / 2 ** 30
     steps = records["steps"]
     n_val = len(trainer.val_loader)
     model = trainer.model
@@ -824,7 +898,7 @@ def train_and_check(tag, cfg, dev):
                               static)
     b_inputs.update(trainer.static_ctx)
     st, _ = maybe_sort_by_key(batch_to_sparse_tensor(b_inputs))
-    spunet = model.backbone
+    spunet = spunet_of(model)
     level_rb, level_coords, _ = level_plans(spunet, st)
     convs, fused, per_step = band_routing(spunet, level_rb)
     n_band = sum(convs.values())
@@ -856,9 +930,9 @@ def train_and_check(tag, cfg, dev):
           f"{tag}: the checkpoint does not hold the trained state")
     batch_times = [v for v, _ in trainer.storage.history("batch_time").values()]
     data_times = [v for v, _ in trainer.storage.history("data_time").values()]
-    val_miou = trainer.storage.history("val/mIoU").latest()
+    val_value = trainer.storage.history(val_metric).latest()
     print(f"[{tag}] checkpoint {ckpt_path} (step {ckpt['step']}) loads into a fresh model; "
-          f"val mIoU {val_miou:.4f} (random-init weights after 3 steps)")
+          f"{val_metric} {val_value:.4f} (random-init weights after 3 steps)")
     # IterationTimer's batch_time runs from the end of one step to the end
     # of the next, so it holds the data wait; the step is the difference
     step_times = [b - d for b, d in zip(batch_times, data_times)]
@@ -871,7 +945,9 @@ def train_and_check(tag, cfg, dev):
         model=model, records=records, b_inputs=b_inputs, st=st, level_rb=level_rb,
         level_coords=level_coords, convs=convs, fused=fused, per_step=per_step,
         state=ckpt["state_dict"], launches=launches, peak_gib=peak_gib, step_ms=step_ms,
-        n_val=n_val,
+        n_val=n_val, step_times_ms=[1e3 * t for t in step_times],
+        val_scalars={k: trainer.storage.history(k).latest()
+                     for k in trainer.storage.histories() if k.startswith("val/")},
         data_ms=[1e3 * t for t in data_times], ckpt_path=ckpt_path)
     del trainer, fresh, ckpt
     gc.collect()
@@ -918,11 +994,32 @@ def serve_and_check(tag, cfg, dev):
                            peak_gib=peak_gib, seconds=seconds)
 
 
-def write_scannet_scenes(root, n_train, n_val, points=100_000):
+def scene_instance_ids(segment, points):
+    """Instance ids of a ``SyntheticDataset`` scene of ``points`` points,
+    from its layout (``make_scene``): the floor's and the wall's
+    ``points // 4`` rows each get -1; box ``b`` owns the next ``cnt`` rows
+    from ``2 * (points // 4) + b * cnt`` on (``cnt`` = the object rows / the
+    boxes) and gets id ``b``. Each box has its own class, so the boxes are
+    told apart by their labels."""
+    import numpy as np
+
+    shell = 2 * (points // 4)
+    obj = np.asarray(segment)[shell:]
+    n_boxes = len(np.unique(obj))
+    cnt = len(obj) // n_boxes
+    ids = np.arange(len(obj)) // cnt
+    check(cnt * n_boxes == len(obj) and np.array_equal(obj, obj[ids * cnt]),
+          f"scene layout: {len(obj)} object rows, {n_boxes} labels")
+    return np.concatenate([np.full(shell, -1, np.int64), ids.astype(np.int64)])
+
+
+def write_scannet_scenes(root, n_train, n_val, points=100_000, instances=False):
     """ScanNet's processed layout, the one ``ScanNetDataset`` reads:
     ``{root}/{train,val}/sceneXXXX_00.pth``, each a dict of ``coord``,
     ``color``, ``normal``, ``semantic_gt20`` and ``instance_gt``, filled with
-    the ``points``-point scenes ``SyntheticDataset`` makes from the seed."""
+    the ``points``-point scenes ``SyntheticDataset`` makes from the seed;
+    ``instance_gt`` is theirs (-1 everywhere), or with ``instances`` one id
+    per box (``scene_instance_ids``)."""
     import torch
 
     from ponderv2_tpu_torch.datasets.defaults import SyntheticDataset
@@ -932,8 +1029,10 @@ def write_scannet_scenes(root, n_train, n_val, points=100_000):
         scene = synth.make_scene(i)
         split = "train" if i < n_train else "val"
         os.makedirs(os.path.join(root, split), exist_ok=True)
+        instance = (scene_instance_ids(scene["segment"], points) if instances
+                    else scene["instance"])
         torch.save(dict(coord=scene["coord"], color=scene["color"], normal=scene["normal"],
-                        semantic_gt20=scene["segment"], instance_gt=scene["instance"]),
+                        semantic_gt20=scene["segment"], instance_gt=instance),
                    os.path.join(root, split, f"scene{i:04d}_00.pth"))
 
 
@@ -1146,17 +1245,15 @@ def multi_pretrain_options(roots, save_path, num_worker=None):
     """What a run of ``MULTI_CONFIG`` on the scenes of
     ``write_multidataset_scenes`` changes: the data roots, one epoch
     (``epoch`` = ``eval_epoch`` = 1: one round of 4 batches), the save path
-    and, where given, ``num_worker``; and the backbone's ``remat`` on, the
-    JAX package's default, which the port's SpUNet-v1m1 leaves off (without
-    it the first step runs out of the H100's 80 GB). Model widths,
-    conditions, transforms, batch, point budget, dtype, optimizer and
-    schedule stay the config's."""
+    and, where given, ``num_worker``. Model widths, conditions, transforms,
+    batch, point budget, dtype, optimizer and schedule stay the config's,
+    the backbone's ``remat`` too (on by default, as in the JAX package;
+    without it the first step runs out of the H100's 80 GB)."""
     opts = {"data.train.datasets.0.data_root": roots["structured3d"],
             "data.train.datasets.1.data_root": roots["scannet"],
             "data.train.datasets.1.rgbd_root": roots["scannet_rgbd"],
             "data.train.datasets.2.data_root": roots["s3dis"],
-            "epoch": 1, "eval_epoch": 1, "save_path": save_path,
-            "model.backbone.remat": True}
+            "epoch": 1, "eval_epoch": 1, "save_path": save_path}
     if num_worker is not None:
         opts["num_worker"] = num_worker
     return opts
@@ -1313,6 +1410,246 @@ def multi_pretrain_phase(dev, tmp, gen, stats):
             "data_ms": data_ms, "grads_bound": holds}
 
 
+def insseg_recipe_options(data_root, save_path):
+    """What a run of ``INSSEG_CONFIG`` on scenes under ``data_root``
+    changes: the data roots, one epoch with one evaluation (3 steps of the 36
+    train scenes, then the 4 val scenes), no pretrained weight (the recipe's
+    checkpoint is not in the repo) and the save path. Model, criteria,
+    optimizer, scheduler, transforms, batch, point budgets and
+    ``num_worker`` stay the recipe's."""
+    return {"data.train.data_root": data_root, "data.val.data_root": data_root,
+            "epoch": 1, "eval_epoch": 1, "weight": None, "save_path": save_path}
+
+
+def oracle_predictions(batch, num_classes, shrink):
+    """A val batch's ground truth as a model's output: one-hot logits of
+    ``segment``, and offsets that move each instance's rows ``shrink`` of
+    the way to its centroid (``shrink`` x (``instance_centroid`` - ``coord``)
+    on rows of an instance, 0 elsewhere)."""
+    import numpy as np
+
+    seg = np.asarray(batch["segment"])
+    logits = np.zeros((len(seg), num_classes), np.float32)
+    rows = np.nonzero(seg >= 0)[0]
+    logits[rows, seg[rows]] = 1.0
+    coord = np.asarray(batch["coord"], np.float32)
+    gt_bias = np.asarray(batch["instance_centroid"], np.float32) - coord
+    bias = np.where((np.asarray(batch["instance"]) >= 0)[:, None],
+                    np.float32(shrink) * gt_bias, np.float32(0))
+    return logits, bias
+
+
+def insseg_oracle(model, val_batches, num_classes, segment_ignore):
+    """The clustering and the AP matching on the val batches with the ground
+    truth as predictions (``oracle_predictions``). With the full offset
+    every row of an instance lands on its centroid, so each row's neighbour
+    list is the instance's first ``NEIGHBOR_CAP`` rows and the BFS reaches
+    those only: each proposal must be exactly those rows of one instance
+    (on the first batch: the native BFS checks every pair of an instance's
+    rows, ~1e8 for each of these instances). With half the offset the rows
+    stay apart and each instance is one proposal: mAP50 must be 1.0 over
+    all batches. Returns ({shrink: AP result}, the half offset's inputs of
+    the first scene for the native-vs-plain check)."""
+    import numpy as np
+
+    from ponderv2_tpu_torch.engines.hooks.evaluator import evaluate_instance_ap, split_scenes
+    from ponderv2_tpu_torch.models.point_group.cluster import NEIGHBOR_CAP
+
+    results, first = {}, None
+    for shrink in (1.0, 0.5):
+        preds, gts, n_props, n_capped = [], [], 0, 0
+        for batch in val_batches[:1] if shrink == 1.0 else val_batches:
+            logits, bias = oracle_predictions(batch, num_classes, shrink)
+            coord, rows = np.asarray(batch["coord"], np.float32), np.asarray(batch["batch"])
+            proposals = model.propose_instances(coord, logits, bias, rows)
+            if shrink == 1.0:
+                inst = np.where(rows >= 0, np.asarray(batch["instance"]), -1)
+                for p in proposals:
+                    owner = inst[np.argmax(p["mask"])]
+                    members = np.nonzero(inst == owner)[0]
+                    want = np.zeros(len(inst), bool)
+                    want[members[:NEIGHBOR_CAP]] = True
+                    check(owner >= 0 and np.array_equal(p["mask"], want),
+                          f"insseg oracle (full offset): a proposal of {int(p['mask'].sum())} "
+                          f"rows is not the first {NEIGHBOR_CAP} of instance {owner} "
+                          f"({len(members)} rows)")
+                    n_capped += len(members) > NEIGHBOR_CAP
+            elif first is None:
+                valid = (rows == rows[rows >= 0].min()) & ~np.isin(
+                    logits.argmax(-1), segment_ignore)
+                first = ((coord + bias)[valid], logits.argmax(-1)[valid])
+            p_, g_ = split_scenes(batch, proposals)
+            preds += p_
+            gts += g_
+            n_props += len(proposals)
+        res = evaluate_instance_ap(preds, gts, num_classes, segment_ignore)
+        results[shrink] = res
+        print(f"[insseg] oracle ({shrink:g} x the offset to the centroid): {n_props} "
+              f"proposals over {len(gts)} scenes; mAP / mAP50 / mAP25 {res['mAP']:.4f} / "
+              f"{res['mAP50']:.4f} / {res['mAP25']:.4f}"
+              + (f"; {n_capped} proposals cut to the first {NEIGHBOR_CAP} rows of an "
+                 "instance of more (the neighbour cap)" if shrink == 1.0 else ""))
+    check(results[0.5]["mAP50"] == 1.0,
+          f"insseg oracle (half offset): mAP50 {results[0.5]['mAP50']} != 1.0")
+    return results, first
+
+
+def insseg_recipe_phase(dev, tmp, gen, stats):
+    """Phase 16: the paper's ScanNet instance-segmentation recipe from scene
+    files with instance labels. Trains 3 steps and one evaluation
+    (``train_and_check``, the ``InsSegEvaluator`` of the recipe), prints each
+    step and each val scene, checks the condition that reached the model,
+    re-scores the evaluator's proposals, holds the clustering and the AP
+    with the ground truth as predictions (``insseg_oracle``) and the native
+    clustering against its plain version, then K1-K3 (timed in f32 into
+    ``stats``) and the seeded first batch's grads against their plain
+    versions. Returns the run's launches and times."""
+    import numpy as np
+    import torch
+    from scipy.spatial import cKDTree
+
+    from ponderv2_tpu_torch.engines.defaults import default_config_parser
+    from ponderv2_tpu_torch.engines.hooks.evaluator import evaluate_instance_ap, split_scenes
+    from ponderv2_tpu_torch.models import build_model
+    from ponderv2_tpu_torch.models.point_group import cluster
+
+    data_root = os.path.join(tmp, "insseg_scannet")
+    t0 = time.perf_counter()
+    write_scannet_scenes(data_root, INSSEG_TRAIN_SCENES, INSSEG_VAL_SCENES, instances=True)
+    print(f"[insseg] wrote {INSSEG_TRAIN_SCENES} train + {INSSEG_VAL_SCENES} val scenes of "
+          f"100,000 points with one instance per box in ScanNet's layout in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- train 3 steps + one evaluation (InsSegEvaluator)
+    cfg = default_config_parser(INSSEG_CONFIG, insseg_recipe_options(
+        data_root, os.path.join(tmp, "insseg_train")))
+    cfg.seed = SEED
+    cfg.device = str(dev)
+    cluster.NATIVE.launches = 0
+    records = {"steps": [], "conditions": [], "batches": [], "peaks": [], "val": []}
+    run = train_and_check("insseg", cfg, dev, records, val_metric="val/mAP50")
+    native_launches = cluster.NATIVE.launches
+    model = run.model
+    model.__dict__.pop("propose_instances", None)  # the probe's timing wrapper
+    check(type(model).__name__ == "PointGroup" and model.backbone.backbone_mode
+          and type(model.backbone).__name__ == "PointPromptTraining",
+          f"insseg model {type(model).__name__} over {type(model.backbone).__name__}")
+    n_forwards = 3 + run.n_val
+    check(records["conditions"] == [PPT_CONDITION] * n_forwards,
+          f"insseg: conditions that reached the model {records['conditions']}")
+    for i, (m, batch) in enumerate(zip(records["steps"], records["batches"])):
+        terms = {k: float(v) for k, v in records["terms"][i].items()}
+        live = int((np.asarray(batch["batch"]) >= 0).sum())
+        print(f"[insseg] step {i}: {run.step_times_ms[i]:.1f} ms, data wait "
+              f"{run.data_ms[i]:.1f} ms, peak {records['peaks'][i] / 2 ** 30:.3f} GiB, {live} "
+              f"live rows, contract_ok {m['contract_ok']}, launches {m['launches']}; "
+              + " ".join(f"{k} {terms[k]:.6f}" for k in INSSEG_TERMS))
+        check(all(np.isfinite(terms[k]) for k in INSSEG_TERMS + ("loss",)),
+              f"insseg step {i}: loss terms {terms}")
+    print(f"[insseg] every forward ({n_forwards}) got condition {PPT_CONDITION!r}")
+    del records["batches"]
+
+    # ---- the evaluation: each val scene, and the evaluator's mAP re-scored
+    num_classes = cfg.data.num_classes
+    ignore = tuple(cfg.model.segment_ignore_index)
+    val = records["val"]
+    check(len(val) == INSSEG_VAL_SCENES == run.n_val, f"insseg: {len(val)} val forwards")
+    preds, gts, want_native = [], [], 0
+    eval_ms = {"forward": [], "cluster": [], "ap": []}
+    for j, v in enumerate(val):
+        p_, g_ = split_scenes(v["batch"], v["proposals"])
+        t = time.perf_counter()
+        res = evaluate_instance_ap(p_, g_, num_classes, ignore)
+        ap_s = time.perf_counter() - t
+        rows = np.asarray(v["batch"]["batch"])
+        classes = v["out"]["seg_logits"].argmax(-1).cpu().numpy()
+        want_native += bool((~np.isin(classes[rows >= 0], ignore)).any())
+        for key, sec in (("forward", v["seconds"]), ("cluster", v["cluster_s"]), ("ap", ap_s)):
+            eval_ms[key].append(1e3 * sec)
+        print(f"[insseg] val scene {j}: {int((rows >= 0).sum())} rows; forward "
+              f"{1e3 * v['seconds']:.1f} ms, clustering {1e3 * v['cluster_s']:.1f} ms on the "
+              f"host, {len(v['proposals'])} proposals, AP {1e3 * ap_s:.1f} ms (this scene's "
+              f"mAP50 {res['mAP50']:.4f})")
+        preds += p_
+        gts += g_
+    res = evaluate_instance_ap(preds, gts, num_classes, ignore)
+    scores = {k: run.val_scalars[f"val/{k}"] for k in ("mAP", "mAP50", "mAP25")}
+    print(f"[insseg] InsSegEvaluator over {len(gts)} val scenes: mAP / mAP50 / mAP25 "
+          f"{scores['mAP']:.4f} / {scores['mAP50']:.4f} / {scores['mAP25']:.4f} (random-init "
+          f"weights after 3 steps); native clustering calls {native_launches}")
+    check(all(np.isfinite(v) for v in scores.values())
+          and all(res[k] == v for k, v in scores.items()),
+          f"insseg: evaluator {scores}, its proposals re-scored {res}")
+    check(native_launches == want_native,
+          f"insseg: {native_launches} native clustering calls, {want_native} scenes to cluster")
+
+    # ---- the clustering and the AP on the ground truth, and native vs plain
+    oracle, (pts, classes) = insseg_oracle(model, [v["batch"] for v in val], num_classes,
+                                           ignore)
+    radius = model.cluster_thresh * model.voxel_size
+    cases = [("oracle (half offset)", pts, classes)]
+    v = val[0]
+    rows = np.asarray(v["batch"]["batch"])
+    pred = v["out"]["seg_logits"].argmax(-1).cpu().numpy()
+    sel = (rows == rows[rows >= 0].min()) & ~np.isin(pred, ignore)
+    shifted = (np.asarray(v["batch"]["coord"], np.float32)
+               + v["out"]["bias_pred"].float().cpu().numpy())[sel]
+    tree = cKDTree(shifted) if sel.any() else None
+    pairs = int(tree.count_neighbors(tree, radius)) if tree is not None else 0
+    if 0 < pairs <= INSSEG_PLAIN_PAIRS:
+        cases.append(("the trained model's", shifted, pred[sel]))
+    else:
+        print(f"[insseg] native vs plain on the trained model's val scene 0 not run: "
+              f"{pairs} neighbour pairs within the radius (plain run limit "
+              f"{INSSEG_PLAIN_PAIRS})")
+    for label, x, c in cases:
+        t = time.perf_counter()
+        ids_n, n_n = cluster.bfs_cluster(x, c, radius, model.cluster_min_points)
+        t_n = time.perf_counter() - t
+        t = time.perf_counter()
+        ids_p, n_p = cluster.bfs_cluster_plain(x, c, radius, model.cluster_min_points)
+        t_p = time.perf_counter() - t
+        check(n_n == n_p and np.array_equal(ids_n, ids_p),
+              f"insseg: native clustering vs plain on {label} val scene 0: {n_n} vs {n_p} "
+              f"clusters, {int((ids_n != ids_p).sum())} ids differ")
+        print(f"[insseg] native clustering vs plain on {label} val scene 0 ({len(x)} points): "
+              f"equal ids, {n_n} clusters; native {1e3 * t_n:.1f} ms, plain {1e3 * t_p:.1f} ms")
+    del val, records["val"], v
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- K1, K2, K3 against their plain versions at the first batch's convs
+    compare_band_kernels(run.convs, run.fused, run.level_rb, run.level_coords, gen,
+                         torch.float32, stats)
+
+    # ---- the seeded first batch's grads, kernel path against plain (phase
+    # 8's bound; if it fails, phase 14's float64 form), the heads' included
+    gmodel = build_model(dict(cfg.model))
+    gmodel.reset_parameters(torch.Generator().manual_seed(SEED))
+    gmodel.to(dev).train()
+    check({"bias_head.0.weight", "bias_head.2.weight", "seg_head.weight"}
+          <= {n for n, _ in gmodel.named_parameters()}, "insseg: the heads' parameters")
+    tag = "insseg step from the seeded state (f32)"
+    try:
+        grads_kernel_vs_plain(tag, gmodel, run.b_inputs, run.per_step, 1e-5, 1e-3, False)
+        holds = "phase 8's (reordered plain)"
+    except RuntimeError as e:
+        print(f"[grad] {tag}: phase 8's bound failed ({e}); holding it to phase 14's "
+              "float64 form", flush=True)
+        grads_kernel_vs_plain(tag, gmodel, run.b_inputs, run.per_step, 1e-5, 1e-3, False,
+                              reference="float64")
+        holds = "phase 14's (float64)"
+    print(f"[grad] {tag}: the bound that holds is {holds}")
+    out = {"train_launches": run.launches, "peak_gib": run.peak_gib,
+           "step_ms": run.step_times_ms, "data_ms": run.data_ms, "eval_ms": eval_ms,
+           "scores": scores, "oracle_mAP50": {k: r["mAP50"] for k, r in oracle.items()},
+           "grads_bound": holds}
+    del gmodel, run, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def windowed_cases(probe, dev, level_rb, stem):
     """Phase 12's six convs, (label, tap group, rulebook (k3, n) int32 on
     ``dev``, cin, cout): the probe's four shapes (``probe``:
@@ -1356,6 +1693,11 @@ def main() -> int:
     parser.add_argument("--parent-log",
                         help="print phases 12's and 13's times beside this log's")
     opts = parser.parse_args()
+    if not os.path.isdir(os.path.join(ROOT, "ponderv2_tpu_torch")):
+        # the script copied out of the repo: there is nothing to run
+        print(f"chip_smoke: no ponderv2_tpu_torch/ beside {__file__}; run it from the "
+              "root of a checkout of the repo", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs "
               "a CUDA GPU", file=sys.stderr)
@@ -1370,6 +1712,7 @@ def main() -> int:
     from ponderv2_tpu_torch.engines.defaults import default_config_parser
     from ponderv2_tpu_torch.models import build_model
     from ponderv2_tpu_torch.models.default import batch_to_sparse_tensor
+    from ponderv2_tpu_torch.models.point_group import cluster
     from ponderv2_tpu_torch.ops import band_conv as bc
     from ponderv2_tpu_torch.ops import probe_kernels as pk
     from ponderv2_tpu_torch.ops import row_gather as rg
@@ -1417,6 +1760,10 @@ def main() -> int:
         for ln in BUILD_LOGS.get(name, "").splitlines():
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
                 print(f"[build] {name}: {ln.strip()}")
+    t0 = time.perf_counter()
+    cluster.load_native()
+    print(f"[build] csrc/cluster.cpp (the host clustering): g++ {' '.join(cluster.CXX_FLAGS)} "
+          f"in {time.perf_counter() - t0:.1f} s")
     phase_done("2 build")
 
     # per kernel and path: max error vs plain (f32, bf16), and the ms of the
@@ -1576,7 +1923,10 @@ def main() -> int:
         phase_done("5 serving kernel vs plain")
 
         # ---- 6. the training slice: 3 steps + one evaluation via main_worker
-        tcfg = default_config_parser(TRAIN_CONFIG, {"save_path": os.path.join(tmp, "train")})
+        # the fine-tune step without the backbone's remat (on by default),
+        # the step that phases 6-8 time and check
+        tcfg = default_config_parser(TRAIN_CONFIG, {"save_path": os.path.join(tmp, "train"),
+                                                    "model.backbone.remat": False})
         tcfg.seed = SEED
         tcfg.device = "cuda"
         run = train_and_check("train", tcfg, dev)
@@ -1874,7 +2224,12 @@ def main() -> int:
         multi = multi_pretrain_phase(dev, tmp, gen, multi_stats)
         phase_done("15 multi-dataset pretrain from files")
 
-        # ---- 16. output
+        # ---- 16. the instance-segmentation recipe from files
+        insseg_stats = new_stats()
+        insseg = insseg_recipe_phase(dev, tmp, gen, insseg_stats)
+        phase_done("16 insseg recipe from files")
+
+        # ---- 17. output
         print(f"[time] per fine-tune step at batch {tcfg.batch_size} (f32): "
               + "; ".join(f"{name} {stats[name]['ms']:.3f} ms vs plain "
                           f"{stats[name]['plain_ms']:.3f} ms (bound "
@@ -1892,6 +2247,10 @@ def main() -> int:
                                       f"{multi_stats[name]['plain_ms']:.3f} ms (bound "
                                       f"{multi_stats[name]['bound_ms']:.3f} ms)"
                                       for name in BAND_CORES))
+        print(f"[time] per insseg step at batch 12 (f32, the first batch's convs): "
+              + "; ".join(f"{name} {insseg_stats[name]['ms']:.3f} ms vs plain "
+                          f"{insseg_stats[name]['plain_ms']:.3f} ms (bound "
+                          f"{insseg_stats[name]['bound_ms']:.3f} ms)" for name in BAND_CORES))
         print(f"[time] phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
 
         def entry(name, launches, st):
@@ -1926,6 +2285,7 @@ def main() -> int:
                 row["ppt_serving_launches"] = ppt["serve_launches"][i]
                 row["multi_pretrain"] = entry(name, multi["train_launches"][i],
                                               multi_stats[name])
+                row["insseg"] = entry(name, insseg["train_launches"][i], insseg_stats[name])
             kernels.append(row)
         # the probe kernels: one row per ported probe function, its launches
         # from its own run through the entry point

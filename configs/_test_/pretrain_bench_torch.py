@@ -5,8 +5,8 @@
 # x 256 rays per scene, the render + CLIP-semantic + PPT losses, bf16
 # compute; SGD with OneCycle; batch 2 of 100k-point synthetic RGB-D scenes),
 # with the compute dtype named as a string, so that the config loads without
-# JAX, and without the backbone's ``remat`` switch (autograd keeps the
-# activations; the step peaks at ~15 GiB). The one cut is the run's length:
+# JAX, and with the backbone's ``remat`` off, as the JAX bench config sets
+# it (autograd keeps the activations; the step peaks at ~15 GiB). The one cut is the run's length:
 # 6 scenes, one epoch, 3 steps.
 _base_ = ["../_base_/default_runtime.py"]
 
@@ -38,6 +38,7 @@ model = dict(
         layers=(2, 3, 4, 6, 2, 2, 2, 2),
         capacities=(204800, 102400, 40960, 10240, 2560),
         compute_dtype="bfloat16",
+        remat=False,
     ),
     projection=dict(type="UNet3D-v1m2", in_channels=96, out_channels=128,
                     f_maps=32, num_levels=4, compute_dtype="bfloat16"),

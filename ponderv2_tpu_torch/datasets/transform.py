@@ -539,3 +539,38 @@ class ShufflePoint:
     def __call__(self, data_dict):
         idx = np.random.permutation(len(data_dict["coord"]))
         return _index_points(data_dict, idx)
+
+
+@TRANSFORMS.register_module()
+class InstanceParser:
+    """Derive per-instance centroids/bboxes for instance-seg training
+    (reference transform.py:1387-1431)."""
+
+    def __init__(self, segment_ignore_index=(-1, 0, 1), instance_ignore_index=-1):
+        self.segment_ignore_index = segment_ignore_index
+        self.instance_ignore_index = instance_ignore_index
+
+    def __call__(self, data_dict):
+        coord = data_dict["coord"]
+        segment = data_dict["segment"]
+        instance = data_dict["instance"].copy()
+        mask = ~np.isin(segment, self.segment_ignore_index)
+        instance[~mask] = self.instance_ignore_index
+        # re-densify instance ids
+        unique, inverse = np.unique(instance[mask], return_inverse=True)
+        instance[mask] = inverse
+        n_inst = len(unique)
+        centroid = np.ones((coord.shape[0], 3)) * self.instance_ignore_index
+        bbox = np.ones((max(n_inst, 1), 8)) * self.instance_ignore_index
+        for i in range(n_inst):
+            m = instance == i
+            c = coord[m]
+            centroid[m] = c.mean(0)
+            cls = np.bincount(segment[m][segment[m] >= 0]).argmax() if (segment[m] >= 0).any() else -1
+            bbox[i] = np.concatenate(
+                [c.min(0), c.max(0), [cls], [m.sum()]]
+            )
+        data_dict["instance"] = instance
+        data_dict["instance_centroid"] = centroid.astype(np.float32)
+        data_dict["bbox"] = bbox.astype(np.float32)
+        return data_dict

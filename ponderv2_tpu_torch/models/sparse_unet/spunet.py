@@ -9,7 +9,7 @@ concat, and a linear head. Module names are the reference PyTorch ones, so
 ``final.*``, where decoder step ``s`` runs module index
 ``ref = num_stages - 1 - s`` (the reference builds up/dec ascending and runs
 them reversed). A Python loop replaces the JAX package's ``nn.scan``.
-``remat`` (off by default; the JAX package's is on) runs each BasicBlock and
+``remat`` (on by default, as the JAX package's) runs each BasicBlock and
 ConvBNRelu of a training forward under activation checkpointing, as its
 ``nn.remat``: the backward runs the unit's forward again, band convs (K1)
 included, with the running statistics held (``norm.py:recomputing``).
@@ -120,7 +120,7 @@ class SpUNet(nn.Module):
         bn_momentum: float = 0.01,
         capacities: Optional[Sequence[int]] = None,
         compute_dtype: Optional[torch.dtype] = None,
-        remat: bool = False,
+        remat: bool = True,
     ):
         super().__init__()
         self.num_classes = num_classes

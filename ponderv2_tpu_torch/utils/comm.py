@@ -36,6 +36,15 @@ def gather(data: Any, dst: int = 0) -> List[Any]:
     return out if get_rank() == dst else []
 
 
+def all_gather(data: Any) -> List[Any]:
+    """All-gather picklable objects across processes."""
+    if get_world_size() == 1:
+        return [data]
+    out = [None] * get_world_size()
+    dist.all_gather_object(out, data)
+    return out
+
+
 def reduce_dict(input_dict: dict, average: bool = True) -> dict:
     """Reduce scalar dict values across processes (mean by default)."""
     world = get_world_size()

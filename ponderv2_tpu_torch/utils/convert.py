@@ -30,6 +30,10 @@ invert ``convert_spunet_v1m3`` and ``convert_ppt_v1m1`` for the port's
 ``modulation.1``, the block shortcut ``proj`` / ``proj_bn`` ->
 ``proj_conv`` / ``proj_norm``, ``context.embedding`` ->
 ``embedding_table.weight``, and ``constants.class_embedding`` -> the buffer.
+
+``state_dict_from_jax_point_group`` does PG-v1m1: its backbone through the
+SpUNet-v1m1 or PPT-v1m1 converter above, its heads' Dense kernels ->
+``nn.Linear`` weights.
 """
 
 from __future__ import annotations
@@ -244,4 +248,29 @@ def state_dict_from_jax_ppt_v1m1(variables: Mapping, layers: Sequence[int],
     constants = variables.get("constants") or {}
     if "class_embedding" in constants:
         out["class_embedding"] = np.asarray(constants["class_embedding"])
+    return out
+
+
+def state_dict_from_jax_point_group(variables: Mapping,
+                                    backbone: Mapping) -> Dict[str, np.ndarray]:
+    """``variables``: the JAX PG-v1m1 collections ``params``,
+    ``batch_stats`` (and ``constants``) with numpy leaves; ``backbone`` its
+    backbone's config: SpUNet-v1m1, or PPT-v1m1 over SpUNet-v1m3. Returns
+    the port's state_dict of numpy arrays: the backbone's (by its converter)
+    under ``backbone.``, the offset head's two Dense layers as
+    ``bias_head.0`` / ``bias_head.2`` and ``seg_head``, kernels transposed
+    into ``Linear.weight``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    if backbone["type"] == "PPT-v1m1":
+        inner = {"params": params["backbone_net"], "batch_stats": stats["backbone_net"],
+                 "constants": (variables.get("constants") or {}).get("backbone_net") or {}}
+        v1m3 = backbone["backbone"]
+        bb = state_dict_from_jax_ppt_v1m1(inner, v1m3["layers"], v1m3["conditions"])
+    else:
+        bb = state_dict_from_jax_spunet(params["backbone_net"], stats["backbone_net"],
+                                        backbone["channels"], backbone["layers"])
+    out: Dict[str, np.ndarray] = {f"backbone.{k}": v for k, v in bb.items()}
+    _dense(out, "bias_head.0", params["bias_head"]["layers_0"])
+    _dense(out, "bias_head.2", params["bias_head"]["layers_2"])
+    _dense(out, "seg_head", params["seg_head"])
     return out

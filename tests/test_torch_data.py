@@ -164,6 +164,9 @@ class TestTrainDataPath:
         import ponderv2_tpu.utils.env as jenv
         import ponderv2_tpu.utils.events as jev
         import ponderv2_tpu.utils.timer as jtm
+        import ponderv2_tpu.engines.hooks.evaluator as jhev
+        import ponderv2_tpu.models.point_group.cluster as jcl
+        import ponderv2_tpu.models.point_group.point_group as jpg
         import ponderv2_tpu_torch.datasets.dataloader as tdl
         import ponderv2_tpu_torch.datasets.defaults as tdef
         import ponderv2_tpu_torch.datasets.s3dis as ts3
@@ -176,6 +179,9 @@ class TestTrainDataPath:
         import ponderv2_tpu_torch.utils.env as tenv
         import ponderv2_tpu_torch.utils.events as tev
         import ponderv2_tpu_torch.utils.timer as ttm
+        import ponderv2_tpu_torch.engines.hooks.evaluator as thev
+        import ponderv2_tpu_torch.models.point_group.cluster as tcl
+        import ponderv2_tpu_torch.models.point_group.point_group as tpg
 
         copies = [
             (jtr, ttr, ["RandomScale", "RandomFlip", "RandomJitter", "RandomDropout",
@@ -201,11 +207,18 @@ class TestTrainDataPath:
             # and Structured3DRGBDDataset differ from the JAX ones where those
             # fail (tests/test_torch_multidataset.py)
             (jsc, tsc, ["ScanNetRGBDDataset"]),
+            # instance segmentation's (tests/test_torch_insseg.py holds
+            # csrc/cluster.cpp and the native BFS against the JAX ones)
+            (jtr, ttr, ["InstanceParser"]),
+            (jhev, thev, ["_associate_scene", "_scannet_ap", "evaluate_instance_ap"]),
+            (jcl, tcl, ["cluster_proposals"]),
         ]
         for jmod, tmod, names in copies:
             for name in names:
                 assert inspect.getsource(getattr(tmod, name)) == inspect.getsource(
                     getattr(jmod, name)), f"{tmod.__name__}.{name}"
+        assert inspect.getsource(tpg.PointGroup.propose_instances) == inspect.getsource(
+            jpg.PointGroup.propose_instances)
         for jmod, tmod, names in [(jsc, tsc, ["VALID_CLASS_IDS_20", "CLASS_NAMES_20"]),
                                   (js3, ts3, ["S3DIS_CLASS_NAMES"])]:
             for name in names:
@@ -479,6 +492,22 @@ def test_chip_smoke_ppt_phase_keeps_the_recipe(tmp_path):
                 "coord", "color", "normal", "segment", "instance")}, f"{split}[{i}]")
 
 
+def test_chip_smoke_prints_the_tightest_margins_first():
+    """Phase 8's ``[grad]`` line names the gradients closest to their bound
+    tightest first, and labels them so."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    margins = [(0.572, "a", "plain", 1e-6, 1e-3, 1e-7), (0.953, "b", "plain", 2e-6, 1e-3, 1e-7),
+               (0.1, "c", "plain", 1e-7, 1e-3, 1e-7), (0.590, "d", "float64", 1e-6, 1e-3, 1e-7)]
+    line = chip_smoke.tightest_margins_line("step", margins, 1.0, "reordered")
+    assert "tightest first" in line
+    shown = [part.split(" vs ")[0].rsplit(" ", 1)[-1] for part in line.split(": ", 2)[2].split("; ")]
+    assert shown == ["b", "d", "a"]
+    assert "b vs plain 0.953" in line and "d vs float64 0.590" in line
+    assert len(chip_smoke.tightest_margins_line("s", margins[:2], 1.0, "r").split("; ")) == 2
+
+
 def test_add_transform_copies_its_values():
     """``Add`` sets each key to a fresh copy of its value, as the JAX one."""
     from ponderv2_tpu.datasets.transform import TRANSFORMS as JTRANSFORMS
@@ -524,10 +553,12 @@ import ponderv2_tpu_torch.datasets.structure3d, ponderv2_tpu_torch.utils.cache
 import ponderv2_tpu_torch.datasets.dataloader
 import ponderv2_tpu_torch.utils.clip_text
 import ponderv2_tpu_torch.utils.convert
+import ponderv2_tpu_torch.models.point_group.point_group
+import ponderv2_tpu_torch.models.point_group.cluster
 sys.path.insert(0, root + "/tools/experiments")
 import chip_smoke, probe_windowed_torch, test_torch, train_torch
 import probe_bisect_torch, probe_gather_torch, profile_pretrain_torch, profile_semseg_torch
-import ppt_grads_torch, multi_pretrain_torch
+import ppt_grads_torch, multi_pretrain_torch, insseg_torch
 from ponderv2_tpu_torch.datasets import build_dataset, collate_fn
 from ponderv2_tpu_torch.models import build_model
 from ponderv2_tpu_torch.utils.config import Config
@@ -599,6 +630,40 @@ for name in ("scannet/semseg-ppt-v1m1-0-sc-s3-st-spunet-lovasz-ft.py",
     assert bool(rout["contract_ok"]) and bool(torch.isfinite(rout["loss"]))
 shutil.rmtree(data_root)
 
+# the three instance-segmentation recipes at full width, unchanged but for
+# data_root: their datasets read scene files with instance labels (through
+# InstanceParser, ScanNet200's ignore set included) and their PG-v1m1 models
+# run a training forward on the CPU
+data_root = tempfile.mkdtemp()
+chip_smoke.write_scannet_scenes(data_root, 1, 1, points=2000, instances=True)
+for i, split in enumerate(("train", "val")):
+    path = os.path.join(data_root, split, f"scene{i:04d}_00.pth")
+    scene = torch.load(path, weights_only=False)
+    scene["semantic_gt200"] = scene["semantic_gt20"]  # ScanNet200Dataset's labels
+    torch.save(scene, path)
+for name in ("scannet/insseg-pointgroup-v1m1-0-spunet-base.py",
+             "scannet/insseg-ppt-v1m1-0-pointgroup-spunet-ft.py",
+             "scannet200/insseg-ppt-v1m1-0-pointgroup-spunet-ft.py"):
+    rcfg = Config.fromfile(os.path.join(root, "configs", name))
+    items = {}
+    for split in ("train", "val"):
+        rcfg.data[split].data_root = data_root
+        items[split] = build_dataset(dict(rcfg.data[split]))[0]
+    ignore = rcfg.model.segment_ignore_index
+    assert (items["val"]["instance"][np.isin(items["val"]["segment"], ignore)] == -1).all()
+    assert (items["val"]["instance"] >= 0).any()
+    rmodel = build_model(dict(rcfg.model)).train()
+    assert type(rmodel).__name__ == "PointGroup"
+    rb = collate_fn([items["train"]], point_budget=2048, scene_budget=1)
+    rout = rmodel({**{k: torch.as_tensor(v) for k, v in rb.items() if isinstance(v, np.ndarray)},
+                   "spatial_shape": tuple(rcfg.sparse_shape), "batch_size": 1,
+                   "condition": rb.get("condition", [None])[0]})
+    assert rout["seg_logits"].shape == (2048, rcfg.data.num_classes)
+    assert rout["bias_pred"].shape == (2048, 3) and rout["loss"].shape == ()
+    assert bool(rout["contract_ok"]) and all(bool(torch.isfinite(rout[k])) for k in (
+        "loss", "seg_loss", "bias_l1_loss", "bias_cosine_loss"))
+shutil.rmtree(data_root)
+
 # the multi-dataset pretrain: its three RGB-D datasets over scene files in
 # their layouts, one round of its loader, its trainer
 from ponderv2_tpu_torch.datasets.dataloader import MultiDatasetDataloader
@@ -626,14 +691,18 @@ def test_port_imports_and_runs_without_jax():
     """``ponderv2_tpu_torch``, ``chip_smoke.py``, ``tools/test_torch.py``,
     ``tools/train_torch.py``, the two profilers, the probe entry points
     ``tools/experiments/probe_{windowed,gather,bisect}_torch.py``,
-    ``tools/experiments/ppt_grads_torch.py`` and
-    ``tools/experiments/multi_pretrain_torch.py`` import,
+    ``tools/experiments/ppt_grads_torch.py``,
+    ``tools/experiments/multi_pretrain_torch.py`` and
+    ``tools/experiments/insseg_torch.py`` import,
     the pretrain configs load, a segmentor forward and a PonderIndoor-v2
     training step's forward and backward run on the CPU, and the three PPT
     fine-tune recipes build their datasets (over scene files) and models,
     the ScanNet one running a training forward and backward, and the
     multi-dataset pretrain's datasets and loader run one round over scene
-    files, with jax/jaxlib/flax/optax/ponderv2_tpu blocked; no port source
+    files, and the three instance-segmentation recipes build their datasets
+    (over scene files with instance labels) and run a full-width training
+    forward of their PG-v1m1 models,
+    with jax/jaxlib/flax/optax/ponderv2_tpu blocked; no port source
     names them in an import statement."""
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT_CHECK, ROOT],
@@ -649,6 +718,7 @@ def test_port_imports_and_runs_without_jax():
                os.path.join(ROOT, "tools", "experiments", "probe_bisect_torch.py"),
                os.path.join(ROOT, "tools", "experiments", "ppt_grads_torch.py"),
                os.path.join(ROOT, "tools", "experiments", "multi_pretrain_torch.py"),
+               os.path.join(ROOT, "tools", "experiments", "insseg_torch.py"),
                os.path.join(ROOT, "tools", "profile_pretrain_torch.py"),
                os.path.join(ROOT, "tools", "profile_semseg_torch.py"),
                os.path.join(ROOT, "configs", "_test_", "pretrain_bench_torch.py")]

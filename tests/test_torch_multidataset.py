@@ -466,6 +466,19 @@ def test_remat_keeps_running_stats_and_grads():
         assert (g1[name] - g).abs().max().item() <= 1e-5 * max(scale, 1e-12), name
 
 
+def test_spunet_v1m1_remat_default_is_the_jax_one():
+    """SpUNet-v1m1's ``remat`` is on by default in both packages, so a config
+    that names none (the multi-dataset pretrain, the insseg base recipe)
+    runs checkpointed in both."""
+    import inspect
+
+    from ponderv2_tpu.models.sparse_unet.spunet import SpUNet as JSpUNet
+    from ponderv2_tpu_torch.models.sparse_unet.spunet import SpUNet as TSpUNet
+
+    default = inspect.signature(TSpUNet).parameters["remat"].default
+    assert default is JSpUNet.__dataclass_fields__["remat"].default is True
+
+
 # ----------------------------------------------------------- CLI and configs
 def tiny_multi_cfg(roots, save_path):
     """``chip_smoke.py`` phase 15's options on ``roots``, with the model cut
@@ -531,9 +544,9 @@ def test_single_dataset_pretrain_configs_build_on_files(small_roots, name):
 
 def test_chip_smoke_multi_phase_keeps_the_config(tmp_path, small_roots):
     """Phase 15 runs the multi-dataset config with only its data roots,
-    epochs, save path and ``num_worker`` changed, and the backbone's
-    ``remat`` (the JAX default) on (plus what the config parser derives:
-    the seed and the train loop), and the scenes it writes
+    epochs, save path and ``num_worker`` changed (plus what the config
+    parser derives: the seed and the train loop), so the backbone's
+    ``remat`` is the default, on, as in JAX, and the scenes it writes
     read back through the port's datasets with every view's depth on the
     scene's points (within the pixel's footprint and the depth unit)."""
     from ponderv2_tpu_torch.engines.defaults import default_config_parser
@@ -545,8 +558,8 @@ def test_chip_smoke_multi_phase_keeps_the_config(tmp_path, small_roots):
     flat = _flat(_comparable(run.to_dict()))
     changed = {k for k in base.keys() | flat.keys() if base.get(k) != flat.get(k)}
     assert changed <= {"data.train.datasets", "epoch", "eval_epoch", "save_path",
-                       "num_worker", "model.backbone.remat", "seed", "data.train.loop"}
-    assert run.model.backbone.remat is True
+                       "num_worker", "seed", "data.train.loop"}
+    assert "remat" not in run.model.backbone
     for i, ds in enumerate(run.data.train.datasets):
         want = dict(MULTI_CFG.data.train.datasets[i], **{
             k.rsplit(".", 1)[1]: v for k, v in opts.items()

@@ -15,7 +15,13 @@ seeded weights (carried to JAX by ``convert_ponder_indoor`` and back by
   its ``static_ctx``: every grad within 1e-2 of its max|ref| and every
   parameter's and running statistic's update within 1e-2 of its max|ref
   update|, the tolerances and floors of ``test_torch_pretrain_step.py``
-  (whose docstring says why the whole step is held that loosely).
+  (whose docstring says why the whole step is held that loosely);
+- the multi-dataset pretrain's optimizer and 4-step OneCycle schedule (the
+  steps of ``chip_smoke.py`` phase 15) run 4 steps at "S3DIS" on the batch
+  in JAX, the step the one compiled above; from the state each step started
+  from, the port's eikonal term within 1e-3 relative (``LOSS_REL``).
+
+The optimizer and schedule are the multi-dataset config's throughout.
 
 The JAX backbone runs with ``remat=False`` (ROADMAP Queue 3).
 """
@@ -38,6 +44,7 @@ from ponderv2_tpu.utils.scheduler import build_scheduler as jbuild_scheduler
 from ponderv2_tpu_torch.datasets.ppt_vocab import PPT_CLASS_NAMES, PPT_VALID_INDEX
 from ponderv2_tpu_torch.models import build_model as tbuild
 from ponderv2_tpu_torch.utils.convert import state_dict_from_jax_ponder_indoor
+from ponderv2_tpu_torch.utils.config import Config
 from ponderv2_tpu_torch.utils.optimizer import build_optimizer, set_lr
 from ponderv2_tpu_torch.utils.scheduler import build_scheduler
 from test_torch_pretrain_step import (CFG, GRAD_REL, LOSS_REL, SEED, assert_rel,
@@ -51,7 +58,11 @@ CONDITIONS = ("Structured3D", "ScanNet", "S3DIS")
 MODEL = dict(CFG.model, conditions=CONDITIONS, class_name=PPT_CLASS_NAMES,
              valid_index=PPT_VALID_INDEX, ppt_loss_weight=1.0)
 TERMS = ("loss", "ppt_loss") + tuple(CFG.metric_keys)
-TOTAL_STEPS = 10
+# the multi-dataset pretrain's optimizer and OneCycle schedule over the 4
+# steps of one round (chip_smoke.py phase 15)
+MULTI = Config.fromfile(os.path.join(
+    ROOT, "configs/scannet/pretrain-ponder-ppt-v1m1-0-sc-s3-st-spunet.py"))
+TOTAL_STEPS = 4
 
 
 @pytest.fixture(autouse=True)
@@ -91,15 +102,15 @@ def jax_run():
 
     capture = optax.GradientTransformation(
         lambda p: jax.tree.map(jnp.zeros_like, p), lambda g, s, p=None: (g, g))
-    schedule = jbuild_scheduler(dict(CFG.scheduler), TOTAL_STEPS)
+    schedule = jbuild_scheduler(dict(MULTI.scheduler), TOTAL_STEPS)
     jparams = jax.tree.map(jnp.asarray, params)
-    tx = optax.chain(capture, jbuild_optimizer(dict(CFG.optimizer), jparams, schedule))
+    tx = optax.chain(capture, jbuild_optimizer(dict(MULTI.optimizer), jparams, schedule))
     state = TrainState(step=jnp.zeros((), jnp.int32), params=jparams,
                        batch_stats=jax.tree.map(jnp.asarray, stats),
                        opt_state=tx.init(jparams),
                        constants=jax.tree.map(jnp.asarray, constants))
     step = make_train_step(jmodel, tx, schedule, {**ctx, "condition": "S3DIS"},
-                           metric_keys=TERMS[1:], rng_seed=SEED)
+                           metric_keys=TERMS[1:] + ("eikonal_loss",), rng_seed=SEED)
     state, metrics = step(state, jarr)
     terms["S3DIS"] = {k: float(metrics[k]) for k in TERMS}
 
@@ -108,10 +119,18 @@ def jax_run():
             jax.device_get({"params": p, "batch_stats": s, "constants": constants}),
             channels, layers, levels)
 
+    first = SimpleNamespace(lr=float(metrics["lr"]), contract_ok=float(metrics["contract_ok"]),
+                            grads=to_port(state.opt_state[0], stats),
+                            after=to_port(state.params, state.batch_stats))
+    # the rest of the round, the same executable: (lr, eikonal term, the
+    # state the step started from) per step
+    schedule_run = [(float(metrics["lr"]), float(metrics["eikonal_loss"]), init)]
+    for _ in range(TOTAL_STEPS - 1):
+        start = to_port(state.params, state.batch_stats)
+        state, metrics = step(state, jarr)
+        schedule_run.append((float(metrics["lr"]), float(metrics["eikonal_loss"]), start))
     return SimpleNamespace(arrays=arrays, ctx=ctx, init=init, key=key, terms=terms,
-                           lr=float(metrics["lr"]), contract_ok=float(metrics["contract_ok"]),
-                           grads=to_port(state.opt_state[0], stats),
-                           after=to_port(state.params, state.batch_stats))
+                           schedule_run=schedule_run, **vars(first))
 
 
 def port_forward(model, run, condition):
@@ -146,8 +165,8 @@ def test_sgd_step_at_s3dis_matches_jax_train_step(jax_run):
     model = tbuild(dict(MODEL))
     model.load_state_dict({k: torch.from_numpy(v) for k, v in jax_run.init.items()})
     model.train()
-    opt = build_optimizer(dict(CFG.optimizer), model)
-    tsched = build_scheduler(dict(CFG.scheduler), TOTAL_STEPS)
+    opt = build_optimizer(dict(MULTI.optimizer), model)
+    tsched = build_scheduler(dict(MULTI.scheduler), TOTAL_STEPS)
     set_lr(opt, tsched(0))
     assert tsched(0) == pytest.approx(jax_run.lr, rel=1e-6)
     out = port_forward(model, jax_run, "S3DIS")
@@ -177,3 +196,35 @@ def test_sgd_step_at_s3dis_matches_jax_train_step(jax_run):
                     * np.abs(after[name]).max(), tsched(0) * top if name in grads else 0.0)
         check(v.numpy() - before[name], ref, GRAD_REL, f"update {name}", scale=floor)
     assert not failures, "\n".join(failures)
+
+
+def test_eikonal_term_over_four_onecycle_steps_matches_jax(jax_run):
+    """The multi-dataset pretrain's 4-step OneCycle round at "S3DIS" on the
+    batch: at every step the lr (within 1e-6 of the peak lr), and the
+    eikonal term from the state that
+    step of the JAX run started from, with that step's draws (the JAX key
+    ``fold_in(seed, step)``), within 1e-3 relative of the JAX package's. So
+    the term moves over the round as the schedule moves the weights. Each
+    step starts from the JAX state, as in ``test_torch_pretrain_step.py``:
+    run on from its own state, the port's term drifts from JAX's by 7-8% at
+    steps 2-3 here, and its own term moves by 17% at step 3 under a 1e-6
+    relative perturbation of the initial weights (the step amplifies f32
+    rounding; that module's docstring)."""
+    model = tbuild(dict(MODEL))
+    model.train()
+    tsched = build_scheduler(dict(MULTI.scheduler), TOTAL_STEPS)
+    B, V, H, W = jax_run.arrays["depth"].shape
+    inputs = {k: torch.from_numpy(v) for k, v in jax_run.arrays.items()}
+    terms = []
+    peak = MULTI.scheduler.max_lr
+    for k, (lr, eikonal, start) in enumerate(jax_run.schedule_run):
+        # JAX's schedule is f32: near its 5e-9 end it carries ~1e-7 of the peak
+        assert abs(tsched(k) - lr) <= 1e-6 * peak, (k, tsched(k), lr)
+        model.load_state_dict({n: torch.from_numpy(np.asarray(v)) for n, v in start.items()})
+        key = jax.random.fold_in(jax.random.PRNGKey(SEED), k)
+        with torch.no_grad():
+            out = model({**inputs, **jax_run.ctx, "condition": "S3DIS",
+                         "draws": port_draws(model, key, B, V, H * W)})
+        assert_rel(float(out["eikonal_loss"]), eikonal, LOSS_REL, f"step {k} eikonal")
+        terms.append(eikonal)
+    assert len(set(terms)) == TOTAL_STEPS

@@ -9,7 +9,7 @@ S3DIS layouts) into a temporary directory and runs
 ``configs/scannet/pretrain-ponder-ppt-v1m1-0-sc-s3-st-spunet.py`` at batch
 8 in f32 with its checks, K1-K3 against their plain versions and float64,
 and the seeded step's grads. With ``--no-remat`` the backbone's ``remat``
-stays off (the port's default); if a step runs out of device memory it
+is turned off (it is on by default); if a step runs out of device memory it
 prints the memory allocated then and exits 1. Needs a CUDA GPU.
 """
 
@@ -29,7 +29,7 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--no-remat", action="store_true",
-                        help="leave the backbone's remat off")
+                        help="turn the backbone's remat off")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("multi_pretrain_torch: needs a CUDA GPU", file=sys.stderr)

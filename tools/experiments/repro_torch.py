@@ -154,8 +154,13 @@ def main():
             warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         for step in args.steps.split(","):
+            # the fine-tune step without the backbone's remat, as it was timed
+            # before remat became the default (the pretrain config sets it)
+            opts = {"save_path": os.path.join(tmp, step)}
+            if step == "finetune":
+                opts["model.backbone.remat"] = False
             cfg = default_config_parser(os.path.join(root, "configs", "_test_", configs[step]),
-                                        {"save_path": os.path.join(tmp, step)})
+                                        opts)
             cfg = default_setup(cfg)
             if args.cudnn_deterministic is not None:
                 torch.backends.cudnn.deterministic = bool(args.cudnn_deterministic)

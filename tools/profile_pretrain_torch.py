@@ -7,8 +7,8 @@ Builds the config's trainer (``cfg.train.type``; by default on
 workload: batch 2, bf16) with seeded weights.
 With ``--scenes DIR`` it first writes ``chip_smoke.py``'s phase-15 RGB-D
 scene files (Structured3D, ScanNet and S3DIS layouts) under DIR and runs
-the config with phase 15's options (data roots, one epoch, ``remat``,
-``num_worker`` for this host), for the multi-dataset pretrain
+the config with phase 15's options (data roots, one epoch, ``num_worker``
+for this host; the backbone's ``remat`` on, its default), for the multi-dataset pretrain
 (``configs/scannet/pretrain-ponder-ppt-v1m1-0-sc-s3-st-spunet.py``). It
 takes the loader's first batch, runs 2 warm-up steps on it, then prints (as
 one JSON line) the host-clock median of 3 steps (batch to device ..

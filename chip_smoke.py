@@ -4,8 +4,10 @@ kernels and the probe kernels, check them, serve ScanNet-scale scenes,
 train SpUNet-v1m1 at ScanNet's batch, pretrain PonderIndoor-v2 at bench.py's
 workload, run every probe kernel at its probe's shape, train and serve the
 PPT fine-tune recipe from scene files, run the paper's multi-dataset
-pretrain from RGB-D scene files, and train and evaluate its instance
-segmentation recipe from scene files with instance labels.
+pretrain from RGB-D scene files, train and evaluate its instance
+segmentation recipe from scene files with instance labels, and run its
+outdoor half: the nuScenes LiDAR pretrain from procedural scans and the
+nuScenes lidarseg fine-tune from that checkpoint.
 
     python3 chip_smoke.py [--parent-log LOG]
 
@@ -144,7 +146,33 @@ repo around it, and runs in phases; any failure exits non-zero:
     of it); the native clustering against its plain version; K1-K3 against
     their plain versions at the first batch's convs as in 7, and the seeded
     first batch's grads as in 15;
-17. print times and peak memory, a JSON line of the kernels, and last
+17. write 12 + 4 procedural nuScenes LiDAR scans (32 beams, six 1600 x
+    900 PNG cameras each, ``datasets/preprocessing/synthetic_nuscenes.py``)
+    and run the paper's outdoor pretrain
+    (``configs/nuscenes/pretrain-ponder-spunet-v1m1-0-base.py``:
+    PonderOutdoor-v2 over SpUNet-v1m1 with ``in_channels`` 4, SimpleConv3D
+    onto 180 x 180 x 5, NeuS on 512 rays a scan, batch 4, f32) on the 12,
+    changing only its data root, epochs (3 steps), save path and
+    ``num_worker``: the checks of 14 and each step's time, data wait, peak
+    memory, live rows and loss terms; each level's plan (rulebook or
+    SubmPlan against the 192 Mi dense-grid limit at ``sparse_shape`` (1440,
+    1440, 108)), its convs' routes and the final band budgets; the plain
+    gather convs' forward + backward time; K1-K3 against their plain
+    versions at the first batch's convs as in 7; every K1-K3 call of a step
+    against float64 and the seeded step's grads as in 15; then one step of
+    each of ``-base-color``, ``-base-color-amp`` (its ``RandomShift`` and
+    camera ``RandomFlip``) and ``-base-semantic`` (the committed stub CLIP
+    embeddings) on the other 4 scans;
+18. write 36 + 2 scans without cameras and run the paper's nuScenes
+    lidarseg fine-tune (``configs/nuscenes/semseg-ppt-v1m1-0-nu-sk-wa-spunet-
+    ft.py``: DefaultSegmentor over SpUNet-v1m1, CE + Lovasz, Mix3D 0.8,
+    batch 12, f32) from 17's checkpoint as its ``weight``, changing only
+    its data roots, epochs (3 steps and one evaluation), weight, save path
+    and ``num_worker``: the checkpoint's ``backbone.*`` loaded and nothing
+    else, the checks of 17, the val scans served through ``SemSegTester``
+    (K1's launches, every ``contract_ok``, a time per fragment), K1-K3 as
+    in 7 and one step's grads from the trained state as in 14;
+19. print times and peak memory, a JSON line of the kernels, and last
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -188,6 +216,16 @@ INSSEG_TERMS = ("seg_loss", "bias_l1_loss", "bias_cosine_loss")
 # the plain (numpy) clustering runs on the trained model's val scene only
 # below this many neighbour pairs (its Python BFS visits each)
 INSSEG_PLAIN_PAIRS = 5_000_000
+# the paper's outdoor half: the nuScenes LiDAR pretrain (PonderOutdoor-v2
+# over SpUNet-v1m1; 12 procedural scans give the base config 3 batches of 4,
+# 4 more one batch of each other config) and the lidarseg fine-tune from its
+# checkpoint (36 scans, 3 batches of 12; 2 val scans)
+NUSCENES_PRETRAIN = {name: os.path.join(
+    ROOT, f"configs/nuscenes/pretrain-ponder-spunet-v1m1-0-{name}.py")
+    for name in ("base", "base-color", "base-color-amp", "base-semantic")}
+NUSCENES_SEMSEG = os.path.join(ROOT, "configs/nuscenes/semseg-ppt-v1m1-0-nu-sk-wa-spunet-ft.py")
+NUSCENES_PRETRAIN_SCANS, NUSCENES_ONE_STEP_SCANS = 12, 4
+NUSCENES_SEMSEG_SCANS, NUSCENES_VAL_SCANS = 36, 2
 SEED = 0
 # band convs per forward of SpUNet-v1m1 at ScanNet's sparse_shape, from the
 # routing (models/sparse_unet/layers.py:subm_route): L0 runs the last decoder
@@ -693,14 +731,55 @@ def calls_vs_float64(tag, gmodel, inputs):
     return rho
 
 
-def float64_step_grads(gmodel, inputs):
+class PinnedRelu:
+    """``torch.relu`` with its decisions shared across runs of a step.
+    ``run("record", fn)`` runs ``fn`` with every relu call's mask (x > 0)
+    kept in call order; ``run("replay", fn)`` zeroes each call's input where
+    the recorded mask of that call is off and counts in ``flips`` the
+    elements whose own decision differs. Runs that replay one record
+    compute one smooth function, so their grads part only by rounding,
+    also where an activation sits within rounding of 0."""
+
+    def __init__(self):
+        self.masks, self.flips, self.mode, self.i = [], 0, None, 0
+
+    def __call__(self, x):
+        own = x > 0
+        if self.mode == "record":
+            self.masks.append(own)
+            return self.relu(x)
+        mask = self.masks[self.i]
+        self.i += 1
+        self.flips += int((own != mask).sum())
+        return x.masked_fill(~mask, 0)
+
+    def run(self, mode, fn):
+        import torch
+
+        self.mode, self.i, self.relu = mode, 0, torch.relu
+        if mode == "record":
+            self.masks = []
+        else:
+            self.flips = 0
+        torch.relu = self
+        try:
+            out = fn()
+        finally:
+            torch.relu = self.relu
+        check(mode == "record" or self.i == len(self.masks),
+              f"pinned relu: {self.i} calls replayed, {len(self.masks)} recorded")
+        return out
+
+
+def float64_step_grads(gmodel, inputs, remat=True):
     """One forward and backward of a float64 copy of ``gmodel`` through the
     plain versions, every sum in float64 (``ops.scatter.sum_dtype``): the
     reference a grads check holds both f32 paths to. Each residual block
     and each conv + norm of the backbone (SpUNet-v1m3's or v1m1's; the
     packed strided and inverse convs keep 8 masked copies of their input
-    for the backward) runs under activation checkpointing, so the step fits
-    beside the f32 model.
+    for the backward) runs under activation checkpointing (``remat``), so
+    the step fits beside the f32 model; without it every relu runs once, in
+    forward order, as ``PinnedRelu`` replays them.
     Returns (loss, grads, peak GiB of the step on the card)."""
     import copy
     from functools import partial
@@ -711,7 +790,7 @@ def float64_step_grads(gmodel, inputs):
     from ponderv2_tpu_torch.ops import band_conv as bc
 
     m64 = copy.deepcopy(gmodel).double()
-    for m in m64.modules():
+    for m in m64.modules() if remat else ():
         if type(m).__name__ in ("PDBasicBlock", "PDConvNorm", "BasicBlock", "ConvBNRelu"):
             m.forward = partial(checkpoint, m.forward, use_reentrant=False)
     x64 = {k: v.double() if torch.is_tensor(v) and v.is_floating_point() else v
@@ -739,7 +818,7 @@ def tightest_margins_line(tag, margins, rho, reference, k=3):
 
 
 def grads_kernel_vs_plain(tag, gmodel, inputs, expect, loss_rel, grad_rel,
-                          loss_spread, reference="reordered"):
+                          loss_spread, reference="reordered", pin_relu=False):
     """Two runs of each path, and one reference run that measures the f32
     rounding a gradient carries. The step is reproducible (cuDNN
     deterministic, every sum in a fixed order), so the two runs of a path
@@ -765,7 +844,12 @@ def grads_kernel_vs_plain(tag, gmodel, inputs, expect, loss_rel, grad_rel,
       tensor cores against cuBLAS's f32 FMA).
 
     The loss is held to ``loss_rel`` of the plain path's (plus 3x the
-    reordered difference if ``loss_spread``)."""
+    reordered difference if ``loss_spread``). With ``pin_relu`` every relu
+    of every run takes the first plain run's decisions (``PinnedRelu``), so
+    an activation within rounding of 0 cannot switch a gradient on in one
+    path and off in another; the line says how many decisions each run's
+    own forward would have made otherwise, and the kernel path may make
+    at most 3x as many as the reference run."""
     import torch
 
     from ponderv2_tpu_torch.ops import band_conv as bc
@@ -774,8 +858,23 @@ def grads_kernel_vs_plain(tag, gmodel, inputs, expect, loss_rel, grad_rel,
     reordered_cores = {"band_fwd_core": reordered_fwd,
                        "band_dxdw_core": reordered_dxdw,
                        "band_dw_core": reordered_dw}
-    kern = [step_grads(gmodel, inputs) for _ in range(2)]
-    plain = [step_grads(gmodel, inputs, plain_cores) for _ in range(2)]
+    pin = PinnedRelu()
+    flips = {}
+
+    def run(fn, name=None):
+        if not pin_relu:
+            return fn()
+        out = pin.run("replay" if pin.masks else "record", fn)
+        if name is not None:
+            flips[name] = pin.flips
+        return out
+
+    def plain_runs():
+        return [run(lambda: step_grads(gmodel, inputs, plain_cores)) for _ in range(2)]
+
+    plain = plain_runs() if pin_relu else None  # the record comes first
+    kern = [run(lambda: step_grads(gmodel, inputs), "kernel") for _ in range(2)]
+    plain = plain or plain_runs()
     (loss_k, grads_k, launched_k, secs_k), (loss_p, grads_p, launched_p, secs_p) = (
         kern[0], plain[0])
     check(launched_k == expect and launched_p == [0, 0, 0],
@@ -789,12 +888,14 @@ def grads_kernel_vs_plain(tag, gmodel, inputs, expect, loss_rel, grad_rel,
     rho = 1.0
     if reference == "float64":
         rho = calls_vs_float64(tag, gmodel, inputs)
-        loss_r, grads_r, peak = float64_step_grads(gmodel, inputs)
+        loss_r, grads_r, peak = run(lambda: float64_step_grads(gmodel, inputs,
+                                                               remat=not pin_relu), "float64")
         check(sorted(grads_r) == sorted(grads_p), f"{tag}: float64 grads of other params")
         ref_note = (f"float64 plain run: loss {loss_r:.9f}, peak memory "
                     f"{peak:.3f} GiB")
     else:
-        loss_r, grads_r = step_grads(gmodel, inputs, reordered_cores)[:2]
+        loss_r, grads_r = run(lambda: step_grads(gmodel, inputs, reordered_cores),
+                              "reordered")[:2]
         ref_note = f"reordered plain loss {loss_r:.7f}"
     spread_l = abs(loss_r - loss_p)
     check(abs(loss_k - loss_p) <= loss_rel * abs(loss_p)
@@ -814,6 +915,16 @@ def grads_kernel_vs_plain(tag, gmodel, inputs, expect, loss_rel, grad_rel,
         for e, against in errs:
             margins.append((e / bound, name, against, e, scale, spread))
         rows.append((err / max(scale, 1e-30), spread / max(scale, 1e-30), name))
+    if pin_relu:
+        print(f"[grad] {tag}: every relu pinned to the plain path's decisions "
+              f"({sum(int(m.numel()) for m in pin.masks)} over {len(pin.masks)} calls); "
+              "each run's own forward would decide otherwise at: " + ", ".join(
+                  f"{k} {v}" for k, v in flips.items()), flush=True)
+        # rounding moves only the decisions at near-ties: the kernels' no
+        # more of them than 3x the reference run's
+        check(flips["kernel"] <= 3 * max(flips[reference], 1),
+              f"{tag}: the kernel path's relus decide {flips['kernel']} elements otherwise, "
+              f"the {reference} run's {flips[reference]}")
     print(tightest_margins_line(tag, margins, rho, reference), flush=True)
     for m, name, against, err, scale, spread in margins:
         check(m <= 1.0, f"{tag}: grad {name}: kernel vs {against} {err:.3e} > {grad_rel} x "
@@ -833,6 +944,23 @@ def grads_kernel_vs_plain(tag, gmodel, inputs, expect, loss_rel, grad_rel,
               f"{spread:.3e} (of max|ref|)")
 
 
+def grads_either_bound(tag, gmodel, inputs, expect, pin_relu=False):
+    """``grads_kernel_vs_plain`` at phase 8's bound (the reordered plain
+    path); if that fails, at phase 14's float64 form. Returns which held."""
+    try:
+        grads_kernel_vs_plain(tag, gmodel, inputs, expect, 1e-5, 1e-3, False,
+                              pin_relu=pin_relu)
+        holds = "phase 8's (reordered plain)"
+    except RuntimeError as e:
+        print(f"[grad] {tag}: phase 8's bound failed ({e}); holding it to phase 14's "
+              "float64 form", flush=True)
+        grads_kernel_vs_plain(tag, gmodel, inputs, expect, 1e-5, 1e-3, False,
+                              reference="float64", pin_relu=pin_relu)
+        holds = "phase 14's (float64)"
+    print(f"[grad] {tag}: the bound that holds is {holds}")
+    return holds
+
+
 def spunet_of(model):
     """The sparse U-Net under ``model``'s wrappers (segmentor, PPT, PG)."""
     m = model.backbone
@@ -841,7 +969,7 @@ def spunet_of(model):
     return m
 
 
-def train_and_check(tag, cfg, dev, records=None, val_metric="val/mIoU"):
+def train_and_check(tag, cfg, dev, records=None, val_metric="val/mIoU", steps_expected=3):
     """Train ``cfg`` (3 steps and its evaluations) through
     ``tools/train_torch.py:main_worker`` with a ``step_probe`` hook, the
     K1-K5 counts set to 0 first, and check what each such run must show:
@@ -854,9 +982,11 @@ def train_and_check(tag, cfg, dev, records=None, val_metric="val/mIoU"):
     ``model``, the probe's ``records``, the first batch's model inputs
     ``b_inputs`` (with its ``condition``) and sparse tensor ``st``, its
     plans and routing, the checkpoint's ``state``, ``launches``,
-    ``peak_gib`` and ``step_ms``. ``records`` may ask the probe for more
+    ``peak_gib``, ``step_ms`` and the ``CheckpointLoader``'s
+    ``weight_load`` report. ``records`` may ask the probe for more
     (``step_probe``; ``"peaks": []`` each step's peak memory); ``val_metric``
-    is the evaluation's storage key to print."""
+    is the evaluation's storage key to print (None: the config evaluates
+    nothing); ``steps_expected`` the steps of the run."""
     from types import SimpleNamespace
 
     import numpy as np
@@ -885,7 +1015,7 @@ def train_and_check(tag, cfg, dev, records=None, val_metric="val/mIoU"):
     peak_gib = max(torch.cuda.max_memory_allocated(dev), records.get("peak_floor", 0),
                    *records.get("peaks", [])) / 2 ** 30
     steps = records["steps"]
-    n_val = len(trainer.val_loader)
+    n_val = len(trainer.val_loader) if trainer.val_loader is not None else 0
     model = trainer.model
     val_band = sum(m.last_route.startswith("band") for m in model.modules()
                    if isinstance(m, SubMConv))  # the last forward was a val one
@@ -908,7 +1038,8 @@ def train_and_check(tag, cfg, dev, records=None, val_metric="val/mIoU"):
           f"plans), {per_step[1]} fused backward (K2), {per_step[2]} split (K1 + K3): "
           f"launches per step {per_step}; {live} live rows of {st.capacity}"
           + (f"; batch conditions {static['condition']}" if "condition" in static else ""))
-    check(len(steps) == len(trainer.train_loader) == 3, f"{tag}: {len(steps)} steps")
+    check(len(steps) == len(trainer.train_loader) == steps_expected,
+          f"{tag}: {len(steps)} steps")
     for i, m in enumerate(steps):
         print(f"[{tag}] step {i}: loss {m['loss']:.6f} lr {m['lr']:.6e} contract_ok "
               f"{m['contract_ok']} launches {m['launches']}")
@@ -917,29 +1048,35 @@ def train_and_check(tag, cfg, dev, records=None, val_metric="val/mIoU"):
         check(m["lr"] == m["schedule_lr"], f"{tag} step {i} lr {m['lr']} != schedule")
         check(m["launches"] == per_step + [0, 0],
               f"{tag} step {i} launches {m['launches']} != routing {per_step}")
-    check(val_band == BAND_CONVS_PER_FORWARD, f"{tag}: val forward ran {val_band} band convs")
-    check(launches == [3 * per_step[0] + n_val * val_band, 3 * per_step[1], 3 * per_step[2]],
+    check(not n_val or val_band == BAND_CONVS_PER_FORWARD,
+          f"{tag}: val forward ran {val_band} band convs")
+    n = steps_expected
+    check(launches == [n * per_step[0] + n_val * val_band, n * per_step[1], n * per_step[2]],
           f"{tag}: training launches {launches}")
 
     ckpt_path = os.path.join(cfg.save_path, "model", "model_last.pth")
     ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
     fresh = build_model(dict(cfg.model))
     fresh.load_state_dict(ckpt["state_dict"])
-    check(ckpt["step"] == 3 and all(torch.equal(v.cpu(), fresh.state_dict()[k])
+    check(ckpt["step"] == n and all(torch.equal(v.cpu(), fresh.state_dict()[k])
                                     for k, v in model.state_dict().items()),
           f"{tag}: the checkpoint does not hold the trained state")
     batch_times = [v for v, _ in trainer.storage.history("batch_time").values()]
     data_times = [v for v, _ in trainer.storage.history("data_time").values()]
-    val_value = trainer.storage.history(val_metric).latest()
-    print(f"[{tag}] checkpoint {ckpt_path} (step {ckpt['step']}) loads into a fresh model; "
-          f"{val_metric} {val_value:.4f} (random-init weights after 3 steps)")
+    val_note = ""
+    if val_metric is not None:
+        val_note = (f"; {val_metric} {trainer.storage.history(val_metric).latest():.4f} "
+                    f"(random-init weights after {n} steps)")
+    print(f"[{tag}] checkpoint {ckpt_path} (step {ckpt['step']}) loads into a fresh "
+          f"model{val_note}")
     # IterationTimer's batch_time runs from the end of one step to the end
     # of the next, so it holds the data wait; the step is the difference
     step_times = [b - d for b, d in zip(batch_times, data_times)]
-    step_ms = 1e3 * float(np.median(step_times[1:]))
+    step_ms = 1e3 * float(np.median(step_times[1:] or step_times))
     print(f"[time] {tag} step (host clock, batch to device .. metrics synced): "
-          f"{', '.join(f'{1e3 * t:.1f}' for t in step_times)} ms, median of the last 2 "
-          f"{step_ms:.1f} ms; data wait {', '.join(f'{1e3 * t:.1f}' for t in data_times)} ms")
+          f"{', '.join(f'{1e3 * t:.1f}' for t in step_times)} ms, median of the last "
+          f"{max(len(step_times) - 1, 1)} {step_ms:.1f} ms; data wait "
+          f"{', '.join(f'{1e3 * t:.1f}' for t in data_times)} ms")
     print(f"[memory] {tag} peak {peak_gib:.3f} GiB")
     run = SimpleNamespace(
         model=model, records=records, b_inputs=b_inputs, st=st, level_rb=level_rb,
@@ -948,7 +1085,8 @@ def train_and_check(tag, cfg, dev, records=None, val_metric="val/mIoU"):
         n_val=n_val, step_times_ms=[1e3 * t for t in step_times],
         val_scalars={k: trainer.storage.history(k).latest()
                      for k in trainer.storage.histories() if k.startswith("val/")},
-        data_ms=[1e3 * t for t in data_times], ckpt_path=ckpt_path)
+        data_ms=[1e3 * t for t in data_times], ckpt_path=ckpt_path,
+        weight_load=trainer.comm_info.get("weight_load"))
     del trainer, fresh, ckpt
     gc.collect()
     torch.cuda.empty_cache()
@@ -1393,16 +1531,7 @@ def multi_pretrain_phase(dev, tmp, gen, stats):
     inputs = {**inputs, "draws": draws}
     tag = "multi-dataset pretrain step from the seeded state (f32)"
     calls_vs_float64(tag, gmodel, inputs)
-    try:
-        grads_kernel_vs_plain(tag, gmodel, inputs, per_step, 1e-5, 1e-3, False)
-        holds = "phase 8's (reordered plain)"
-    except RuntimeError as e:
-        print(f"[grad] {tag}: phase 8's bound failed ({e}); holding it to phase 14's "
-              "float64 form", flush=True)
-        grads_kernel_vs_plain(tag, gmodel, inputs, per_step, 1e-5, 1e-3, False,
-                              reference="float64")
-        holds = "phase 14's (float64)"
-    print(f"[grad] {tag}: the bound that holds is {holds}")
+    holds = grads_either_bound(tag, gmodel, inputs, per_step)
     del gmodel, inputs, draws
     gc.collect()
     torch.cuda.empty_cache()
@@ -1630,21 +1759,368 @@ def insseg_recipe_phase(dev, tmp, gen, stats):
     check({"bias_head.0.weight", "bias_head.2.weight", "seg_head.weight"}
           <= {n for n, _ in gmodel.named_parameters()}, "insseg: the heads' parameters")
     tag = "insseg step from the seeded state (f32)"
-    try:
-        grads_kernel_vs_plain(tag, gmodel, run.b_inputs, run.per_step, 1e-5, 1e-3, False)
-        holds = "phase 8's (reordered plain)"
-    except RuntimeError as e:
-        print(f"[grad] {tag}: phase 8's bound failed ({e}); holding it to phase 14's "
-              "float64 form", flush=True)
-        grads_kernel_vs_plain(tag, gmodel, run.b_inputs, run.per_step, 1e-5, 1e-3, False,
-                              reference="float64")
-        holds = "phase 14's (float64)"
-    print(f"[grad] {tag}: the bound that holds is {holds}")
+    holds = grads_either_bound(tag, gmodel, run.b_inputs, run.per_step)
     out = {"train_launches": run.launches, "peak_gib": run.peak_gib,
            "step_ms": run.step_times_ms, "data_ms": run.data_ms, "eval_ms": eval_ms,
            "scores": scores, "oracle_mAP50": {k: r["mAP50"] for k, r in oracle.items()},
            "grads_bound": holds}
     del gmodel, run, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+
+def nuscenes_options(config, data_root, save_path, num_worker, weight=None):
+    """What a run of a nuScenes config (``NUSCENES_PRETRAIN`` /
+    ``NUSCENES_SEMSEG``) on ``write_synthetic_nuscenes``'s scans changes: its
+    data roots, one epoch (``epoch`` = ``eval_epoch`` = 1), the save path,
+    ``num_worker`` (the configs' 16 want 16 CPUs) and, for the fine-tune,
+    the pretrain checkpoint as ``weight``. Model, transforms, batch, point
+    budgets, optimizer and schedule stay the config's."""
+    opts = {"data.train.data_root": data_root, "epoch": 1, "eval_epoch": 1,
+            "save_path": save_path, "num_worker": num_worker}
+    if config == NUSCENES_SEMSEG:
+        opts.update({"data.val.data_root": data_root, "data.test.data_root": data_root,
+                     "weight": weight})
+    return opts
+
+
+def nuscenes_num_worker(config_workers):
+    """The config's ``num_worker``, cut to the host's CPUs less two."""
+    return max(1, min(int(config_workers), (os.cpu_count() or 1) - 2))
+
+
+def band_levels_report(tag, spunet, level_rb, spatial_shape, batch_size):
+    """Per level of ``level_rb``: its cells (batch x X x Y x Z against the
+    192 Mi dense-grid limit), its plan (a SubmPlan, or a plain rulebook),
+    the routes its k3 convs take and, where a band plan runs (attached, or
+    built inline as ``SubMConv`` builds it), its final budgets after the
+    doublings and its live overflow entries. Prints one line; checks every
+    band plan's ``ok``; returns the levels that run K1-K3."""
+    import math
+    from collections import Counter
+
+    from ponderv2_tpu_torch.models.sparse_unet.layers import subm_route
+    from ponderv2_tpu_torch.models.sparse_unet.plans import level_spatial_shapes
+    from ponderv2_tpu_torch.ops import band_conv as bc
+    from ponderv2_tpu_torch.ops.hashing import DENSE_GRID_LIMIT
+    from ponderv2_tpu_torch.ops.spconv import SubmPlan
+
+    shapes = level_spatial_shapes(spatial_shape, spunet.num_stages)
+    parts, band_levels = [], []
+    for level, rb in enumerate(level_rb):
+        blocks = ([spunet.enc[level - 1]] if level >= 1 else []) + (
+            [spunet.dec[level]] if level < spunet.num_stages else [])
+        convs = [c for bl in blocks for b in bl.values() for c in (b.conv1, b.conv2)]
+        routes = Counter(subm_route(rb, c.in_channels, c.out_channels, 3) for c in convs)
+        X, Y, Z = shapes[level]
+        cells = batch_size * X * Y * Z
+        plan = rb.band if isinstance(rb, SubmPlan) else (
+            bc.build_band_plan_auto(rb, 3) if routes.get("band-inline") else None)
+        text = (f"L{level} {X}x{Y}x{Z} x{batch_size} = {cells:.3g} cells "
+                f"({'<=' if cells <= DENSE_GRID_LIMIT else '>'} 192 Mi): "
+                f"{'SubmPlan' if isinstance(rb, SubmPlan) else 'rulebook'}, "
+                + ", ".join(f"{n} {r}" for r, n in sorted(routes.items())))
+        if plan is not None:
+            budget = plan.ov_i.shape[0]
+            doublings = round(math.log2(budget / bc.ENTRY_BUDGET))
+            text += (f"; band budgets pair {bc.PAIR_BUDGET << doublings} entry {budget} "
+                     f"({doublings} doublings), {sum(plan.ov_counts)} overflow entries, "
+                     f"ok {bool(plan.ok)}")
+            check(bool(plan.ok), f"{tag}: L{level} band plan overflows its budgets after "
+                                 f"{doublings} doublings")
+            band_levels.append(level)
+        parts.append(text)
+    print(f"[{tag}] per level (the k5 stem at L0 runs the plain gather conv): "
+          + "; ".join(parts))
+    return band_levels
+
+
+def rulebook_convs_ms(tag, spunet, level_rb, stem, level_coords, gen):
+    """Forward + backward ms (CUDA events) of the convs that run the plain
+    gather conv (``ops/spconv.py:subm_conv_symmetric``) in one step: the k5
+    stem and every k3 conv whose route is plain or slab, at its rows and
+    widths, on random features. Prints and returns their sum."""
+    import torch
+
+    from ponderv2_tpu_torch.models.sparse_unet.layers import subm_route
+    from ponderv2_tpu_torch.ops.spconv import SubmPlan, subm_conv_symmetric
+
+    def legacy(rb):
+        return rb.legacy if isinstance(rb, SubmPlan) else rb
+
+    stem_conv = spunet.conv_input[0]
+    cases = [("stem k5", legacy(stem), level_coords[0], stem_conv.in_channels,
+              stem_conv.out_channels, 1)]
+    for level, rb in enumerate(level_rb):
+        blocks = ([spunet.enc[level - 1]] if level >= 1 else []) + (
+            [spunet.dec[level]] if level < spunet.num_stages else [])
+        plain = [c for bl in blocks for b in bl.values() for c in (b.conv1, b.conv2)
+                 if not subm_route(rb, c.in_channels, c.out_channels, 3).startswith("band")]
+        if plain:
+            cases.append((f"L{level} k3", legacy(rb), level_coords[level],
+                          plain[0].in_channels, plain[0].out_channels, len(plain)))
+    total, parts = 0.0, []
+    for label, rulebook, coords, cin, cout, count in cases:
+        mask = coords[:, 0] >= 0
+        f = (torch.randn(coords.shape[0], cin, device=coords.device, generator=gen)
+             * mask[:, None]).requires_grad_()
+        w = (torch.randn(rulebook.shape[0], cin, cout, device=coords.device, generator=gen)
+             / (rulebook.shape[0] * cin) ** 0.5).requires_grad_()
+
+        def fwd_bwd():
+            subm_conv_symmetric(f, rulebook, w, mask, None).sum().backward()
+
+        ms = cuda_ms(fwd_bwd, 3)
+        total += count * ms
+        parts.append(f"{label} {cin}->{cout} x{count} over {int(mask.sum())} rows "
+                     f"{ms:.2f} ms")
+    print(f"[{tag}] the plain gather convs of a step, forward + backward (CUDA events): "
+          + "; ".join(parts) + f"; {total:.1f} ms a step")
+    return total
+
+
+def nuscenes_host_ms(cfg, scans=2):
+    """Host ms per scan of the pretrain's data path, in this process: the
+    file reads (the LiDAR and six PNG decodes, ``get_data``), then each
+    transform of the config's pipeline (``ProjectOnImage``'s per-camera
+    z-buffer loop among them). Prints one line per scan."""
+    import numpy as np
+
+    from ponderv2_tpu_torch.datasets import build_dataset
+
+    ds = build_dataset(dict(cfg.data.train))
+    state = np.random.get_state()
+    np.random.seed(SEED)
+    try:
+        for i in range(scans):
+            t = time.perf_counter()
+            data = ds.get_data(i)
+            times = [("read", time.perf_counter() - t)]
+            for tf in ds.transform.transforms:
+                t = time.perf_counter()
+                data = tf(data)
+                times.append((type(tf).__name__, time.perf_counter() - t))
+            print(f"[nuscenes] host ms for scan {i}: " + ", ".join(
+                f"{k} {1e3 * v:.1f}" for k, v in times)
+                + f"; {1e3 * sum(v for _, v in times):.1f} in all")
+    finally:
+        np.random.set_state(state)
+
+
+def nuscenes_pretrain_phase(dev, tmp, gen, stats):
+    """Phase 17: the paper's nuScenes LiDAR pretrain from files. Writes
+    ``NUSCENES_PRETRAIN_SCANS`` + ``NUSCENES_ONE_STEP_SCANS`` procedural
+    scans with six cameras each; trains the base config 3 steps at batch 4
+    (``train_and_check``), prints each step and the levels' plans, holds
+    K1-K3 against their plain versions at the first batch's convs (timed in
+    f32 into ``stats``), every K1-K3 call of a step against float64 and the
+    seeded step's grads, kernel path against plain; then one step of each
+    other pretrain config. Returns the run's launches and times and the
+    base run's checkpoint."""
+    import numpy as np
+    import torch
+
+    from ponderv2_tpu_torch.datasets.preprocessing.synthetic_nuscenes import (
+        IMAGE_HW, write_synthetic_nuscenes)
+    from ponderv2_tpu_torch.engines.defaults import default_config_parser
+    from ponderv2_tpu_torch.models import build_model
+    from ponderv2_tpu_torch.utils.config import Config
+
+    root, root_one = (os.path.join(tmp, d) for d in ("nuscenes", "nuscenes_one"))
+    workers = nuscenes_num_worker(Config.fromfile(NUSCENES_PRETRAIN["base"]).num_worker)
+    t0 = time.perf_counter()
+    write_synthetic_nuscenes(root, {"train": NUSCENES_PRETRAIN_SCANS}, SEED, workers=workers)
+    write_synthetic_nuscenes(root_one, {"train": NUSCENES_ONE_STEP_SCANS}, SEED + 1,
+                             workers=workers)
+    print(f"[nuscenes] wrote {NUSCENES_PRETRAIN_SCANS} + {NUSCENES_ONE_STEP_SCANS} "
+          f"procedural LiDAR scans (32 beams, six {IMAGE_HW[1]} x {IMAGE_HW[0]} PNG "
+          f"cameras each) in {time.perf_counter() - t0:.1f} s")
+
+    runs = {}
+    for name, config in NUSCENES_PRETRAIN.items():
+        base = name == "base"
+        cfg = default_config_parser(config, nuscenes_options(
+            config, root if base else root_one,
+            os.path.join(tmp, f"nuscenes_{name}"), workers))
+        cfg.seed = SEED
+        cfg.device = str(dev)
+        tag = f"nuscenes-{name}"
+        if base:
+            print(f"[nuscenes] os.cpu_count() {os.cpu_count()}: num_worker {cfg.num_worker} "
+                  f"(the config's 16)")
+            nuscenes_host_ms(cfg)
+        records = {"steps": [], "conditions": [], "batches": [], "peaks": []}
+        run = train_and_check(tag, cfg, dev, records, val_metric=None,
+                              steps_expected=3 if base else 1)
+        spunet = spunet_of(run.model)
+        for i, (m, batch) in enumerate(zip(records["steps"], records["batches"])):
+            terms = {k: float(v) for k, v in records["terms"][i].items()}
+            live = int((np.asarray(batch["batch"]) >= 0).sum())
+            print(f"[{tag}] step {i}: {run.step_times_ms[i]:.1f} ms, data wait "
+                  f"{run.data_ms[i]:.1f} ms, peak {records['peaks'][i] / 2 ** 30:.3f} GiB, "
+                  f"{live} live rows, {batch['ray_start'].shape[1]} rays a scan; "
+                  + " ".join(f"{k} {v:.5f}" for k, v in terms.items()))
+            check(all(np.isfinite(v) for v in terms.values())
+                  and set(cfg.metric_keys) - {"psnr"} <= set(terms),
+                  f"{tag} step {i}: loss terms {terms}")
+        if name == "base-semantic":
+            emb = run.model.class_embedding
+            print(f"[{tag}] the semantic head's class embeddings: {tuple(emb.shape)} from "
+                  "assets/clip_text/nuscenes16.npy, a deterministic stub (no CLIP weights "
+                  "in the repository)")
+        band_levels = band_levels_report(tag, spunet, run.level_rb, cfg.sparse_shape,
+                                         cfg.batch_size)
+        runs[name] = dict(launches=run.launches, step_ms=run.step_times_ms,
+                          data_ms=run.data_ms, peak_gib=run.peak_gib,
+                          band_levels=band_levels, per_step=run.per_step)
+        if not base:
+            del run, records
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        ckpt_path = run.ckpt_path
+        _, _, stem = level_plans(spunet, run.st)
+        rulebook_ms = rulebook_convs_ms(tag, spunet, run.level_rb, stem, run.level_coords,
+                                        gen)
+        compare_band_kernels(run.convs, run.fused, run.level_rb, run.level_coords, gen,
+                             torch.float32, stats, fwd_runs=2 if spunet.remat else 1)
+        b_inputs, per_step, model_cfg = run.b_inputs, run.per_step, dict(cfg.model)
+        del run, records, stem
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # each K1-K3 call of a step against float64, and the seeded step's
+        # grads, kernel path against plain (phase 8's bound; if it fails,
+        # phase 14's float64 form)
+        gmodel = build_model(model_cfg)
+        gmodel.reset_parameters(torch.Generator().manual_seed(SEED))
+        gmodel.to(dev).train()
+        B, R = b_inputs["ray_start"].shape[:2]
+        inputs = {**b_inputs, "draws": gmodel.draw_noise(
+            torch.Generator(device=dev).manual_seed(SEED), B, R)}
+        gtag = "nuscenes pretrain step from the seeded state (f32)"
+        calls_vs_float64(gtag, gmodel, inputs)
+        holds = grads_either_bound(gtag, gmodel, inputs, per_step)
+        runs[name].update(rulebook_ms=rulebook_ms, grads_bound=holds)
+        del gmodel, inputs, b_inputs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"runs": runs, "train_launches": runs["base"]["launches"], "ckpt": ckpt_path}
+
+
+def nuscenes_semseg_phase(dev, tmp, gen, stats, weight):
+    """Phase 18: the paper's nuScenes lidarseg fine-tune from files, from
+    phase 17's checkpoint (``weight``). Writes ``NUSCENES_SEMSEG_SCANS`` +
+    ``NUSCENES_VAL_SCANS`` scans (no cameras), trains 3 steps at batch 12
+    and one evaluation (``train_and_check``), checks which checkpoint
+    entries loaded, prints each step and the levels' plans, serves the val
+    scans through ``SemSegTester`` (``serve_and_check``), holds K1-K3
+    against their plain versions at the first batch's convs (timed in f32
+    into ``stats``), the seeded step's grads as phases 15-17 do with every
+    relu pinned to the plain path's decisions (``PinnedRelu``), and the
+    trained step's grads as phase 14 does (every K1-K3 call and the grads
+    against float64). Returns the run's launches and times."""
+    import numpy as np
+    import torch
+
+    from ponderv2_tpu_torch.datasets.preprocessing.synthetic_nuscenes import (
+        write_synthetic_nuscenes)
+    from ponderv2_tpu_torch.engines.defaults import default_config_parser
+    from ponderv2_tpu_torch.models import build_model
+    from ponderv2_tpu_torch.utils.config import Config
+
+    root = os.path.join(tmp, "nuscenes_semseg")
+    workers = nuscenes_num_worker(Config.fromfile(NUSCENES_SEMSEG).num_worker)
+    t0 = time.perf_counter()
+    write_synthetic_nuscenes(root, {"train": NUSCENES_SEMSEG_SCANS,
+                                    "val": NUSCENES_VAL_SCANS}, SEED + 2, cameras=False,
+                             workers=workers)
+    print(f"[nuscenes-semseg] wrote {NUSCENES_SEMSEG_SCANS} + {NUSCENES_VAL_SCANS} "
+          f"procedural LiDAR scans in {time.perf_counter() - t0:.1f} s")
+    cfg = default_config_parser(NUSCENES_SEMSEG, nuscenes_options(
+        NUSCENES_SEMSEG, root, os.path.join(tmp, "nuscenes_semseg_train"), workers, weight))
+    cfg.seed = SEED
+    cfg.device = str(dev)
+    tag = "nuscenes-semseg"
+    records = {"steps": [], "conditions": [], "batches": [], "peaks": []}
+    run = train_and_check(tag, cfg, dev, records)
+    report = run.weight_load
+    pretrained = torch.load(weight, map_location="cpu", weights_only=True)["state_dict"]
+    print(f"[{tag}] weight {weight}: {len(report['loaded'])} entries loaded, all "
+          f"backbone.*; skipped {len(report['skipped'])} of the checkpoint "
+          f"({', '.join(sorted({k.split('.')[0] for k in report['skipped']}))}: "
+          f"{report['skipped']}); the model's {report['missing']} not in it")
+    want = sorted(k for k in pretrained if k.startswith("backbone."))
+    check(report["loaded"] == want and report["missing"] == ["backbone.final.bias",
+                                                             "backbone.final.weight"]
+          and not any(k.startswith("backbone.") for k in report["skipped"]),
+          f"{tag}: weight load {len(report['loaded'])} loaded, missing {report['missing']}")
+    moved = [k for k in want if "running" in k
+             and not torch.equal(records["running_before"][k].cpu(), pretrained[k])]
+    check(not moved, f"{tag}: running statistics at step 0 differ from the checkpoint: "
+                     f"{moved[:3]}")
+    for i, (m, batch) in enumerate(zip(records["steps"], records["batches"])):
+        live = int((np.asarray(batch["batch"]) >= 0).sum())
+        print(f"[{tag}] step {i}: {run.step_times_ms[i]:.1f} ms, data wait "
+              f"{run.data_ms[i]:.1f} ms, peak {records['peaks'][i] / 2 ** 30:.3f} GiB, "
+              f"{live} live rows, loss {m['loss']:.6f}")
+    spunet = spunet_of(run.model)
+    band_levels = band_levels_report(tag, spunet, run.level_rb, cfg.sparse_shape,
+                                     cfg.batch_size)
+    _, _, stem = level_plans(spunet, run.st)
+    rulebook_ms = rulebook_convs_ms(tag, spunet, run.level_rb, stem, run.level_coords, gen)
+    del stem, records
+
+    # ---- serve the val scans through SemSegTester with the trained weights
+    tcfg = default_config_parser(NUSCENES_SEMSEG, nuscenes_options(
+        NUSCENES_SEMSEG, root, os.path.join(tmp, "nuscenes_semseg_test"), workers,
+        run.ckpt_path))
+    tcfg.seed = SEED
+    tcfg.device = str(dev)
+    served = serve_and_check("nuscenes-serve", tcfg, dev)
+    frag_ms = [1e3 * t for t in served.tester.fragment_seconds]
+    print(f"[nuscenes-serve] {NUSCENES_VAL_SCANS} val scans, {served.forwards} fragments "
+          f"(GridSample test mode, one rotation, no crop) at the point budget "
+          f"{tcfg.get('point_budget_test', tcfg.point_budget)}: "
+          f"{', '.join(f'{t:.1f}' for t in frag_ms)} ms a fragment (host to logits)")
+    serve_launches = served.launches
+    del served
+
+    compare_band_kernels(run.convs, run.fused, run.level_rb, run.level_coords, gen,
+                         torch.float32, stats, fwd_runs=2 if spunet.remat else 1)
+    b_inputs, per_step, state = run.b_inputs, run.per_step, run.state
+    out = {"train_launches": run.launches, "serve_launches": serve_launches,
+           "step_ms": run.step_times_ms, "data_ms": run.data_ms, "peak_gib": run.peak_gib,
+           "band_levels": band_levels, "rulebook_ms": rulebook_ms, "fragment_ms": frag_ms}
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the seeded first batch's grads, kernel path against plain, as
+    # phases 15-17 hold theirs, with every relu taking the plain path's
+    # decisions: in this seeded state an activation of dec.2.block1 lies
+    # within f32 rounding of 0, and any perturbation of K1's size at one of
+    # ~30 of the step's K1 calls switches it (and its gradient) on or off,
+    # K1's own error as well as half or minus it, the plain path reordered
+    # as well as float64 (tools/experiments/nuscenes_grads_torch.py)
+    gmodel = build_model(dict(cfg.model))
+    gmodel.reset_parameters(torch.Generator().manual_seed(SEED))
+    gmodel.to(dev).train()
+    gtag = "nuscenes semseg step from the seeded state (f32)"
+    out["grads_bound"] = {"seeded, relu pinned": grads_either_bound(
+        gtag, gmodel, b_inputs, per_step, pin_relu=True)}
+
+    # ---- one step's grads from the trained state, as in 14: every K1-K3
+    # call against float64 on its own inputs, and the grads with float64 as
+    # the reference
+    gmodel.load_state_dict(state)
+    gtag = "nuscenes semseg step from the trained state (f32)"
+    grads_kernel_vs_plain(gtag, gmodel, b_inputs, per_step, 1e-5, 1e-3, False,
+                          reference="float64")
+    out["grads_bound"]["trained"] = "phase 14's (float64)"
+    del gmodel, b_inputs, state
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -2229,7 +2705,17 @@ def main() -> int:
         insseg = insseg_recipe_phase(dev, tmp, gen, insseg_stats)
         phase_done("16 insseg recipe from files")
 
-        # ---- 17. output
+        # ---- 17. the nuScenes LiDAR pretrain from files
+        nus_stats = new_stats()
+        nus = nuscenes_pretrain_phase(dev, tmp, gen, nus_stats)
+        phase_done("17 nuScenes outdoor pretrain from files")
+
+        # ---- 18. the nuScenes semseg fine-tune from phase 17's checkpoint
+        nseg_stats = new_stats()
+        nseg = nuscenes_semseg_phase(dev, tmp, gen, nseg_stats, nus["ckpt"])
+        phase_done("18 nuScenes semseg fine-tune from files")
+
+        # ---- 19. output
         print(f"[time] per fine-tune step at batch {tcfg.batch_size} (f32): "
               + "; ".join(f"{name} {stats[name]['ms']:.3f} ms vs plain "
                           f"{stats[name]['plain_ms']:.3f} ms (bound "
@@ -2251,6 +2737,13 @@ def main() -> int:
               + "; ".join(f"{name} {insseg_stats[name]['ms']:.3f} ms vs plain "
                           f"{insseg_stats[name]['plain_ms']:.3f} ms (bound "
                           f"{insseg_stats[name]['bound_ms']:.3f} ms)" for name in BAND_CORES))
+        for label, st in ((f"nuScenes pretrain step at batch 4 (f32, remat, the first batch's "
+                           f"convs)", nus_stats),
+                          (f"nuScenes semseg step at batch 12 (f32, remat, the first batch's "
+                           f"convs)", nseg_stats)):
+            print(f"[time] per {label}: " + "; ".join(
+                f"{name} {st[name]['ms']:.3f} ms vs plain {st[name]['plain_ms']:.3f} ms "
+                f"(bound {st[name]['bound_ms']:.3f} ms)" for name in BAND_CORES))
         print(f"[time] phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
 
         def entry(name, launches, st):
@@ -2286,6 +2779,11 @@ def main() -> int:
                 row["multi_pretrain"] = entry(name, multi["train_launches"][i],
                                               multi_stats[name])
                 row["insseg"] = entry(name, insseg["train_launches"][i], insseg_stats[name])
+                row["nuscenes_pretrain"] = entry(name, nus["train_launches"][i],
+                                                 nus_stats[name])
+                row["nuscenes_semseg"] = entry(name, nseg["train_launches"][i],
+                                               nseg_stats[name])
+                row["nuscenes_serving_launches"] = nseg["serve_launches"][i]
             kernels.append(row)
         # the probe kernels: one row per ported probe function, its launches
         # from its own run through the entry point

@@ -4,5 +4,5 @@ from .transform import TRANSFORMS, Compose
 from .utils import collate_fn, point_collate_fn
 
 # register the datasets: DefaultDataset, ConcatDataset and the synthetic
-# ones; ScanNet(200), S3DIS and Structured3D
-from . import defaults, s3dis, scannet, structure3d  # noqa: F401
+# ones; ScanNet(200), S3DIS, Structured3D and nuScenes
+from . import defaults, nuscenes, s3dis, scannet, structure3d  # noqa: F401

@@ -4,6 +4,7 @@ A copy of the transforms that the ScanNet test and train paths run, taken
 from ``ponderv2_tpu/datasets/transform.py`` with only the import lines changed:
 the JAX package cannot be imported without JAX (its ``utils`` package
 imports ``optax``). Goes away once that package imports lazily.
+``RandomShift`` differs: it also reads a scalar per axis (F10).
 """
 
 from __future__ import annotations
@@ -119,6 +120,27 @@ class CenterShift:
 
 
 @TRANSFORMS.register_module()
+class RandomShift:
+    """Translate the points by a uniform draw per axis (and the listed
+    camera matrices with them). Each entry of ``shift`` is an axis's
+    ``(lo, hi)`` range, or a scalar ``s`` for ``(-s, s)``: the nuScenes
+    pretrain configs pass ``shift=[0.5, 0.5, 0.5]``, on which the JAX
+    transform raises (``np.random.uniform(*0.5)``; ROADMAP Queue 3, F10).
+    On pairs it draws exactly what the JAX transform draws."""
+
+    def __init__(self, shift=((-0.2, 0.2), (-0.2, 0.2), (0, 0)), keys=None):
+        self.shift = shift
+        self.keys = keys
+
+    def __call__(self, data_dict):
+        s = np.array([np.random.uniform(*(r if np.ndim(r) else (-r, r)))
+                      for r in self.shift])
+        data_dict["coord"] = data_dict["coord"] + s
+        _update_cameras(data_dict, self.keys, _mat4_translate(s))
+        return data_dict
+
+
+@TRANSFORMS.register_module()
 class PositiveShift:
     def __init__(self, keys=None):
         self.keys = keys
@@ -204,6 +226,27 @@ def _index_points(data_dict, idx):
         if isinstance(v, np.ndarray) and v.ndim >= 1 and v.shape[0] == n:
             data_dict[k] = v[idx]
     return data_dict
+
+
+@TRANSFORMS.register_module()
+class PointRangeFilter:
+    """Drop points outside a fixed range (outdoor lidar)."""
+
+    def __init__(self, point_cloud_range=(-54, -54, -5, 54, 54, 3), padding=0.1):
+        self.range = np.asarray(point_cloud_range)
+        self.padding = padding
+
+    def __call__(self, data_dict):
+        coord = data_dict["coord"]
+        keep = (
+            (coord[:, 0] > self.range[0] + self.padding)
+            & (coord[:, 0] < self.range[3] - self.padding)
+            & (coord[:, 1] > self.range[1] + self.padding)
+            & (coord[:, 1] < self.range[4] - self.padding)
+            & (coord[:, 2] > self.range[2] + self.padding)
+            & (coord[:, 2] < self.range[5] - self.padding)
+        )
+        return _index_points(data_dict, np.where(keep)[0])
 
 
 
@@ -574,3 +617,105 @@ class InstanceParser:
         data_dict["instance_centroid"] = centroid.astype(np.float32)
         data_dict["bbox"] = bbox.astype(np.float32)
         return data_dict
+
+
+# ------------------------------------------------------------ outdoor pretrain
+
+
+@TRANSFORMS.register_module()
+class ProjectOnImage:
+    """Project lidar points onto camera images; keep visible points with their
+    pixel colors and view ids (reference transform.py:267-315, z-buffer overlap
+    filter at 293-304)."""
+
+    def __init__(self, depth_threshold=0.05, keys=("rgb",)):
+        self.depth_threshold = depth_threshold
+        self.keys = keys
+
+    def __call__(self, data_dict):
+        coord = data_dict["coord"]
+        l2i = data_dict["lidar2img"]  # (V, 4, 4)
+        images = data_dict["rgb"]  # (V, H, W, 3)
+        V = l2i.shape[0]
+        n = coord.shape[0]
+        hom = np.concatenate([coord, np.ones((n, 1))], axis=1)
+        pix_color = np.zeros((n, 3), np.float32)
+        view_id = np.full(n, -1, np.int64)
+        pix_uv = np.zeros((n, 2), np.float32)
+        for v in range(V):
+            H, W = images[v].shape[:2]
+            proj = hom @ l2i[v].T
+            z = proj[:, 2]
+            u = proj[:, 0] / np.maximum(z, 1e-6)
+            w = proj[:, 1] / np.maximum(z, 1e-6)
+            visible = (z > 0.1) & (u >= 0) & (u < W - 1) & (w >= 0) & (w < H - 1)
+            visible &= view_id < 0  # first camera wins
+            # z-buffer overlap filter: among points hitting the same pixel,
+            # keep the nearest
+            ui = np.round(u).astype(int)
+            wi = np.round(w).astype(int)
+            flat = wi * W + ui
+            zbuf = np.full(H * W, np.inf, np.float32)
+            vis_idx = np.where(visible)[0]
+            order = vis_idx[np.argsort(z[vis_idx])]
+            seen = np.zeros(H * W, bool)
+            keep = []
+            for i in order:
+                f = flat[i]
+                if not seen[f] or z[i] <= zbuf[f] + self.depth_threshold:
+                    keep.append(i)
+                    if not seen[f]:
+                        zbuf[f] = z[i]
+                        seen[f] = True
+            keep = np.asarray(keep, int)
+            view_id[keep] = v
+            pix_color[keep] = images[v][wi[keep], ui[keep]]
+            pix_uv[keep] = np.stack([u[keep], w[keep]], axis=1)
+        data_dict["point_view_id"] = view_id
+        data_dict["point_color"] = pix_color
+        data_dict["point_uv"] = pix_uv
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class RaySample:
+    """Sample supervision rays camera-origin -> lidar point (reference
+    transform.py:318-378): emits fixed-size ray_start/ray_end/ray_rgb (+labels)."""
+
+    def __init__(self, point_nsample=512, point_ratio=None, fetch_color=True,
+                 fetch_segment=True):
+        self.point_nsample = point_nsample
+        self.point_ratio = point_ratio
+        self.fetch_color = fetch_color
+        self.fetch_segment = fetch_segment
+
+    def __call__(self, data_dict):
+        view_id = data_dict["point_view_id"]
+        coord = data_dict["coord"]
+        l2c = data_dict["lidar2cam"]  # (V, 4, 4)
+        cam_origin = np.stack(
+            [np.linalg.inv(l2c[v])[:3, 3] for v in range(l2c.shape[0])]
+        )
+        candidates = np.where(view_id >= 0)[0]
+        n = self.point_nsample
+        if self.point_ratio is not None:
+            n = min(n, max(int(len(candidates) * self.point_ratio), 1))
+        if len(candidates) == 0:
+            pick = np.zeros(n, int)
+            valid = np.zeros(n, bool)
+        else:
+            pick = candidates[np.random.randint(0, len(candidates), n)]
+            valid = np.ones(n, bool)
+        data_dict["ray_start"] = cam_origin[np.maximum(view_id[pick], 0)].astype(np.float32)
+        data_dict["ray_end"] = coord[pick].astype(np.float32)
+        if self.fetch_color:  # reference fetch_color (transform.py:318-378)
+            data_dict["ray_rgb"] = data_dict["point_color"][pick].astype(np.float32)
+        if self.fetch_segment and "segment" in data_dict:
+            seg = data_dict["segment"][pick]
+            data_dict["ray_segment"] = np.where(valid, seg, -1).astype(np.int64)
+        data_dict["ray_valid"] = valid
+        # ray arrays are per-scene fixed-size: exclude from point-dim collation
+        for k in ("point_view_id", "point_color", "point_uv"):
+            data_dict.pop(k, None)
+        return data_dict
+

@@ -161,10 +161,43 @@ class CheckpointSaver(HookBase):
             )
 
 
+def load_matching_weights(model: torch.nn.Module, state: dict, keywords: str = "",
+                          replacement: str = "", strict: bool = False) -> dict:
+    """Load the entries of ``state`` (names with ``keywords`` replaced by
+    ``replacement``) that the model has, as the reference's non-strict
+    weight load does: a pretrain checkpoint gives a segmentor its
+    ``backbone.*`` and nothing else. An entry the model has in another
+    shape raises, as ``torch.nn.Module.load_state_dict(strict=False)``
+    does. Returns the names ``loaded``, the checkpoint's names ``skipped``
+    (absent from the model) and the model's names ``missing`` from the
+    checkpoint; with ``strict`` either of the last two raises."""
+    own = model.state_dict()
+    renamed = {(k.replace(keywords, replacement, 1) if keywords else k): v
+               for k, v in state.items()}
+    take = {k: v for k, v in renamed.items() if k in own}
+    mismatched = [f"{k}: checkpoint {tuple(v.shape)}, model {tuple(own[k].shape)}"
+                  for k, v in take.items() if own[k].shape != v.shape]
+    if mismatched:
+        raise RuntimeError(f"weight load: {len(mismatched)} entries of another shape than "
+                           f"the model's: {mismatched[:5]}")
+    report = dict(loaded=sorted(take), skipped=sorted(set(renamed) - set(take)),
+                  missing=sorted(set(own) - set(take)))
+    if strict and (report["skipped"] or report["missing"]):
+        raise KeyError(f"strict weight load: {len(report['skipped'])} checkpoint entries "
+                       f"skipped ({report['skipped'][:5]}), {len(report['missing'])} model "
+                       f"entries missing ({report['missing'][:5]})")
+    model.load_state_dict(take, strict=False)
+    return report
+
+
 @HOOKS.register_module()
 class CheckpointLoader(HookBase):
     """Loads weights / resumes state before training. ``weight`` may also be
-    a bare ``state_dict`` (e.g. one converted from a JAX checkpoint)."""
+    a bare ``state_dict`` (e.g. one converted from a JAX checkpoint). A
+    resume loads everything; a weight load takes the entries the model
+    names and raises on one of another shape (``load_matching_weights``),
+    logs what it loaded and skipped, and leaves the report in
+    ``trainer.comm_info["weight_load"]``."""
 
     def __init__(self, keywords: str = "", replacement: Optional[str] = None,
                  strict: bool = False):
@@ -183,8 +216,8 @@ class CheckpointLoader(HookBase):
         trainer.logger.info(f"Loading weight at: {weight}")
         payload = load_checkpoint(weight)
         state = payload.get("state_dict", payload)
-        trainer.model.load_state_dict(state)
         if resume:
+            trainer.model.load_state_dict(state)
             trainer.optimizer.load_state_dict(payload["optimizer"])
             trainer.step = int(payload["step"])
             extra = payload.get("extra", {})
@@ -194,4 +227,11 @@ class CheckpointLoader(HookBase):
                 f"Resuming train at epoch {trainer.start_epoch + 1}"
             )
         else:
-            trainer.logger.info("Loaded model weights (optimizer state fresh).")
+            report = load_matching_weights(trainer.model, state, self.keywords,
+                                           self.replacement, self.strict)
+            trainer.comm_info["weight_load"] = report
+            trainer.logger.info(
+                f"Loaded model weights (optimizer state fresh): {len(report['loaded'])} "
+                f"entries; skipped {len(report['skipped'])} of the checkpoint "
+                f"{report['skipped']}; {len(report['missing'])} of the model's not in it "
+                f"{report['missing']}")

@@ -31,6 +31,10 @@ invert ``convert_spunet_v1m3`` and ``convert_ppt_v1m1`` for the port's
 ``proj_conv`` / ``proj_norm``, ``context.embedding`` ->
 ``embedding_table.weight``, and ``constants.class_embedding`` -> the buffer.
 
+``state_dict_from_jax_ponder_outdoor`` does PonderOutdoor-v2: the backbone
+as above, SimpleConv3D's conv and BatchNorm, the render field as in
+PonderIndoor-v2, and the mask token ``mtoken``.
+
 ``state_dict_from_jax_point_group`` does PG-v1m1: its backbone through the
 SpUNet-v1m1 or PPT-v1m1 converter above, its heads' Dense kernels ->
 ``nn.Linear`` weights.
@@ -142,6 +146,14 @@ def _residual_decoder(out, prefix, p) -> None:
         l += 1
 
 
+def _render_field(out, prefix, field) -> None:
+    for name in ("sdf_decoder", "rgb_decoder", "semantic_decoder"):
+        if name in field:
+            _residual_decoder(out, f"{prefix}.{name}", field[name])
+    out[f"{prefix}.deviation_network.variance"] = np.asarray(
+        field["deviation_network"]["variance"], np.float32).reshape(())
+
+
 def state_dict_from_jax_ponder_indoor(variables: Mapping, channels: Sequence[int],
                                       layers: Sequence[int],
                                       num_levels: int = 4) -> Dict[str, np.ndarray]:
@@ -154,12 +166,7 @@ def state_dict_from_jax_ponder_indoor(variables: Mapping, channels: Sequence[int
                                            channels, layers).items():
         out[f"backbone.{k}"] = v
     _unet3d_v1m2(out, "proj_net", params["proj_net"], stats["proj_net"], num_levels)
-    field = params["render_model"]["field"]
-    for name in ("sdf_decoder", "rgb_decoder", "semantic_decoder"):
-        if name in field:
-            _residual_decoder(out, f"renderer.field.{name}", field[name])
-    out["renderer.field.deviation_network.variance"] = np.asarray(
-        field["deviation_network"]["variance"], np.float32).reshape(())
+    _render_field(out, "renderer.field", params["render_model"]["field"])
     if "proj_head" in params:
         _dense(out, "proj_head", params["proj_head"])
         out["logit_scale"] = np.asarray(params["logit_scale"], np.float32).reshape(())
@@ -273,4 +280,33 @@ def state_dict_from_jax_point_group(variables: Mapping,
     _dense(out, "bias_head.0", params["bias_head"]["layers_0"])
     _dense(out, "bias_head.2", params["bias_head"]["layers_2"])
     _dense(out, "seg_head", params["seg_head"])
+    return out
+
+
+def state_dict_from_jax_ponder_outdoor(variables: Mapping, channels: Sequence[int],
+                                       layers: Sequence[int]) -> Dict[str, np.ndarray]:
+    """``variables``: the JAX PonderOutdoor-v2 collections ``params``,
+    ``batch_stats`` and (optionally) ``constants``, with numpy leaves.
+    Returns the port's state_dict of numpy arrays: the SpUNet-v1m1 backbone
+    (``in_channels`` 4 on nuScenes) under ``backbone.``; SimpleConv3D's conv
+    kernel ``(kx, ky, kz, in, out)`` -> ``proj_net.conv.weight`` ``(out, in,
+    kx, ky, kz)`` and its BatchNorm -> ``proj_net.batchnorm.*``; the render
+    field's decoders (sdf, and rgb / semantic where the config has them)
+    and variance under ``renderer.field.``; the mask token ``mtoken`` (1, C)
+    and the CLIP ``class_embedding``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: Dict[str, np.ndarray] = {
+        f"backbone.{k}": v for k, v in state_dict_from_jax_spunet(
+            params["backbone_net"], stats["backbone_net"], channels, layers).items()}
+    proj, proj_stats = params["proj_net"], stats["proj_net"]
+    out["proj_net.conv.weight"] = np.transpose(np.asarray(proj["conv"]["kernel"]),
+                                               (4, 3, 0, 1, 2))
+    out["proj_net.conv.bias"] = np.asarray(proj["conv"]["bias"])
+    _bn(out, "proj_net.batchnorm", proj["batchnorm"], proj_stats["batchnorm"])
+    _render_field(out, "renderer.field", params["render_model"]["field"])
+    if "mtoken" in params:
+        out["mtoken"] = np.asarray(params["mtoken"])
+    constants = variables.get("constants") or {}
+    if "class_embedding" in constants:
+        out["class_embedding"] = np.asarray(constants["class_embedding"])
     return out

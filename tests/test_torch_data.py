@@ -555,10 +555,12 @@ import ponderv2_tpu_torch.utils.clip_text
 import ponderv2_tpu_torch.utils.convert
 import ponderv2_tpu_torch.models.point_group.point_group
 import ponderv2_tpu_torch.models.point_group.cluster
+import ponderv2_tpu_torch.models.ponder.ponder_outdoor
+import ponderv2_tpu_torch.datasets.nuscenes, ponderv2_tpu_torch.datasets.image_io
 sys.path.insert(0, root + "/tools/experiments")
 import chip_smoke, probe_windowed_torch, test_torch, train_torch
 import probe_bisect_torch, probe_gather_torch, profile_pretrain_torch, profile_semseg_torch
-import ppt_grads_torch, multi_pretrain_torch, insseg_torch
+import ppt_grads_torch, multi_pretrain_torch, insseg_torch, nuscenes_torch
 from ponderv2_tpu_torch.datasets import build_dataset, collate_fn
 from ponderv2_tpu_torch.models import build_model
 from ponderv2_tpu_torch.utils.config import Config
@@ -682,6 +684,7 @@ loader = MultiDatasetDataloader(build_dataset(dict(mcfg.data.train)), batch_size
 assert len(loader) == 4
 assert [b["condition"] for b in loader] == [[c] for c in chip_smoke.MULTI_ORDER]
 shutil.rmtree(data_root)
+
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("NO_JAX_OK")
 """
@@ -692,8 +695,9 @@ def test_port_imports_and_runs_without_jax():
     ``tools/train_torch.py``, the two profilers, the probe entry points
     ``tools/experiments/probe_{windowed,gather,bisect}_torch.py``,
     ``tools/experiments/ppt_grads_torch.py``,
-    ``tools/experiments/multi_pretrain_torch.py`` and
-    ``tools/experiments/insseg_torch.py`` import,
+    ``tools/experiments/multi_pretrain_torch.py``,
+    ``tools/experiments/insseg_torch.py`` and
+    ``tools/experiments/nuscenes_torch.py`` import,
     the pretrain configs load, a segmentor forward and a PonderIndoor-v2
     training step's forward and backward run on the CPU, and the three PPT
     fine-tune recipes build their datasets (over scene files) and models,
@@ -701,7 +705,8 @@ def test_port_imports_and_runs_without_jax():
     multi-dataset pretrain's datasets and loader run one round over scene
     files, and the three instance-segmentation recipes build their datasets
     (over scene files with instance labels) and run a full-width training
-    forward of their PG-v1m1 models,
+    forward of their PG-v1m1 models (the nuScenes configs:
+    ``test_nuscenes_configs_run_without_jax``),
     with jax/jaxlib/flax/optax/ponderv2_tpu blocked; no port source
     names them in an import statement."""
     proc = subprocess.run(
@@ -719,6 +724,7 @@ def test_port_imports_and_runs_without_jax():
                os.path.join(ROOT, "tools", "experiments", "ppt_grads_torch.py"),
                os.path.join(ROOT, "tools", "experiments", "multi_pretrain_torch.py"),
                os.path.join(ROOT, "tools", "experiments", "insseg_torch.py"),
+               os.path.join(ROOT, "tools", "experiments", "nuscenes_torch.py"),
                os.path.join(ROOT, "tools", "profile_pretrain_torch.py"),
                os.path.join(ROOT, "tools", "profile_semseg_torch.py"),
                os.path.join(ROOT, "configs", "_test_", "pretrain_bench_torch.py")]
@@ -728,6 +734,114 @@ def test_port_imports_and_runs_without_jax():
         with open(path) as f:
             for i, line in enumerate(f, 1):
                 assert not pattern.match(line), f"{path}:{i}: {line.strip()}"
+
+
+_BLOCKED_NUSCENES_CHECK = r"""
+import importlib.abc, os, shutil, sys, tempfile
+BLOCKED = {"jax", "jaxlib", "flax", "optax", "ponderv2_tpu"}
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+root = sys.argv[1]
+sys.path.insert(0, root)
+import numpy as np
+import torch
+from ponderv2_tpu_torch.datasets import build_dataset, collate_fn
+from ponderv2_tpu_torch.engines.train import TRAINERS
+from ponderv2_tpu_torch.models import build_model
+from ponderv2_tpu_torch.utils.config import Config
+torch.set_num_threads(2)
+# the five nuScenes configs at full width, unchanged but for data_root: their
+# datasets read a procedural scan (cut to 64 azimuths, cameras 96 x 160)
+# through the outdoor transforms, and their models (PonderOutdoor-v2, and
+# DefaultSegmentor with 4 input channels) run a training forward
+from ponderv2_tpu_torch.datasets.preprocessing import synthetic_nuscenes
+synthetic_nuscenes.AZIMUTH_STEPS = 64
+data_root = tempfile.mkdtemp()
+synthetic_nuscenes.write_synthetic_nuscenes(data_root, {"train": 1, "val": 1}, 0,
+                                            image_hw=(96, 160))
+np.random.seed(0)
+for name in ("base", "base-color", "base-color-amp", "base-semantic", "semseg"):
+    rcfg = Config.fromfile(os.path.join(root, "configs", "nuscenes", (
+        "semseg-ppt-v1m1-0-nu-sk-wa-spunet-ft.py" if name == "semseg"
+        else f"pretrain-ponder-spunet-v1m1-0-{name}.py")))
+    rcfg.data.train.data_root = data_root
+    item = build_dataset(dict(rcfg.data.train))[0]
+    rmodel = build_model(dict(rcfg.model)).train()
+    rb = collate_fn([item], point_budget=4096, scene_budget=1)
+    rout = rmodel({**{k: torch.as_tensor(v) for k, v in rb.items() if isinstance(v, np.ndarray)},
+                   "spatial_shape": tuple(rcfg.sparse_shape), "batch_size": 1,
+                   "generator": torch.Generator().manual_seed(0)})
+    assert bool(rout["contract_ok"]) and bool(torch.isfinite(rout["loss"])), name
+    if name == "semseg":
+        assert rout["seg_logits"].shape == (4096, 16)
+    else:
+        assert rb["ray_start"].shape == (1, 512, 3)
+        assert all(bool(torch.isfinite(rout[k])) for k in rcfg.metric_keys), name
+    if rcfg.data.get("test"):
+        rcfg.data.test.data_root = data_root
+        assert build_dataset(dict(rcfg.data.test))[0]["fragment_list"]
+shutil.rmtree(data_root)
+
+# every config outside configs/_test_/ (and the _base_ runtime) names only
+# types that the port registers
+from ponderv2_tpu_torch.datasets import DATASETS, TRANSFORMS
+from ponderv2_tpu_torch.engines.hooks.builder import HOOKS
+from ponderv2_tpu_torch.engines.test import TESTERS
+from ponderv2_tpu_torch.models import MODELS
+from ponderv2_tpu_torch.models.losses.builder import LOSSES
+from ponderv2_tpu_torch.models.ponder.render.colliders import COLLIDERS
+from ponderv2_tpu_torch.models.ponder.render.samplers import SAMPLERS
+from ponderv2_tpu_torch.models.ponder.render.surface_models import RENDERERS
+from ponderv2_tpu_torch.utils.optimizer import OPTIMIZERS
+from ponderv2_tpu_torch.utils.scheduler import SCHEDULERS
+registries = (MODELS, DATASETS, TRANSFORMS, HOOKS, TRAINERS, TESTERS, LOSSES, COLLIDERS,
+              SAMPLERS, RENDERERS, OPTIMIZERS, SCHEDULERS)
+
+def types(v):
+    if isinstance(v, dict):
+        if isinstance(v.get("type"), str):
+            yield v["type"]
+        for x in v.values():
+            yield from types(x)
+    elif isinstance(v, (list, tuple)):
+        for x in v:
+            yield from types(x)
+
+unknown, n_configs = {}, 0
+for d, _, files in os.walk(os.path.join(root, "configs")):
+    if os.path.basename(d) in ("_test_", "_base_"):
+        continue
+    for f in files:
+        if f.endswith(".py"):
+            n_configs += 1
+            bad = sorted({t for t in types(Config.fromfile(os.path.join(d, f)).to_dict())
+                          if not any(t in r for r in registries)})
+            if bad:
+                unknown[f] = bad
+assert n_configs == 18 and not unknown, (n_configs, unknown)
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+print("NO_JAX_OK")
+"""
+
+
+def test_nuscenes_configs_run_without_jax():
+    """With jax/jaxlib/flax/optax/ponderv2_tpu blocked, the five nuScenes
+    configs read a procedural scan through their transforms and run a
+    full-width training forward of their models (PonderOutdoor-v2,
+    DefaultSegmentor with 4 input channels), and each of the 18 configs
+    outside ``configs/_test_/`` names only types that the port's
+    registries hold."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_NUSCENES_CHECK, ROOT],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NO_JAX_OK" in proc.stdout
 
 
 # ------------------------------------------------------------------ configs

@@ -10,7 +10,8 @@ differences (``torch.autograd.gradcheck``, which needs float64); and
 ``chip_smoke.py:float64_step_grads`` (a float64 copy of a PPT-v1m1 step,
 its blocks under activation checkpointing) against the same step without
 checkpointing (1e-10 of max|grad|) and against the f32 step (1e-4 of
-max|grad|, f32 rounding).
+max|grad|, f32 rounding); ``chip_smoke.py:PinnedRelu``, which shares one
+run's relu decisions with the others of a grads check.
 """
 
 import copy
@@ -160,3 +161,40 @@ def test_float64_reference_step_matches_f32():
         ref = m64.get_parameter(name).grad
         assert (g - ref).abs().max().item() <= 1e-10 * scale, name
         assert (g32[name].double() - g).abs().max().item() <= 1e-4 * scale, name
+
+
+def test_pinned_relu_shares_the_plain_path_decisions():
+    """``chip_smoke.py:PinnedRelu``: a replay of a recorded step gives its
+    loss and grads bit for bit with no decision flipped; a float64 step
+    without checkpointing replays every relu call in order; a changed
+    record changes the step; and ``grads_kernel_vs_plain`` with
+    ``pin_relu`` (on the CPU both paths are the plain one) holds. One
+    thread, so that the CPU step is bit-reproducible (with more, the row
+    gathers' backward adds in a varying order)."""
+    import chip_smoke as cs
+
+    torch.set_num_threads(1)
+    model = randomize(build_model(dict(PPT))).train()
+    inputs = {**{k: torch.from_numpy(v) for k, v in arrays_of(scene_batch()).items()},
+              "spatial_shape": SHAPE, "batch_size": 2, "condition": "ScanNet"}
+    pin = cs.PinnedRelu()
+    loss, grads, _, _ = pin.run("record", lambda: cs.step_grads(model, inputs))
+    assert len(pin.masks) > 10
+    loss2, grads2, _, _ = pin.run("replay", lambda: cs.step_grads(model, inputs))
+    assert pin.flips == 0 and loss2 == loss
+    assert all(torch.equal(grads2[k], g) for k, g in grads.items())
+    loss64, g64, _ = cs.float64_step_grads(model, inputs)
+    pinned64 = pin.run("replay", lambda: cs.float64_step_grads(model, inputs, remat=False))
+    assert pin.i == len(pin.masks) and pin.flips == 0
+    assert abs(pinned64[0] - loss64) <= 1e-12 * abs(loss64)
+    for k, g in g64.items():
+        assert (pinned64[1][k] - g).abs().max().item() <= 1e-10 * g.abs().max().item(), k
+    pin.masks[0] = torch.zeros_like(pin.masks[0])
+    loss3, _, _, _ = pin.run("replay", lambda: cs.step_grads(model, inputs))
+    assert pin.flips > 0 and loss3 != loss
+    pin.masks.pop()
+    with pytest.raises(IndexError):
+        pin.run("replay", lambda: cs.step_grads(model, inputs))
+    assert torch.relu is not pin  # restored after a failed run
+    cs.grads_kernel_vs_plain("pinned", model, inputs, [0, 0, 0], 1e-5, 1e-3, False,
+                             reference="float64", pin_relu=True)

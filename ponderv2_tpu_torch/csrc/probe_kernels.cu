@@ -32,9 +32,31 @@
 // nanoseconds and their time is the launch's (kd: one 16-row x 32-column CTA
 // of 4 warps per 16 rows, 32 CTAs at 512 rows, with the 288-deep K in flight
 // at once and no row table or vote, so that one launch, one round of loads
-// and a chain of 18 mma are all it waits on). Design: one thread per output
-// element (or per column for sum_rows), consecutive threads on consecutive
-// columns so that loads and stores coalesce.
+// and a chain of 18 mma are all it waits on). Design of family D: one
+// thread per output element (or per column for sum_rows), consecutive
+// threads on consecutive columns so that loads and stores coalesce.
+//
+// window_copy_sum (P3 k0, P4 A-D: 8192 x 32 f32 out from four 512 x 32 bf16
+// windows per block, ~1.3 MB, a bound of ~0.39 us) lies under the ~1.2 us
+// an empty kernel takes to launch and retire on this card, so what it can
+// save is the chain of dependent reads above that floor. Its first design
+// (one thread per output element, reading w0[t, j], then the row, tap
+// after tap) paid that chain per tap, with 2-byte loads. Now a CTA owns
+// a chunk of consecutive rows of one output block j (256 / (C / 8) rows:
+// 64 at C = 32, 128 CTAs, about one per SM), and each thread one 16-byte
+// piece (8 columns) of one row. Per round of up to COPY_TAPS taps the CTA
+// reads w0[t, j] and add[t, j] once (one round trip; the tables keep any
+// strides, 0 for one repeated over the taps); then each thread issues
+// every tap's 16-byte load of its piece (a row outside [0, rows_x) reads
+// as zero) before its first add, adds the taps in order in f32 (x + add
+// formed first) and writes its 8 floats with streaming stores: two round
+// trips in all. A route that brought each tap's window chunk (a contiguous
+// run of rows x C bf16 of x) by one bulk copy (cp.async.bulk, the TMA's
+// non-tensor form) into shared memory, all taps' copies on one mbarrier,
+// measured 0.4-0.7 us slower at P3/P4 in the same call (PERF.md), so the
+// register route is built. A width that is not a multiple of 8 or an x
+// that is not 16-byte aligned takes scalar loads; more than 2048 columns
+// split a row over CTAs.
 //
 // P7 V5 at N = 163,840 writes 21 MB of f32 output (~6.3 us at 3.35 TB/s)
 // from 27 x 320 x 2 head rows of 64 bytes: bytes bind, and a CTA's critical
@@ -57,6 +79,8 @@
 // Plain C interface for ctypes: every launcher returns the cudaError_t of
 // cudaGetLastError() after its launch.
 
+#include <algorithm>
+
 #include "mma_tile.cuh"
 
 namespace {
@@ -72,28 +96,96 @@ unsigned grid_for(long long threads) {
 
 // ---------------------------------------------------------------- family C
 
+constexpr int COPY_THREADS = 256;
+constexpr int COPY_TAPS = 8;  // taps per round: one table read, their loads before any add
+
+// window_copy_sum: a CTA owns rows [i0, i0 + rows) of output block j and
+// column pieces [cp uc, cp uc + uc) (uc = min(units, COPY_THREADS) pieces
+// of E columns; rows = COPY_THREADS / uc), a thread one piece of one row.
 // The tables w0 and add are (taps, nb) int32 with any strides (a table that
-// repeats over t has stride 0 there); a window row outside [0, rows_x) reads
-// as zero.
-__global__ void __launch_bounds__(THREADS)
+// repeats over t has stride 0 there); a window row outside [0, rows_x)
+// reads as zero.
+template <bool VEC>
+__global__ void __launch_bounds__(COPY_THREADS)
 window_copy_sum_kernel(const bf16* __restrict__ x, const int* __restrict__ w0,
                        const int* __restrict__ add, float* __restrict__ out,
-                       int rows_x, int c, int taps, int nb, int block, int wb,
-                       int w0_s0, int w0_s1, int add_s0, int add_s1) {
-  const long long e = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (e >= (long long)nb * block * c) return;
-  const int row = (int)(e / c);
-  const int col = (int)(e % c);
-  const int j = row / block;
-  const int i = row % block;
-  float acc = 0.f;
-  for (int t = 0; t < taps; ++t) {
-    const long long r = (long long)w0[t * w0_s0 + j * w0_s1] * wb + i;
-    float v = (r >= 0 && r < rows_x) ? to_float(x[(size_t)r * c + col]) : 0.f;
-    if (add != nullptr) v += (float)add[t * add_s0 + j * add_s1];
-    acc += v;
+                       int rows_x, int c, int taps, int block, int wb, int w0_s0,
+                       int w0_s1, int add_s0, int add_s1, int parts, int col_parts) {
+  constexpr int E = VEC ? 8 : 1;  // columns per piece: a 16-byte load, or one
+  __shared__ long long first[COPY_TAPS];  // x row of each tap's chunk's first row
+  __shared__ int add_t[COPY_TAPS];
+  const int tid = threadIdx.x;
+  const int units = c / E, uc = min(units, COPY_THREADS), rows = COPY_THREADS / uc;
+  const int cp = blockIdx.x % col_parts, part = blockIdx.x / col_parts % parts;
+  const int j = blockIdx.x / col_parts / parts;
+  const int i0 = part * rows, nrows = min(rows, block - i0);
+  const int row = tid / uc, u = cp * uc + tid % uc;
+  const bool mine = row < nrows && u < units;
+  float acc[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc[e] = 0.f;
+  for (int t0 = 0; t0 < taps; t0 += COPY_TAPS) {
+    const int nt = min(COPY_TAPS, taps - t0);
+    if (tid < nt) {  // this round's tables: one round trip
+      first[tid] = (long long)w0[(t0 + tid) * w0_s0 + j * w0_s1] * wb + i0;
+      add_t[tid] = add != nullptr ? add[(t0 + tid) * add_s0 + j * add_s1] : 0;
+    }
+    __syncthreads();
+    uint4 raw[COPY_TAPS];  // VEC: the round's 16-byte pieces, loaded before any add
+    bf16 one[COPY_TAPS];   // scalar
+    if (mine) {
+#pragma unroll
+      for (int k = 0; k < COPY_TAPS; ++k) {
+        if (k >= nt) break;
+        const long long r = first[k] + row;
+        const bool in = r >= 0 && r < rows_x;
+        if constexpr (VEC) {
+          raw[k] = make_uint4(0u, 0u, 0u, 0u);
+          if (in) raw[k] = __ldg(reinterpret_cast<const uint4*>(x + (size_t)r * c) + u);
+        } else {
+          one[k] = in ? x[(size_t)r * c + u] : __float2bfloat16(0.f);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < COPY_TAPS; ++k) {
+        if (k >= nt) break;
+        const float a = (float)add_t[k];
+        if constexpr (VEC) {
+          const unsigned w[4] = {raw[k].x, raw[k].y, raw[k].z, raw[k].w};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {  // a bf16 is the high half of its f32
+            acc[2 * q] += __uint_as_float(w[q] << 16) + a;
+            acc[2 * q + 1] += __uint_as_float(w[q] & 0xffff0000u) + a;
+          }
+        } else {
+          acc[0] += to_float(one[k]) + a;
+        }
+      }
+    }
+    if (t0 + COPY_TAPS < taps) __syncthreads();  // the next round rewrites the tables
   }
-  out[e] = acc;
+  if (!mine) return;
+  float* dst = out + ((size_t)j * block + i0 + row) * c + (size_t)u * E;
+  if constexpr (VEC) {
+    __stcs(reinterpret_cast<float4*>(dst), make_float4(acc[0], acc[1], acc[2], acc[3]));
+    __stcs(reinterpret_cast<float4*>(dst) + 1, make_float4(acc[4], acc[5], acc[6], acc[7]));
+  } else {
+    *dst = acc[0];
+  }
+}
+
+template <bool VEC>
+int launch_window_copy_sum(const bf16* x, const int* w0, const int* add, float* out,
+                           int rows_x, int c, int taps, int nb, int block, int wb,
+                           int w0_s0, int w0_s1, int add_s0, int add_s1, cudaStream_t s) {
+  const int units = VEC ? c / 8 : c;
+  const int uc = std::min(units, COPY_THREADS), rows = COPY_THREADS / uc;
+  const int parts = (block + rows - 1) / rows, col_parts = (units + uc - 1) / uc;
+  window_copy_sum_kernel<VEC>
+      <<<(unsigned)((long long)nb * parts * col_parts), COPY_THREADS, 0, s>>>(
+          x, w0, add, out, rows_x, c, taps, block, wb, w0_s0, w0_s1, add_s0, add_s1, parts,
+          col_parts);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // window_head_sum: a CTA writes HEAD_ROWS rows of one output block.
@@ -255,12 +347,16 @@ extern "C" {
 int window_copy_sum_bf16(const void* x, const void* w0, const void* add, void* out,
                          int rows_x, int c, int taps, int nb, int block, int wb,
                          int w0_s0, int w0_s1, int add_s0, int add_s1, void* stream) {
-  window_copy_sum_kernel<<<grid_for((long long)nb * block * c), THREADS, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const int*>(w0),
-      static_cast<const int*>(add), static_cast<float*>(out), rows_x, c, taps, nb,
-      block, wb, w0_s0, w0_s1, add_s0, add_s1);
-  return static_cast<int>(cudaGetLastError());
+  const bf16* xb = static_cast<const bf16*>(x);
+  const int* w0i = static_cast<const int*>(w0);
+  const int* addi = static_cast<const int*>(add);
+  float* o = static_cast<float*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (c % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
+    return launch_window_copy_sum<false>(xb, w0i, addi, o, rows_x, c, taps, nb, block, wb,
+                                         w0_s0, w0_s1, add_s0, add_s1, s);
+  return launch_window_copy_sum<true>(xb, w0i, addi, o, rows_x, c, taps, nb, block, wb,
+                                      w0_s0, w0_s1, add_s0, add_s1, s);
 }
 
 int window_head_sum_bf16(const void* x, const void* w0, void* out, int rows_x, int c,

@@ -73,7 +73,8 @@ def test_sources_include_only_their_own_headers():
 def _variant_edits():
     """(tool, variant, edits) of every tile variant."""
     out = [(tool, name, edits) for tool, table in (("k1", variants.K1), ("k2", variants.K2),
-                                                   ("k4", variants.K4), ("v5", variants.V5))
+                                                   ("k4", variants.K4), ("v5", variants.V5),
+                                                   ("p1", variants.GATHER), ("k0", variants.COPY))
            for name, edits in table.items()]
     own = next(ln for ln in _read("probe_kernels.cu").splitlines()
                if ln.startswith(variants.KD_LINE))

@@ -533,54 +533,83 @@ def test_k4_k5_reject_bad_input(cuda):
 # sum products in another order than the plain matmul, to 1e-5 of max|ref|.
 
 
-@pytest.mark.parametrize("c", [128, 37])
+def _unaligned(t):
+    """A contiguous copy of ``t`` whose data starts one element past a
+    16-byte boundary (the kernels' scalar paths)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.parametrize("c", [128, 37, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_row_gather_kernels_match_plain(cuda, c, dtype):
-    """P1/P2 and P3 k1 at a ragged row count and width, with absent entries
-    and a tap with no live entry."""
+    """P1/P2 and P3 k1 at a row count that is not a multiple of a CTA's
+    items, at 100,000 rows (more items than the resident grid's threads, so
+    each thread walks several), with absent entries (zero rows), a tap with
+    no live entry, 1, 3, 4, 8 and 9 taps (the last on the scalar path), the
+    features at an unaligned offset or a ragged width (the scalar path), and
+    512 f32 columns (128 pieces a row on the vector path)."""
     gen = torch.Generator(device=cuda).manual_seed(c)
     feats = torch.randn(1000, c, device=cuda, generator=gen).to(dtype)
-    idx = torch.randint(-1, 1000, (777,), device=cuda, generator=gen, dtype=torch.int32)
-    before = rg.GATHER_SUM.launches
-    out = rg.row_gather(feats, idx)
-    assert rg.GATHER_SUM.launches == before + 1
-    assert torch.equal(out, rg.row_gather_plain(feats, idx))
-    taps, nb, block, wb = 3, 7, 64, 128
-    rb = torch.randint(-1, 1000, (taps, nb, block), device=cuda, generator=gen,
-                       dtype=torch.int32)
-    rb[1] = -1
-    w0 = torch.randint(0, 1000 // wb, (taps, nb), device=cuda, generator=gen,
-                       dtype=torch.int32)
-    out = rg.window_gather_sum(feats, rb, w0, block, wb)
-    ref = rg.window_gather_sum_plain(feats, rb, w0, block, wb)
-    torch.cuda.synchronize()
-    assert out.shape == (nb * block, c) and torch.equal(out, ref)
-    assert ref.abs().max() > 0
+    views = [feats] + ([_unaligned(feats)] if c != 37 else [])
+    for n in (777, 100_000):
+        idx = torch.randint(-1, 1000, (n,), device=cuda, generator=gen, dtype=torch.int32)
+        for f in views:
+            before = rg.GATHER_SUM.launches
+            out = rg.row_gather(f, idx)
+            assert rg.GATHER_SUM.launches == before + 1
+            assert torch.equal(out, rg.row_gather_plain(f, idx))
+    for taps, nb, block, wb in ((3, 7, 64, 128), (4, 1000, 100, 128), (8, 5, 61, 256),
+                                (9, 3, 40, 128)):
+        rb = torch.randint(-1, 1000, (taps, nb, block), device=cuda, generator=gen,
+                           dtype=torch.int32)
+        rb[1] = -1
+        w0 = torch.randint(0, 1000 // wb, (taps, nb), device=cuda, generator=gen,
+                           dtype=torch.int32)
+        for f in views:
+            before = rg.GATHER_SUM.launches
+            out = rg.window_gather_sum(f, rb, w0, block, wb)
+            assert rg.GATHER_SUM.launches == before + 1
+            ref = rg.window_gather_sum_plain(f, rb, w0, block, wb)
+            torch.cuda.synchronize()
+            assert out.shape == (nb * block, c) and torch.equal(out, ref)
+            assert ref.abs().max() > 0
 
 
-@pytest.mark.parametrize("c", [32, 13])
+@pytest.mark.parametrize("c", [32, 13, 2064])
 def test_window_read_kernels_match_plain(cuda, c):
     """P3 k0 / P4 and P7 V5 with strided window tables (one repeated over the
-    taps), an add table read through a strided view, and windows that run
-    past the features' last row (those rows read as zero)."""
+    taps with stride 0, as P4's static and data-dependent tables are), an add
+    table read through a strided view (P4 D), windows that start before the
+    features' first row or run past their last (those rows read as zero), a
+    block that is not a multiple of a CTA's rows, 3 and 11 taps (two rounds
+    of table reads), x at an unaligned offset (the scalar path), and, at
+    2064 columns, a CTA that splits the columns (the register route)."""
     gen = torch.Generator(device=cuda).manual_seed(c)
-    rows_x, taps, nb, block, wb = 700, 3, 5, 48, 64
+    rows_x, nb, block, wb = 700, 5, 48, 64
     x = torch.randn(rows_x, c, device=cuda, generator=gen).bfloat16()
-    w0 = torch.randint(0, rows_x // wb + 1, (taps, nb), device=cuda, generator=gen,
-                       dtype=torch.int32)
-    rb = torch.randint(-5, 5, (taps * nb * block,), device=cuda, generator=gen,
-                       dtype=torch.int32)
-    add = rb.view(taps, nb, block)[:, :, 0]
-    repeated = w0[0].expand(taps, nb)
-    for table, extra in ((w0, None), (repeated, None), (w0, add)):
-        before = pk.WINDOW_COPY_SUM.launches
-        out = pk.window_copy_sum(x, table, wb, block, extra)
-        assert pk.WINDOW_COPY_SUM.launches == before + 1
-        assert torch.equal(out, pk.window_copy_sum_plain(x, table, wb, block, extra))
-    out = pk.window_head_sum(x, repeated, wb, block)
-    ref = pk.window_head_sum_plain(x, repeated, wb, block)
-    torch.cuda.synchronize()
-    assert out.shape == (nb * block, c) and torch.equal(out, ref)
+    for taps in (3, 11):
+        w0 = torch.randint(-1, rows_x // wb + 1, (taps, nb), device=cuda, generator=gen,
+                           dtype=torch.int32)
+        rb = torch.randint(-5, 5, (taps * nb * block,), device=cuda, generator=gen,
+                           dtype=torch.int32)
+        add = rb.view(taps, nb, block)[:, :, 0]
+        repeated = w0[0].expand(taps, nb)
+        static = (torch.arange(nb, device=cuda, dtype=torch.int32) % 8).expand(taps, nb)
+        for xv in (x, _unaligned(x)):
+            for table, extra in ((w0, None), (repeated, None), (static, None),
+                                 (repeated, add), (w0, add)):
+                before = pk.WINDOW_COPY_SUM.launches
+                out = pk.window_copy_sum(xv, table, wb, block, extra)
+                assert pk.WINDOW_COPY_SUM.launches == before + 1
+                assert torch.equal(out, pk.window_copy_sum_plain(xv, table, wb, block, extra))
+        out = pk.window_head_sum(x, repeated, wb, block)
+        ref = pk.window_head_sum_plain(x, repeated, wb, block)
+        torch.cuda.synchronize()
+        assert out.shape == (nb * block, c) and torch.equal(out, ref)
 
 
 @pytest.mark.parametrize("windows,rebase", [(2, False), (2, True), (1, False)],

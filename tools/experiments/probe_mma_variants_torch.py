@@ -3,13 +3,17 @@
 on a GPU: K1 (``band_fwd_core``) and K2 (``band_dxdw_core``) at the
 fine-tune batch's real band plans, K4 (``windowed_conv_fwd``) at
 ``chip_smoke.py`` phase 12's six convs, and P5 ``kd`` (``tile_matmul``) at
-its probe's shape; and of P7 V5 (``window_head_sum``) at its probe's shape.
+its probe's shape; and of P7 V5 (``window_head_sum``), the row gather-sum
+(``csrc/row_gather.cu``: P1, P2, P3 ``k1``) and the window copy-sum
+(``window_copy_sum``: P3 ``k0``, P4 A-D) at their probes' shapes.
 
     python tools/experiments/probe_mma_variants_torch.py k1 [variant,...]
     python tools/experiments/probe_mma_variants_torch.py k2 [variant,...]
     python tools/experiments/probe_mma_variants_torch.py k4 [variant,...]
     python tools/experiments/probe_mma_variants_torch.py kd [variant,...]
     python tools/experiments/probe_mma_variants_torch.py v5 [variant,...]
+    python tools/experiments/probe_mma_variants_torch.py p1 [variant,...]
+    python tools/experiments/probe_mma_variants_torch.py k0 [variant,...]
 
 Each variant is a copy of the kernel sources with a few text edits (K1:
 ``routed`` as built, the compacted tile in f32 and K2's dx tile in bf16;
@@ -24,7 +28,12 @@ tile shapes, ``noload`` / ``nomult`` drop the copies or the products,
 nothing, ``noop`` returns at once, ``alltotal`` has every thread add the
 taps, ``plainst`` / ``wt`` / ``evictfirst`` store without the streaming
 hint, write-through, or with an L2 evict-first policy, ``rows64`` /
-``rows512`` give a CTA other rows), built with the package's nvcc flags into
+``rows512`` give a CTA other rows; p1: ``base`` the vector path, ``warp``
+a warp per batch of rows with its entries passed on by shuffles, ``stcs`` /
+``stcg`` other store hints, ``noidx`` / ``nowin`` / ``nostore`` drop the
+entry reads, the window or the stores, ``empty`` returns at once; k0:
+``base`` the register route, ``ctaN`` N threads a CTA, ``plainst`` plain
+stores, ``empty``), built with the package's nvcc flags into
 ``ponderv2_tpu_torch/csrc/_build/variants/`` in parallel and bound in place
 of the package's build. K1, K2: CUDA events over 5 calls after a warm-up,
 each variant twice (in order, then reversed), f32 and bf16, with the max
@@ -33,8 +42,9 @@ variant's error against the plain version in float64 (of max|out|). kd: the prob
 ``chip_smoke.py`` phase 13 (CUDA-graph replay, L2 flushed before each call)
 beside ``torch.mm``; v5 the same timing, L2 flushed and warm, in turns,
 beside ``Tensor.fill_`` of the same 21 MB output (a fresh tensor and one
-reused), the least a kernel that writes it could take. Variants that drop
-work give wrong results on purpose.
+reused), the least a kernel that writes it could take; p1 and k0 the same
+timing at each of their probes, and whether the output equals the plain
+version's. Variants that drop work give wrong results on purpose.
 """
 
 import ctypes
@@ -215,6 +225,114 @@ V5 = {
     "evictfirst": [("probe_kernels.cu", V5_STORE, V5_EVICT_FIRST)],
     "rows64": [("probe_kernels.cu", V5_ROWS, V5_ROWS.replace("128", "64"))],
     "rows512": [("probe_kernels.cu", V5_ROWS, V5_ROWS.replace("128", "512"))],
+}
+
+# P1/P2/P3 k1 (row_gather.cu): the vector path as built, a warp per batch
+# of rows, the output written with streaming stores or cached in L2 only,
+# diagnostics, and the vector path emptied (the launch floor at the
+# probes' grids)
+GATHER_VEC = "  const int nvec = c / V;\n  const long long items = (long long)n * nvec;\n"
+GATHER_EMPTY = [("row_gather.cu", GATHER_VEC, "  if (n >= 0) return;\n" + GATHER_VEC)]
+# The warp-per-batch design, run in place of the vector path's loop (whose
+# item count it sets to 0): a warp takes a batch of WB rows (batch b on warp
+# b / gridDim.x of CTA b % gridDim.x, so that the batches spread over the
+# SMs); its lanes load the batch's entries and window entries for every tap
+# in coalesced loads (lane k: tap k / WB, row k % WB), then walk the batch's
+# (row, 16-byte piece) items 32 at a time, WU steps in flight: each step's
+# entries come from their lanes by __shfl_sync, and every tap's piece of
+# every step is loaded before the first add; streaming stores.
+GATHER_WARP = """  {
+    constexpr int WB = 8, WE = (TB * WB + 31) / 32, WU = 4;
+    const int wv = c / V, lane = threadIdx.x % 32;
+    const int steps = (WB * wv + 31) / 32;
+    const long long batches = ((long long)n + WB - 1) / WB;
+    for (long long b = blockIdx.x + (long long)gridDim.x * (threadIdx.x / 32); b < batches;
+         b += (long long)gridDim.x * (THREADS / 32)) {
+      const long long i0 = b * WB;
+      int er[WE], el[WE];
+#pragma unroll
+      for (int q = 0; q < WE; ++q) {
+        const int k = q * 32 + lane, t = k / WB;
+        const long long i = i0 + k % WB;
+        er[q] = -1;
+        el[q] = 0;
+        if (t < taps && i < n) {
+          er[q] = __ldg(rows + (size_t)t * n + i);
+          if (w0 != nullptr) el[q] = __ldg(w0 + (size_t)t * nb + i / block);
+        }
+      }
+      for (int s0 = 0; s0 < steps; s0 += WU) {
+        uint4 wbuf[WU][TB];
+#pragma unroll
+        for (int u = 0; u < WU; ++u) {
+          const int m = (s0 + u) * 32 + lane, ib = min(m / wv, WB - 1);
+          const bool item = s0 + u < steps && m < WB * wv && i0 + m / wv < n;
+#pragma unroll
+          for (int t = 0; t < TB; ++t) {
+            const int src = (t * WB) % 32 + ib;
+            const int r = __shfl_sync(0xffffffffu, er[t * WB / 32], src);
+            const long long l = (long long)__shfl_sync(0xffffffffu, el[t * WB / 32], src) * wb;
+            wbuf[u][t] = make_uint4(0u, 0u, 0u, 0u);
+            if (item && t < taps && r >= 0 && (w0 == nullptr || (r >= l && r < l + wb)))
+              wbuf[u][t] = __ldg(reinterpret_cast<const uint4*>(feats + (size_t)r * c) + m % wv);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < WU; ++u) {
+          const int m = (s0 + u) * 32 + lane;
+          if (s0 + u >= steps || m >= WB * wv || i0 + m / wv >= n) continue;
+          float acc[V];
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[v] = 0.f;
+#pragma unroll
+          for (int t = 0; t < TB; ++t)
+            if (t < taps) add16(acc, wbuf[u][t], feats);
+          float4* dst = reinterpret_cast<float4*>(out + (size_t)(i0 + m / wv) * c) + (m % wv) * (V / 4);
+#pragma unroll
+          for (int q = 0; q < V / 4; ++q)
+            __stcs(dst + q, make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]));
+        }
+      }
+    }
+  }
+"""
+GATHER_STORE = ("dst[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], "
+                "acc[4 * q + 3]);")
+GATHER = {
+    "base": [],
+    "warp": [("row_gather.cu", GATHER_VEC,
+              GATHER_WARP + GATHER_VEC.replace("(long long)n * nvec", "0"))],
+    **{hint: [("row_gather.cu", GATHER_STORE,
+               GATHER_STORE.replace("dst[q] = ", f"__{hint}(dst + q, ").replace(");", "));"))]
+       for hint in ("stcs", "stcg")},
+    # diagnostics of the vector path (wrong results on purpose): row i's
+    # entries not read (row i taken), no window entry read or checked, no
+    # output written
+    "noidx": [("row_gather.cu", "        r[t] = __ldg(rows + (size_t)t * n + row);",
+               "        r[t] = row;")],
+    "nowin": [("row_gather.cu", "      if (r[t] >= 0 && (w0 == nullptr || (r[t] >= l",
+               "      if (r[t] >= 0 && (true || (r[t] >= l"),
+              ("row_gather.cu", "        if (w0 != nullptr) lo[t] = __ldg(",
+               "        if (false) lo[t] = __ldg(")],
+    "nostore": [("row_gather.cu", "      dst[q] = make_float4(",
+                 "      if (acc[0] == -1.5e30f) dst[q] = make_float4(")],
+    "empty": GATHER_EMPTY,
+}
+# P3 k0 / P4 (probe_kernels.cu:window_copy_sum): the register route as built
+# (every tap's 16-byte load issued before the first add), other CTA sizes
+# (rows of a chunk: the threads / (C / 8)), plain stores, and the kernel
+# emptied
+COPY_BODY = "  constexpr int E = VEC ? 8 : 1;  // columns per piece: a 16-byte load, or one\n"
+COPY_CTA = "constexpr int COPY_THREADS = 256;"
+COPY = {
+    "base": [],
+    **{f"cta{n}": [("probe_kernels.cu", COPY_CTA, COPY_CTA.replace("256", str(n)))]
+       for n in (64, 128, 512)},
+    "plainst": [("probe_kernels.cu", "__stcs(reinterpret_cast<float4*>(dst), ",
+                 "*(reinterpret_cast<float4*>(dst)) = ("),
+                ("probe_kernels.cu", "__stcs(reinterpret_cast<float4*>(dst) + 1, ",
+                 "*(reinterpret_cast<float4*>(dst) + 1) = (")],
+    "empty": [("probe_kernels.cu", COPY_BODY, COPY_BODY + "  if (taps >= 0) return;\n")],
 }
 
 
@@ -482,15 +600,54 @@ def run_v5(names):
               flush=True)
 
 
+def run_probe_routes(source, table, kernel, pick, names):
+    """Each variant of ``source`` bound in place of ``kernel``, at the probe
+    functions ``pick`` selects, in turns (in order, then reversed): device
+    ms with the L2 flushed and warm (``chip_smoke.py`` phase 13's timing),
+    and whether the output equals the plain version's."""
+    import probe_bisect_torch
+    import probe_gather_torch
+    import probe_windowed_torch as probe
+
+    libs = build(source, {n: table[n] for n in names})
+    dev = torch.device("cuda:0")
+    vs = [v for v in probe_gather_torch.variants(dev) + probe_bisect_torch.variants(dev)
+          if pick(v)]
+    refs = {v.name: v.run(True) for v in vs}
+    for name in list(libs) + list(libs)[::-1]:
+        bind(kernel, libs[name])
+        for v in vs:
+            out = v.run(False)
+            torch.cuda.synchronize()
+            fn = lambda v=v: v.run(False)  # noqa: E731
+            print(f"{name} {v.name}: L2 cold {probe.graph_ms(fn, 20):.5f} ms, warm "
+                  f"{probe.graph_ms(fn, 20, cold=False):.5f} ms; equal to plain "
+                  f"{torch.equal(out, refs[v.name])}", flush=True)
+
+
+def run_p1(names):
+    from ponderv2_tpu_torch.ops import row_gather as rg
+
+    run_probe_routes("row_gather", GATHER, rg.GATHER_SUM,
+                     lambda v: v.kernel is rg.GATHER_SUM, names)
+
+
+def run_k0(names):
+    run_probe_routes("probe_kernels", COPY, pk.WINDOW_COPY_SUM,
+                     lambda v: v.kernel is pk.WINDOW_COPY_SUM, names)
+
+
 def main():
     if not torch.cuda.is_available():
         print("probe_mma_variants_torch: needs a CUDA GPU", file=sys.stderr)
         return 2
     which = sys.argv[1] if len(sys.argv) > 1 else "kd"
-    table = {"k1": K1, "k2": K2, "k4": K4, "kd": KD, "v5": V5}[which]
+    table = {"k1": K1, "k2": K2, "k4": K4, "kd": KD, "v5": V5, "p1": GATHER,
+             "k0": COPY}[which]
     names = sys.argv[2].split(",") if len(sys.argv) > 2 else list(table)
     print(os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read().strip())
-    {"k1": run_k1, "k2": run_k2, "k4": run_k4, "kd": run_kd, "v5": run_v5}[which](names)
+    {"k1": run_k1, "k2": run_k2, "k4": run_k4, "kd": run_kd, "v5": run_v5, "p1": run_p1,
+     "k0": run_k0}[which](names)
     return 0
 
 

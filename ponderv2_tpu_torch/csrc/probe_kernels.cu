@@ -32,9 +32,27 @@
 // nanoseconds and their time is the launch's (kd: one 16-row x 32-column CTA
 // of 4 warps per 16 rows, 32 CTAs at 512 rows, with the 288-deep K in flight
 // at once and no row table or vote, so that one launch, one round of loads
-// and a chain of 18 mma are all it waits on). Design of family D: one
-// thread per output element (or per column for sum_rows), consecutive
-// threads on consecutive columns so that loads and stores coalesce.
+// and a chain of 18 mma are all it waits on). slab_slots runs one thread
+// per output element, consecutive threads on consecutive columns.
+//
+// lane_concat (kb: (512, 256) bf16 -> (512, 288) f32, 0.85 MB, a bound of
+// ~0.25 us) and sum_rows (kc2: 9 rows of a (16, 512) int32 table, a bound
+// of ~6 ns) sit in the launch's shadow too, so each is built for one round
+// trip. lane_concat is out[r, c] = x[r, c mod w_in]: a thread loads one
+// 16-byte piece of x (8 bf16) once, widens it to f32 by shifts, and writes
+// it with two 16-byte streaming stores to each output column j + k w_in it
+// feeds (kb: block 0 to pieces 0 and 8), so x is read once and no thread
+// divides (the first design, a thread per output element, did a 64-bit
+// divide and modulo and 2-byte loads: 147,456 threads against 16,384). A
+// CTA is 2-D, pieces by rows (kb: 64 CTAs of 8 rows x 32 pieces). A width
+// that is not a multiple of 8, or an x not 16-byte aligned, takes the same
+// walk one column a thread. sum_rows gives a thread one column (kc2: 4 CTAs
+// of 128), whose loads of up to 16 rows all go out before its first add, so
+// kc2's 9 rows cost one round trip, not a chain of loads; rows are added in
+// order in f32, each converted first. PERF.md times the other designs
+// (tools/experiments/probe_mma_variants_torch.py kb, kc2): other CTA sizes,
+// a thread per output piece for kb, 4 columns a thread by 16-byte loads for
+// kc2 (slower, on one or four SMs).
 //
 // window_copy_sum (P3 k0, P4 A-D: 8192 x 32 f32 out from four 512 x 32 bf16
 // windows per block, ~1.3 MB, a bound of ~0.39 us) lies under the ~1.2 us
@@ -293,25 +311,76 @@ slab_slots_kernel(const int* __restrict__ rb, float* __restrict__ out, int b) {
   out[e] = r >= 0 ? (float)(r % 8 + 1) : 0.f;
 }
 
-__global__ void __launch_bounds__(THREADS)
-lane_concat_kernel(const bf16* __restrict__ x, float* __restrict__ out, int rows,
-                   int w_in, int width, int pieces) {
-  const int w_out = width * pieces;
-  const long long e = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (e >= (long long)rows * w_out) return;
-  const int row = (int)(e / w_out);
-  const int k = (int)(e % w_out);
-  const int src = (k / width) % (w_in / width) * width + k % width;
-  out[e] = to_float(x[(size_t)row * w_in + src]);
+// lane_concat: out[r, c] = x[r, c mod w_in] for c < w_out (piece p is x's
+// block p mod (w_in / width)). A thread owns one piece of E columns of one
+// row of x (E = 8: one 16-byte load; 1 on the scalar path), loads it once
+// and writes it to every output column j + k w_in below w_out: no division.
+// A CTA is (uc pieces) x (CONCAT_THREADS / uc rows); blockIdx.y splits a row
+// of more than CONCAT_THREADS pieces. Indices are int32; a row's base is
+// their 64-bit product.
+constexpr int CONCAT_THREADS = 256;
+
+template <bool VEC>
+__global__ void __launch_bounds__(CONCAT_THREADS)
+lane_concat_kernel(const bf16* __restrict__ x, float* __restrict__ out, int rows, int w_in,
+                   int w_out) {
+  constexpr int E = VEC ? 8 : 1;
+  const int row = blockIdx.x * blockDim.y + threadIdx.y;
+  const int j = (blockIdx.y * blockDim.x + threadIdx.x) * E;
+  if (row >= rows || j >= min(w_in, w_out)) return;
+  const bf16* src = x + (size_t)row * w_in + j;
+  float* dst = out + (size_t)row * w_out;
+  if constexpr (VEC) {
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
+    // a bf16 is the high half of its f32: the low element first
+    const float4 lo = make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
+                                  __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
+    const float4 hi = make_float4(__uint_as_float(raw.z << 16), __uint_as_float(raw.z & 0xffff0000u),
+                                  __uint_as_float(raw.w << 16), __uint_as_float(raw.w & 0xffff0000u));
+    for (int c = j; c < w_out; c += w_in) {
+      __stcs(reinterpret_cast<float4*>(dst + c), lo);
+      __stcs(reinterpret_cast<float4*>(dst + c) + 1, hi);
+    }
+  } else {
+    const float v = to_float(*src);
+    for (int c = j; c < w_out; c += w_in) dst[c] = v;
+  }
 }
 
-__global__ void __launch_bounds__(THREADS)
-sum_rows_kernel(const int* __restrict__ rb, float* __restrict__ out, int rows,
-                int b) {
-  const int col = blockIdx.x * THREADS + threadIdx.x;
+template <bool VEC>
+int launch_lane_concat(const bf16* x, float* out, int rows, int w_in, int w_out,
+                       cudaStream_t s) {
+  const int units = std::min(w_in, w_out) / (VEC ? 8 : 1);  // pieces a row's threads own
+  if (units <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int uc = std::min(units, CONCAT_THREADS);
+  const dim3 block(uc, CONCAT_THREADS / uc);
+  const dim3 grid((rows + block.y - 1) / block.y, (units + uc - 1) / uc);
+  lane_concat_kernel<VEC><<<grid, block, 0, s>>>(x, out, rows, w_in, w_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// sum_rows: out[0, b] = sum_{t < rows} rb[t, b] in f32, rows in order, each
+// converted first. A thread owns one column and walks the rows in rounds of
+// SUM_ROUND, every load of a round sent before the round's first add. The
+// loads take no condition (a row past `rows` reads the last row again and
+// adds +0, which leaves the sum's bits as they are: it is never -0); loads
+// under `t < rows` let the compiler sink each to its add, a chain of round
+// trips (PERF.md).
+constexpr int SUM_THREADS = 128;
+constexpr int SUM_ROUND = 16;
+
+__global__ void __launch_bounds__(SUM_THREADS)
+sum_rows_kernel(const int* __restrict__ rb, float* __restrict__ out, int rows, int b) {
+  const int col = blockIdx.x * SUM_THREADS + threadIdx.x;
   if (col >= b) return;
   float acc = 0.f;
-  for (int t = 0; t < rows; ++t) acc += (float)rb[(size_t)t * b + col];
+  for (int t0 = 0; t0 < rows; t0 += SUM_ROUND) {
+    int v[SUM_ROUND];
+#pragma unroll
+    for (int k = 0; k < SUM_ROUND; ++k) v[k] = __ldg(rb + (size_t)min(t0 + k, rows - 1) * b + col);
+#pragma unroll
+    for (int k = 0; k < SUM_ROUND; ++k) acc += t0 + k < rows ? (float)v[k] : 0.f;
+  }
   out[col] = acc;
 }
 
@@ -380,17 +449,22 @@ int slab_slots(const void* rb, void* out, int b, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// x (rows, w_in) with w_in a multiple of width; out (rows, width * pieces)
 int lane_concat_bf16(const void* x, void* out, int rows, int w_in, int width,
                      int pieces, void* stream) {
-  lane_concat_kernel<<<grid_for((long long)rows * width * pieces), THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<float*>(out), rows, w_in, width, pieces);
-  return static_cast<int>(cudaGetLastError());
+  const bf16* xb = static_cast<const bf16*>(x);
+  float* o = static_cast<float*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (width % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0)
+    return launch_lane_concat<true>(xb, o, rows, w_in, width * pieces, s);
+  return launch_lane_concat<false>(xb, o, rows, w_in, width * pieces, s);
 }
 
 int sum_rows(const void* rb, void* out, int rows, int b, void* stream) {
-  sum_rows_kernel<<<grid_for(b), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(rb), static_cast<float*>(out), rows, b);
+  const int* r = static_cast<const int*>(rb);
+  float* o = static_cast<float*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  sum_rows_kernel<<<(b + SUM_THREADS - 1) / SUM_THREADS, SUM_THREADS, 0, s>>>(r, o, rows, b);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -196,8 +196,11 @@ def lane_concat(x: torch.Tensor, width: int, pieces: int) -> torch.Tensor:
     """P5 ``kb``: the concatenation of ``pieces`` column blocks of ``width``,
     piece p being x's block ``p mod (W / width)`` (``kb``: the 8 blocks of a
     (B, 8 C) x, then its first again), bf16 in, f32 -> (rows, pieces *
-    width). CPU tensors take ``lane_concat_plain``; CUDA tensors launch
-    ``csrc/probe_kernels.cu`` or raise."""
+    width); that is ``out[:, c] = x[:, c mod W]``. CPU tensors take
+    ``lane_concat_plain``; CUDA tensors launch ``csrc/probe_kernels.cu`` or
+    raise. The kernel gives a thread one 16-byte piece of x (8 columns; one
+    column where ``width`` is not a multiple of 8 or x is not 16-byte
+    aligned), read once and written to every output column it feeds."""
     rows, w_in = x.shape
     if width <= 0 or w_in % width:
         raise ValueError(f"lane_concat: width {width} does not divide {w_in} columns")
@@ -222,7 +225,8 @@ def sum_rows(rb: torch.Tensor, rows: int) -> torch.Tensor:
     """P5 ``kc2``: ``out[0, b] = sum_{t < rows} rb[t, b]`` in f32, rows in
     order, for an int32 (R, B) ``rb`` -> (1, B) f32. CPU tensors take
     ``sum_rows_plain``; CUDA tensors launch ``csrc/probe_kernels.cu`` or
-    raise."""
+    raise. The kernel gives a thread one column, whose loads of up to 16
+    rows all go out before their adds."""
     if not 0 <= rows <= rb.shape[0]:
         raise ValueError(f"sum_rows: {rows} rows of {rb.shape[0]}")
     if not _on_cuda("sum_rows", rb):

@@ -74,7 +74,9 @@ def _variant_edits():
     """(tool, variant, edits) of every tile variant."""
     out = [(tool, name, edits) for tool, table in (("k1", variants.K1), ("k2", variants.K2),
                                                    ("k4", variants.K4), ("v5", variants.V5),
-                                                   ("p1", variants.GATHER), ("k0", variants.COPY))
+                                                   ("p1", variants.GATHER), ("k0", variants.COPY),
+                                                   ("kb", variants.CONCAT),
+                                                   ("kc2", variants.SUM_ROWS))
            for name, edits in table.items()]
     own = next(ln for ln in _read("probe_kernels.cu").splitlines()
                if ln.startswith(variants.KD_LINE))

@@ -691,6 +691,58 @@ def test_grouped_construct_kernels_match_plain(cuda):
     assert out.shape == (333, 19) and _rel_err(out, pk.tile_matmul_plain(g, w)) <= 1e-5
 
 
+@pytest.mark.parametrize("rows,w_in,width,pieces,unaligned", [
+    (512, 256, 32, 9, False),  # the probe's shape: block 0 written to pieces 0 and 8
+    (333, 35, 5, 9, False),  # a width of 5: the scalar path
+    (512, 256, 32, 9, True),  # x at a 2-byte offset: the scalar path
+    (77, 64, 8, 1, False),  # fewer pieces than x's blocks
+    (77, 64, 8, 17, False),
+    (100_000, 64, 16, 9, False),
+    (64, 4096, 512, 9, False),  # 512 pieces a row: two CTAs of columns
+], ids=["probe", "width5", "unaligned", "pieces1", "pieces17", "rows100k", "w_in4096"])
+def test_lane_concat_matches_plain(cuda, rows, w_in, width, pieces, unaligned):
+    """P5 kb: one launch, equal to the plain version bit for bit, and to
+    itself relaunched."""
+    gen = torch.Generator(device=cuda).manual_seed(rows + w_in + pieces)
+    x = torch.randn(rows, w_in, device=cuda, generator=gen).bfloat16()
+    if unaligned:
+        x = _unaligned(x)
+    before = pk.LANE_CONCAT.launches
+    out = pk.lane_concat(x, width, pieces)
+    assert pk.LANE_CONCAT.launches == before + 1
+    ref = pk.lane_concat_plain(x, width, pieces)
+    torch.cuda.synchronize()
+    assert out.shape == (rows, width * pieces) and torch.equal(out, ref)
+    assert torch.equal(pk.lane_concat(x, width, pieces), out)
+
+
+@pytest.mark.parametrize("shape,rows,unaligned", [
+    ((16, 512), 0, False),
+    ((16, 512), 1, False),
+    ((16, 512), 9, False),  # the probe's
+    ((16, 512), 16, False),  # one full round
+    ((40, 1000), 33, False),  # two rounds of 16 and a tail
+    ((16, 512), 9, True),  # rb at a 4-byte offset
+    ((16, 1), 9, False),
+], ids=["rows0", "rows1", "rows9", "rows16", "rows33", "unaligned", "b1"])
+def test_sum_rows_matches_plain(cuda, shape, rows, unaligned):
+    """P5 kc2 on int32 values up to 2^30 (each rounds to f32, and so do the
+    sums, so the order of the adds shows): one launch, equal to the plain
+    version bit for bit, and to itself relaunched."""
+    gen = torch.Generator(device=cuda).manual_seed(shape[1] + rows)
+    rb = torch.randint(-2 ** 30, 2 ** 30, shape, device=cuda, generator=gen,
+                       dtype=torch.int32)
+    if unaligned:
+        rb = _unaligned(rb)
+    before = pk.SUM_ROWS.launches
+    out = pk.sum_rows(rb, rows)
+    assert pk.SUM_ROWS.launches == before + 1
+    ref = pk.sum_rows_plain(rb, rows)
+    torch.cuda.synchronize()
+    assert out.shape == (1, shape[1]) and torch.equal(out, ref)
+    assert torch.equal(pk.sum_rows(rb, rows), out)
+
+
 @pytest.mark.parametrize("m,k,n", [(512, 288, 32), (77, 288, 13), (1000, 40, 100)])
 def test_tile_matmul_matches_plain(cuda, m, k, n):
     """P5 kd at the probe's (512, 288) x (288, 32), and at an M and an N
@@ -729,6 +781,8 @@ def test_probe_kernels_reject_bad_input(cuda):
         pk.window_head_sum(x, w0[0], 64, 16)
     with pytest.raises(ValueError):
         pk.lane_concat(x, 3, 9)
+    with pytest.raises(RuntimeError):  # no column to concatenate: the launcher refuses
+        pk.lane_concat(x[:, :0], 3, 9)
     with pytest.raises(ValueError):
         pk.tile_matmul(x, torch.randn(1, 7, 4, device=cuda))
     with pytest.raises(ValueError):

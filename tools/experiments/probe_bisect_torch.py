@@ -18,7 +18,9 @@ the library call's where one PyTorch call computes the same function
 ``kd``), and the bound, and whether the kernel agrees with the plain
 version. The window copies (P3 ``k0``, P4 A-D) sum 4 windows per block,
 which no single call does; beside them it times a floor, a slice's
-``copy_`` into an output of the same shape. It needs a CUDA device and
+``copy_`` into an output of the same shape. Beside P5 ``kb`` it times x's
+``copy_`` into the first 8 C columns of its output: all that ``kb`` reads,
+8/9 of what it writes. It needs a CUDA device and
 refuses to run without one.
 """
 
@@ -180,7 +182,9 @@ def p5_variants(device):
         Variant("P5 kb lane-concat9", f"{BISECT3}:65", pk.LANE_CONCAT,
                 _pair(pk.lane_concat, pk.lane_concat_plain, x, C, 9), "exact",
                 x.numel() * 2 + b * 9 * C * 4, 0.0, PEAK_F32,
-                lambda: torch.cat(slices, 1, out=cat_out)),
+                lambda: torch.cat(slices, 1, out=cat_out),
+                floor=(f"x's copy_ into the first {8 * C} columns of the ({b}, {9 * C}) f32 "
+                       "output", lambda: cat_out[:, :8 * C].copy_(x))),
         Variant("P5 kc2 sublane-slices", f"{BISECT3}:83", pk.SUM_ROWS,
                 _pair(pk.sum_rows, pk.sum_rows_plain, rb, 9), "exact",
                 4 * 9 * b + 4 * b, float(9 * b), PEAK_F32,

@@ -5,7 +5,8 @@ fine-tune batch's real band plans, K4 (``windowed_conv_fwd``) at
 ``chip_smoke.py`` phase 12's six convs, and P5 ``kd`` (``tile_matmul``) at
 its probe's shape; and of P7 V5 (``window_head_sum``), the row gather-sum
 (``csrc/row_gather.cu``: P1, P2, P3 ``k1``) and the window copy-sum
-(``window_copy_sum``: P3 ``k0``, P4 A-D) at their probes' shapes.
+(``window_copy_sum``: P3 ``k0``, P4 A-D), P5 ``kb`` (``lane_concat``) and
+``kc2`` (``sum_rows``) at their probes' shapes.
 
     python tools/experiments/probe_mma_variants_torch.py k1 [variant,...]
     python tools/experiments/probe_mma_variants_torch.py k2 [variant,...]
@@ -14,6 +15,8 @@ its probe's shape; and of P7 V5 (``window_head_sum``), the row gather-sum
     python tools/experiments/probe_mma_variants_torch.py v5 [variant,...]
     python tools/experiments/probe_mma_variants_torch.py p1 [variant,...]
     python tools/experiments/probe_mma_variants_torch.py k0 [variant,...]
+    python tools/experiments/probe_mma_variants_torch.py kb [variant,...]
+    python tools/experiments/probe_mma_variants_torch.py kc2 [variant,...]
 
 Each variant is a copy of the kernel sources with a few text edits (K1:
 ``routed`` as built, the compacted tile in f32 and K2's dx tile in bf16;
@@ -33,7 +36,14 @@ a warp per batch of rows with its entries passed on by shuffles, ``stcs`` /
 ``stcg`` other store hints, ``noidx`` / ``nowin`` / ``nostore`` drop the
 entry reads, the window or the stores, ``empty`` returns at once; k0:
 ``base`` the register route, ``ctaN`` N threads a CTA, ``plainst`` plain
-stores, ``empty``), built with the package's nvcc flags into
+stores, ``empty``; kb: ``base`` a thread per 16-byte piece of x,
+``ctaN`` N-thread CTAs, ``outpiece`` a thread per 8-column piece of the
+output, ``old`` the former design, a thread per output element, ``nostore``,
+``empty``; kc2: ``base`` a column a thread in 128-thread CTAs, ``ctaN``
+N-thread CTAs, ``vec`` / ``vec32`` 4 columns a thread by 16-byte loads in
+128- or 32-thread CTAs, ``predload`` loads and adds under ``t < rows``,
+``old`` the former kernel, ``empty``), built with
+the package's nvcc flags into
 ``ponderv2_tpu_torch/csrc/_build/variants/`` in parallel and bound in place
 of the package's build. K1, K2: CUDA events over 5 calls after a warm-up,
 each variant twice (in order, then reversed), f32 and bf16, with the max
@@ -44,7 +54,8 @@ beside ``torch.mm``; v5 the same timing, L2 flushed and warm, in turns,
 beside ``Tensor.fill_`` of the same 21 MB output (a fresh tensor and one
 reused), the least a kernel that writes it could take; p1 and k0 the same
 timing at each of their probes, and whether the output equals the plain
-version's. Variants that drop work give wrong results on purpose.
+version's (kb and kc2 too), then the floor's time beside each probe with
+one. Variants that drop work give wrong results on purpose.
 """
 
 import ctypes
@@ -336,6 +347,144 @@ COPY = {
 }
 
 
+# P5 kb (probe_kernels.cu:lane_concat): a thread per 16-byte piece of x as
+# built, other CTA sizes, a thread per 8-column piece of the output (piece
+# 8's re-read of x's block 0 served by L2), the former thread per output
+# element, diagnostics (no stores: wrong on purpose) and the kernel emptied
+FAMILY_D_END = "// Every output row reads its own input row through the one tap.\n"
+CONCAT_CTA = "constexpr int CONCAT_THREADS = 256;"
+CONCAT_VEC = "    return launch_lane_concat<true>(xb, o, rows, w_in, width * pieces, s);\n"
+CONCAT_DISPATCH = ("  if (width % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0)\n"
+                   + CONCAT_VEC)
+CONCAT_OLD = """__global__ void __launch_bounds__(THREADS)
+lane_concat_old_kernel(const bf16* __restrict__ x, float* __restrict__ out, int rows,
+                       int w_in, int width, int pieces) {
+  const int w_out = width * pieces;
+  const long long e = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (e >= (long long)rows * w_out) return;
+  const int row = (int)(e / w_out);
+  const int k = (int)(e % w_out);
+  const int src = (k / width) % (w_in / width) * width + k % width;
+  out[e] = to_float(x[(size_t)row * w_in + src]);
+}
+
+"""
+CONCAT_OUT = """__global__ void __launch_bounds__(CONCAT_THREADS)
+lane_concat_out_kernel(const bf16* __restrict__ x, float* __restrict__ out, int rows, int w_in,
+                       int w_out) {
+  const int row = blockIdx.x * blockDim.y + threadIdx.y;
+  const int c = (blockIdx.y * blockDim.x + threadIdx.x) * 8;
+  if (row >= rows || c >= w_out) return;
+  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(x + (size_t)row * w_in + c % w_in));
+  float4* dst = reinterpret_cast<float4*>(out + (size_t)row * w_out + c);
+  __stcs(dst, make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
+                          __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u)));
+  __stcs(dst + 1, make_float4(__uint_as_float(raw.z << 16), __uint_as_float(raw.z & 0xffff0000u),
+                              __uint_as_float(raw.w << 16), __uint_as_float(raw.w & 0xffff0000u)));
+}
+
+int launch_lane_concat_out(const bf16* x, float* out, int rows, int w_in, int w_out,
+                           cudaStream_t s) {
+  const int units = w_out / 8, uc = std::min(units, CONCAT_THREADS);
+  const dim3 block(uc, CONCAT_THREADS / uc);
+  const dim3 grid((rows + block.y - 1) / block.y, (units + uc - 1) / uc);
+  lane_concat_out_kernel<<<grid, block, 0, s>>>(x, out, rows, w_in, w_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+"""
+CONCAT_SIG = ("lane_concat_kernel(const bf16* __restrict__ x, float* __restrict__ out, int rows, "
+              "int w_in,\n                   int w_out) {\n")
+CONCAT_STORES = "    for (int c = j; c < w_out; c += w_in) {\n      __stcs("
+CONCAT = {
+    "base": [],
+    **{f"cta{n}": [("probe_kernels.cu", CONCAT_CTA, CONCAT_CTA.replace("256", str(n)))]
+       for n in (64, 128)},
+    "outpiece": [("probe_kernels.cu", FAMILY_D_END, CONCAT_OUT + FAMILY_D_END),
+                 ("probe_kernels.cu", CONCAT_VEC, CONCAT_VEC.replace(
+                     "launch_lane_concat<true>", "launch_lane_concat_out"))],
+    "old": [("probe_kernels.cu", FAMILY_D_END, CONCAT_OLD + FAMILY_D_END),
+            ("probe_kernels.cu", CONCAT_DISPATCH,
+             "  lane_concat_old_kernel<<<grid_for((long long)rows * width * pieces), THREADS, 0, "
+             "s>>>(\n      xb, o, rows, w_in, width, pieces);\n"
+             "  return static_cast<int>(cudaGetLastError());\n")],
+    "nostore": [("probe_kernels.cu", CONCAT_STORES,
+                 CONCAT_STORES.replace("c < w_out;", "c < w_out && lo.x == -1.5e30f;"))],
+    "empty": [("probe_kernels.cu", CONCAT_SIG, CONCAT_SIG + "  if (rows >= 0) return;\n")],
+}
+# P5 kc2 (probe_kernels.cu:sum_rows): a column a thread, a round's loads
+# (no condition) before its adds, 4 CTAs of 128 at the probe as built; other
+# CTA sizes (256: the former layout, 2 CTAs, with its loads hoisted); 4
+# columns a thread by 16-byte loads where B is a multiple of 4 and rb
+# 16-byte aligned (one CTA of 128, or 4 of 32); loads and adds under
+# t < rows; the former kernel; the kernel emptied
+SUM_CTA = "constexpr int SUM_THREADS = 128;"
+SUM_LAUNCH = ("  sum_rows_kernel<<<(b + SUM_THREADS - 1) / SUM_THREADS, SUM_THREADS, 0, s>>>"
+              "(r, o, rows, b);\n")
+SUM_OLD = """__global__ void __launch_bounds__(THREADS)
+sum_rows_old_kernel(const int* __restrict__ rb, float* __restrict__ out, int rows,
+                    int b) {
+  const int col = blockIdx.x * THREADS + threadIdx.x;
+  if (col >= b) return;
+  float acc = 0.f;
+  for (int t = 0; t < rows; ++t) acc += (float)rb[(size_t)t * b + col];
+  out[col] = acc;
+}
+
+"""
+SUM_VEC = """__global__ void __launch_bounds__(SUM_THREADS)
+sum_rows_vec_kernel(const int* __restrict__ rb, float* __restrict__ out, int rows, int b) {
+  const int col = (blockIdx.x * SUM_THREADS + threadIdx.x) * 4;
+  if (col >= b) return;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int t0 = 0; t0 < rows; t0 += SUM_ROUND) {
+    int4 v[SUM_ROUND];
+#pragma unroll
+    for (int k = 0; k < SUM_ROUND; ++k)
+      v[k] = __ldg(reinterpret_cast<const int4*>(rb + (size_t)min(t0 + k, rows - 1) * b + col));
+#pragma unroll
+    for (int k = 0; k < SUM_ROUND; ++k)
+      if (t0 + k < rows) {
+        acc[0] += (float)v[k].x;
+        acc[1] += (float)v[k].y;
+        acc[2] += (float)v[k].z;
+        acc[3] += (float)v[k].w;
+      }
+  }
+  *reinterpret_cast<float4*>(out + col) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+}
+
+"""
+SUM_VEC_LAUNCH = """  if (b % 4 == 0 && reinterpret_cast<uintptr_t>(rb) % 16 == 0) {
+    sum_rows_vec_kernel<<<(b / 4 + SUM_THREADS - 1) / SUM_THREADS, SUM_THREADS, 0, s>>>(
+        r, o, rows, b);
+    return static_cast<int>(cudaGetLastError());
+  }
+"""
+SUM_VEC_EDITS = [("probe_kernels.cu", FAMILY_D_END, SUM_VEC + FAMILY_D_END),
+                 ("probe_kernels.cu", SUM_LAUNCH, SUM_VEC_LAUNCH + SUM_LAUNCH)]
+SUM_SIG = ("sum_rows_kernel(const int* __restrict__ rb, float* __restrict__ out, int rows, "
+           "int b) {\n")
+SUM_LOAD = ("    for (int k = 0; k < SUM_ROUND; ++k) v[k] = __ldg(rb + (size_t)min(t0 + k, "
+            "rows - 1) * b + col);\n")
+SUM_ADDS = "    for (int k = 0; k < SUM_ROUND; ++k) acc += t0 + k < rows ? (float)v[k] : 0.f;\n"
+SUM_PRED = [("probe_kernels.cu", SUM_LOAD, "    for (int k = 0; k < SUM_ROUND; ++k)\n"
+             "      v[k] = t0 + k < rows ? __ldg(rb + (size_t)(t0 + k) * b + col) : 0;\n"),
+            ("probe_kernels.cu", SUM_ADDS, "    for (int k = 0; k < SUM_ROUND; ++k)\n"
+             "      if (t0 + k < rows) acc += (float)v[k];\n")]
+SUM_ROWS = {
+    "base": [],
+    "predload": SUM_PRED,
+    **{f"cta{n}": [("probe_kernels.cu", SUM_CTA, SUM_CTA.replace("128", str(n)))]
+       for n in (64, 256)},
+    "vec": SUM_VEC_EDITS,
+    "vec32": SUM_VEC_EDITS + [("probe_kernels.cu", SUM_CTA, SUM_CTA.replace("128", "32"))],
+    "old": [("probe_kernels.cu", FAMILY_D_END, SUM_OLD + FAMILY_D_END),
+            ("probe_kernels.cu", SUM_LAUNCH,
+             "  sum_rows_old_kernel<<<grid_for(b), THREADS, 0, s>>>(r, o, rows, b);\n")],
+    "empty": [("probe_kernels.cu", SUM_SIG, SUM_SIG + "  if (rows >= 0) return;\n")],
+}
+
 def build(source, variants):
     """{name: CDLL} of ``csrc/<source>.cu`` with each variant's edits."""
     out_dir = os.path.join(BUILD_DIR, "variants", source)
@@ -623,6 +772,10 @@ def run_probe_routes(source, table, kernel, pick, names):
             print(f"{name} {v.name}: L2 cold {probe.graph_ms(fn, 20):.5f} ms, warm "
                   f"{probe.graph_ms(fn, 20, cold=False):.5f} ms; equal to plain "
                   f"{torch.equal(out, refs[v.name])}", flush=True)
+    for v in vs:
+        if v.floor:
+            print(f"floor of {v.name}, {v.floor[0]}: L2 cold {probe.graph_ms(v.floor[1], 20):.5f}"
+                  " ms", flush=True)
 
 
 def run_p1(names):
@@ -637,17 +790,27 @@ def run_k0(names):
                      lambda v: v.kernel is pk.WINDOW_COPY_SUM, names)
 
 
+def run_kb(names):
+    run_probe_routes("probe_kernels", CONCAT, pk.LANE_CONCAT,
+                     lambda v: v.kernel is pk.LANE_CONCAT, names)
+
+
+def run_kc2(names):
+    run_probe_routes("probe_kernels", SUM_ROWS, pk.SUM_ROWS,
+                     lambda v: v.kernel is pk.SUM_ROWS, names)
+
+
 def main():
     if not torch.cuda.is_available():
         print("probe_mma_variants_torch: needs a CUDA GPU", file=sys.stderr)
         return 2
     which = sys.argv[1] if len(sys.argv) > 1 else "kd"
     table = {"k1": K1, "k2": K2, "k4": K4, "kd": KD, "v5": V5, "p1": GATHER,
-             "k0": COPY}[which]
+             "k0": COPY, "kb": CONCAT, "kc2": SUM_ROWS}[which]
     names = sys.argv[2].split(",") if len(sys.argv) > 2 else list(table)
     print(os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read().strip())
     {"k1": run_k1, "k2": run_k2, "k4": run_k4, "kd": run_kd, "v5": run_v5, "p1": run_p1,
-     "k0": run_k0}[which](names)
+     "k0": run_k0, "kb": run_kb, "kc2": run_kc2}[which](names)
     return 0
 
 

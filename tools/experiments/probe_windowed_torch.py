@@ -238,9 +238,10 @@ class Variant(NamedTuple):
     ``peak`` FLOP/s; ``library`` is one PyTorch call computing the same
     function, or None. ``rows``: for a kernel on a gather-GEMM tile, the
     rows it multiplies per output column tile and the live entries, counted
-    from the geometry. ``floor``: (what it is, a PyTorch call) that writes
-    the same output from as many input rows but computes less, timed
-    beside as a floor where no single call computes the function."""
+    from the geometry. ``floor``: (what it is, a PyTorch call) that moves
+    no more bytes than the function and computes less (the same output from
+    as many input rows, or all of the input into part of the output), timed
+    beside as a floor."""
 
     name: str
     replaces: str

@@ -89,10 +89,13 @@ repo around it, and runs in phases; any failure exits non-zero:
     from a CUDA graph, the L2 flushed before each call; the kernel with it
     warm too) and per call issued from Python, and beside the window copies
     (P3 ``k0``, P4 A-D), which no single call computes, a slice's ``copy_``
-    into the same output as a floor; first an empty kernel
+    into the same output as a floor (beside P5 ``kb`` and ``ka`` a ``copy_``
+    of their input into their output); first an empty kernel
     (``csrc/row_gather.cu`` built with its vector path emptied, at P1's launch),
     the launch floor printed in the phase's first line and beside each
-    probe's bound; for P7 V2-V4 (K4's slab
+    probe's bound, then one at P5 ``ka``'s grid (``csrc/probe_kernels.cu``
+    with ``slab_slots`` emptied), printed beside ``ka`` in P1's place; for
+    P7 V2-V4 (K4's slab
     tile) print the rows multiplied against the live entries; with
     ``--parent-log`` each kernel's time beside that tree's;
 14. write 36 + 1 of SyntheticDataset's 100k-point scenes into a
@@ -2678,6 +2681,10 @@ def main() -> int:
         floor_ms = probe_gather_torch.launch_floor_ms(dev)
         print(f"[probe] launch floor: an empty kernel (csrc/row_gather.cu emptied, at P1's "
               f"launch) {floor_ms:.4f} ms ({probe.TIMING})", flush=True)
+        # the empty kernel beside each row: at its own grid for P5 ka, else P1's
+        empty_ms = {pk.SLAB_SLOTS: probe_bisect_torch.slab_slots_empty_ms(dev)}
+        print(f"[probe] an empty kernel at P5 ka's grid (csrc/probe_kernels.cu with slab_slots "
+              f"emptied) {empty_ms[pk.SLAB_SLOTS]:.4f} ms", flush=True)
         for v in (probe_gather_torch.variants(dev) + probe_bisect_torch.variants(dev)
                   + probe.profile_variants(dev)):
             for k in all_kernels:
@@ -2687,8 +2694,8 @@ def main() -> int:
             launched = {k.symbol: k.launches for k in all_kernels if k.launches}
             check(launched == {v.kernel.symbol: 1}, f"{v.name}: launches {launched}")
             m = probe.measure(v, out, 20)
-            print("[probe] " + probe.report(v, m) + f"; empty kernel {floor_ms:.4f} ms",
-                  flush=True)
+            print("[probe] " + probe.report(v, m)
+                  + f"; empty kernel {empty_ms.get(v.kernel, floor_ms):.4f} ms", flush=True)
             if v.name in parent:
                 print(f"[probe] {v.name}: parent -> this tree {parent[v.name]:.4f} -> "
                       f"{m['ms']:.4f} ms (device, L2 cold)")

@@ -32,8 +32,20 @@
 // nanoseconds and their time is the launch's (kd: one 16-row x 32-column CTA
 // of 4 warps per 16 rows, 32 CTAs at 512 rows, with the 288-deep K in flight
 // at once and no row table or vote, so that one launch, one round of loads
-// and a chain of 18 mma are all it waits on). slab_slots runs one thread
-// per output element, consecutive threads on consecutive columns.
+// and a chain of 18 mma are all it waits on).
+//
+// slab_slots (ka: 2 KB of rb's first row read, a (512, 8) f32 output of 16
+// KB written, a bound of ~5.5 ns) costs a launch and one round trip, so it
+// is built for the fewest threads, loads and stores that round trip takes:
+// a thread per column (ka: 4 CTAs of 128), which loads its entry once and
+// writes its output row by two 16-byte streaming stores. The first design,
+// a thread per output element, had 8 threads load each entry and made one
+// 4-byte store each, with the element index b * 8 an int32 that overflowed
+// for b >= 2^28. At ka it measured 0-0.0002 ms faster than this one: both
+// are an empty kernel's time plus one round trip, and no layout of the
+// 16 KB of stores changes that. Fewer SMs write slower: one CTA of 512, or
+// one of 128 with 4 columns a thread, measured ~0.0003 and ~0.0009 ms
+// slower (tools/experiments/probe_mma_variants_torch.py ka; PERF.md).
 //
 // lane_concat (kb: (512, 256) bf16 -> (512, 288) f32, 0.85 MB, a bound of
 // ~0.25 us) and sum_rows (kc2: 9 rows of a (16, 512) int32 table, a bound
@@ -104,13 +116,8 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int THREADS = 256;
 
 __device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
-
-unsigned grid_for(long long threads) {
-  return (unsigned)((threads + THREADS - 1) / THREADS);
-}
 
 // ---------------------------------------------------------------- family C
 
@@ -303,12 +310,23 @@ int launch_window_head_sum(const bf16* x, const int* w0, float* out, int rows_x,
 
 // ---------------------------------------------------------------- family D
 
-__global__ void __launch_bounds__(THREADS)
+// slab_slots: out[c, k] = v(rb[0, c]) for k < 8. A thread owns column c:
+// one 4-byte load (a warp reads one 128-byte line, once), v formed in int32
+// and converted once, and its 32-byte output row written by two 16-byte
+// streaming stores (a warp writes 1 KB contiguously); out must be 16-byte
+// aligned. Indices are 32-bit; a row's offset is their 64-bit product.
+constexpr int SLOT_THREADS = 128;
+
+__global__ void __launch_bounds__(SLOT_THREADS)
 slab_slots_kernel(const int* __restrict__ rb, float* __restrict__ out, int b) {
-  const int e = blockIdx.x * THREADS + threadIdx.x;
-  if (e >= b * 8) return;
-  const int r = rb[e / 8];
-  out[e] = r >= 0 ? (float)(r % 8 + 1) : 0.f;
+  const unsigned col = blockIdx.x * SLOT_THREADS + threadIdx.x;
+  if (col >= (unsigned)b) return;
+  const int r = __ldg(rb + col);
+  const float v = (float)(r >= 0 ? r % 8 + 1 : 0);
+  float* dst = out + (size_t)col * 8;
+  const float4 v4 = make_float4(v, v, v, v);
+  __stcs(reinterpret_cast<float4*>(dst), v4);
+  __stcs(reinterpret_cast<float4*>(dst) + 1, v4);
 }
 
 // lane_concat: out[r, c] = x[r, c mod w_in] for c < w_out (piece p is x's
@@ -442,10 +460,14 @@ int window_head_sum_bf16(const void* x, const void* w0, void* out, int rows_x, i
                                        s);
 }
 
+// rb's first row (b int32); out (b, 8), 16-byte aligned
 int slab_slots(const void* rb, void* out, int b, void* stream) {
-  slab_slots_kernel<<<grid_for((long long)b * 8), THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(rb), static_cast<float*>(out), b);
+  if (reinterpret_cast<uintptr_t>(out) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* r = static_cast<const int*>(rb);
+  float* o = static_cast<float*>(out);
+  slab_slots_kernel<<<(unsigned)(((long long)b + SLOT_THREADS - 1) / SLOT_THREADS), SLOT_THREADS,
+                      0, s>>>(r, o, b);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -175,11 +175,18 @@ def slab_slots(rb: torch.Tensor) -> torch.Tensor:
     ``out[b, r] = rb[0, b] % 8 + 1`` where ``rb[0, b] >= 0``, else 0, for
     r < 8, from the first row of an int32 (rows, B) ``rb`` -> (B, 8) f32. CPU
     tensors take ``slab_slots_plain``; CUDA tensors launch
-    ``csrc/probe_kernels.cu`` or raise."""
+    ``csrc/probe_kernels.cu`` or raise. The kernel gives a thread one
+    column: one load of its entry, its output row written by two 16-byte
+    stores (the output, made here, is 16-byte aligned; the launcher refuses
+    one that is not)."""
+    if rb.dim() != 2 or rb.shape[0] == 0:
+        raise ValueError(f"slab_slots: rb {tuple(rb.shape)} has no first row")
     if not _on_cuda("slab_slots", rb):
         return slab_slots_plain(rb)
     _check("slab_slots", ints=(rb,))
     b = rb.shape[1]
+    if b > torch.iinfo(torch.int32).max:  # the kernel's column index is 32-bit
+        raise ValueError(f"slab_slots: {b} columns do not fit in an int32")
     out = torch.empty((b, 8), dtype=torch.float32, device=rb.device)
     if b:
         SLAB_SLOTS.launch(None, rb.device, rb.data_ptr(), out.data_ptr(), b)

@@ -75,6 +75,7 @@ def _variant_edits():
     out = [(tool, name, edits) for tool, table in (("k1", variants.K1), ("k2", variants.K2),
                                                    ("k4", variants.K4), ("v5", variants.V5),
                                                    ("p1", variants.GATHER), ("k0", variants.COPY),
+                                                   ("ka", variants.SLOTS),
                                                    ("kb", variants.CONCAT),
                                                    ("kc2", variants.SUM_ROWS))
            for name, edits in table.items()]

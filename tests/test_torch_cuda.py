@@ -691,6 +691,37 @@ def test_grouped_construct_kernels_match_plain(cuda):
     assert out.shape == (333, 19) and _rel_err(out, pk.tile_matmul_plain(g, w)) <= 1e-5
 
 
+SLOT_ENTRIES = [-2 ** 31, -9, -1, 0, 7, 8, 2 ** 31 - 1]
+
+
+@pytest.mark.parametrize("shape,unaligned", [
+    ((16, 512), False),  # the probe's: 4 CTAs of 128
+    ((16, 1), False),
+    ((16, 333), False),  # a ragged last CTA
+    ((16, 100_000), False),
+    ((1, 512), False),  # an rb of one row
+    ((16, 512), True),  # rb at a 4-byte offset
+], ids=["probe", "b1", "b333", "b100k", "one_row", "unaligned"])
+def test_slab_slots_matches_plain(cuda, shape, unaligned):
+    """P5 ka on entries over the whole int32 range, the edges included
+    (``SLOT_ENTRIES``, at the start of the first row): one launch, equal
+    to the plain version bit for bit, and to itself relaunched."""
+    gen = torch.Generator(device=cuda).manual_seed(shape[0] + shape[1])
+    rb = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, device=cuda, generator=gen,
+                       dtype=torch.int32)
+    n = min(len(SLOT_ENTRIES), shape[1])
+    rb[0, :n] = torch.tensor(SLOT_ENTRIES[:n], dtype=torch.int32)
+    if unaligned:
+        rb = _unaligned(rb)
+    before = pk.SLAB_SLOTS.launches
+    out = pk.slab_slots(rb)
+    assert pk.SLAB_SLOTS.launches == before + 1
+    ref = pk.slab_slots_plain(rb)
+    torch.cuda.synchronize()
+    assert out.shape == (shape[1], 8) and torch.equal(out, ref)
+    assert torch.equal(pk.slab_slots(rb), out)
+
+
 @pytest.mark.parametrize("rows,w_in,width,pieces,unaligned", [
     (512, 256, 32, 9, False),  # the probe's shape: block 0 written to pieces 0 and 8
     (333, 35, 5, 9, False),  # a width of 5: the scalar path
@@ -787,6 +818,11 @@ def test_probe_kernels_reject_bad_input(cuda):
         pk.tile_matmul(x, torch.randn(1, 7, 4, device=cuda))
     with pytest.raises(ValueError):
         pk.sum_rows(rb, 9)
+    with pytest.raises(ValueError):  # no first row to read
+        pk.slab_slots(rb[:0])
+    out = torch.empty(8 * 4 + 1, device=cuda)
+    with pytest.raises(RuntimeError):  # an output not 16-byte aligned: the launcher refuses
+        pk.SLAB_SLOTS.launch(None, rb.device, rb.data_ptr(), out.data_ptr() + 4, 4)
     with pytest.raises(ValueError):
         wg.windowed_slab_fwd(x, wg.prepare_geometry(rb, 48, 16, 64, 1),
                              torch.randn(2, 8, 4, device=cuda), 60, 1)

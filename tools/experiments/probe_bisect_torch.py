@@ -20,8 +20,10 @@ version. The window copies (P3 ``k0``, P4 A-D) sum 4 windows per block,
 which no single call does; beside them it times a floor, a slice's
 ``copy_`` into an output of the same shape. Beside P5 ``kb`` it times x's
 ``copy_`` into the first 8 C columns of its output: all that ``kb`` reads,
-8/9 of what it writes. It needs a CUDA device and
-refuses to run without one.
+8/9 of what it writes. Beside ``ka`` it times the ``copy_`` of rb's first
+row into each of the 8 columns of its output: the same bytes read and
+written with the conversion to f32, without the modulo and the mask. It
+needs a CUDA device and refuses to run without one.
 """
 
 from __future__ import annotations
@@ -174,11 +176,14 @@ def p5_variants(device):
     w = torch.from_numpy(w).to(device).bfloat16()
     g = torch.from_numpy(g).to(device).bfloat16()
     cat_out = torch.empty((b, 9 * C), dtype=torch.float32, device=device)
+    slot_out = torch.empty((b, 8), dtype=torch.float32, device=device)
     slices = [x[:, p % 8 * C:(p % 8 + 1) * C] for p in range(9)]
     return [
         Variant("P5 ka eye-transpose", f"{BISECT3}:54", pk.SLAB_SLOTS,
                 _pair(pk.slab_slots, pk.slab_slots_plain, rb), "exact",
-                4 * b + b * 8 * 4, float(2 * b), PEAK_F32),
+                4 * b + b * 8 * 4, float(2 * b), PEAK_F32,
+                floor=(f"rb's first row's copy_ into each column of a ({b}, 8) f32 output",
+                       lambda: slot_out.copy_(rb[0, :, None].expand(-1, 8)))),
         Variant("P5 kb lane-concat9", f"{BISECT3}:65", pk.LANE_CONCAT,
                 _pair(pk.lane_concat, pk.lane_concat_plain, x, C, 9), "exact",
                 x.numel() * 2 + b * 9 * C * 4, 0.0, PEAK_F32,
@@ -194,6 +199,20 @@ def p5_variants(device):
                 2 * (g.numel() + w.numel()) + 4 * b * C, 2.0 * b * 9 * C * C, PEAK_BF16,
                 lambda: torch.mm(g, w[0])),
     ]
+
+
+def slab_slots_empty_ms(device, iters=20):
+    """An empty kernel at P5 ``ka``'s grid (``probe_kernels.cu`` with
+    ``slab_slots`` emptied, ``probe_mma_variants_torch.SLOTS["empty"]``) on
+    ``ka``'s inputs, timed as the probes are."""
+    import torch
+
+    import probe_mma_variants_torch as mv
+    from ponderv2_tpu_torch.ops import probe_kernels as pk
+
+    rb = torch.from_numpy(bisect3_inputs()[1]).to(device)
+    return mv.empty_kernel_ms("probe_kernels", mv.SLOTS["empty"], pk.SLAB_SLOTS,
+                              lambda: pk.slab_slots(rb), iters)
 
 
 def variants(device):

@@ -64,28 +64,17 @@ def variants(device, n=N, c=C, tile=T):
 
 
 def launch_floor_ms(device, iters=20):
-    """The launch floor beside the probes' bounds: ``row_gather.cu`` built
-    with its vector path emptied (``probe_mma_variants_torch.GATHER_EMPTY``),
-    bound in place of the real build for P1's one call, and timed as the
-    probes are (``probe_windowed_torch.graph_ms``: CUDA-graph replay, L2
-    flushed). The real build and its launch count are restored after."""
+    """The launch floor beside the probes' bounds: an empty kernel at P1's
+    launch (``row_gather.cu`` with its vector path emptied,
+    ``probe_mma_variants_torch.GATHER_EMPTY``), timed as the probes are."""
     import torch
 
     import probe_mma_variants_torch as mv
-    import probe_windowed_torch as probe
     from ponderv2_tpu_torch.ops import row_gather as rg
 
-    libs = mv.build("row_gather", {"empty": mv.GATHER_EMPTY})
-    if "empty" not in libs:
-        raise RuntimeError("the emptied row_gather.cu did not build")
     feats, idx = (torch.from_numpy(a).to(device) for a in gather_inputs())
-    real, launches = rg.GATHER_SUM.lib(), rg.GATHER_SUM.launches
-    try:
-        mv.bind(rg.GATHER_SUM, libs["empty"])
-        return probe.graph_ms(lambda: rg.row_gather(feats, idx), iters)
-    finally:
-        mv.bind(rg.GATHER_SUM, real)
-        rg.GATHER_SUM.launches = launches
+    return mv.empty_kernel_ms("row_gather", mv.GATHER_EMPTY, rg.GATHER_SUM,
+                              lambda: rg.row_gather(feats, idx), iters)
 
 
 def main(argv=None) -> int:

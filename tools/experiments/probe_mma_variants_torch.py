@@ -5,8 +5,9 @@ fine-tune batch's real band plans, K4 (``windowed_conv_fwd``) at
 ``chip_smoke.py`` phase 12's six convs, and P5 ``kd`` (``tile_matmul``) at
 its probe's shape; and of P7 V5 (``window_head_sum``), the row gather-sum
 (``csrc/row_gather.cu``: P1, P2, P3 ``k1``) and the window copy-sum
-(``window_copy_sum``: P3 ``k0``, P4 A-D), P5 ``kb`` (``lane_concat``) and
-``kc2`` (``sum_rows``) at their probes' shapes.
+(``window_copy_sum``: P3 ``k0``, P4 A-D), P5 ``ka`` (``slab_slots``),
+``kb`` (``lane_concat``) and ``kc2`` (``sum_rows``) at their probes'
+shapes.
 
     python tools/experiments/probe_mma_variants_torch.py k1 [variant,...]
     python tools/experiments/probe_mma_variants_torch.py k2 [variant,...]
@@ -15,6 +16,7 @@ its probe's shape; and of P7 V5 (``window_head_sum``), the row gather-sum
     python tools/experiments/probe_mma_variants_torch.py v5 [variant,...]
     python tools/experiments/probe_mma_variants_torch.py p1 [variant,...]
     python tools/experiments/probe_mma_variants_torch.py k0 [variant,...]
+    python tools/experiments/probe_mma_variants_torch.py ka [variant,...]
     python tools/experiments/probe_mma_variants_torch.py kb [variant,...]
     python tools/experiments/probe_mma_variants_torch.py kc2 [variant,...]
 
@@ -36,7 +38,10 @@ a warp per batch of rows with its entries passed on by shuffles, ``stcs`` /
 ``stcg`` other store hints, ``noidx`` / ``nowin`` / ``nostore`` drop the
 entry reads, the window or the stores, ``empty`` returns at once; k0:
 ``base`` the register route, ``ctaN`` N threads a CTA, ``plainst`` plain
-stores, ``empty``; kb: ``base`` a thread per 16-byte piece of x,
+stores, ``empty``; ka: ``base`` a column a thread, ``ctaN`` N-thread
+CTAs, ``vec4`` 4 columns a thread by one 16-byte load, ``plainst`` plain
+stores, ``old`` the former design, a thread per output element,
+``nostore``, ``empty``; kb: ``base`` a thread per 16-byte piece of x,
 ``ctaN`` N-thread CTAs, ``outpiece`` a thread per 8-column piece of the
 output, ``old`` the former design, a thread per output element, ``nostore``,
 ``empty``; kc2: ``base`` a column a thread in 128-thread CTAs, ``ctaN``
@@ -54,8 +59,8 @@ beside ``torch.mm``; v5 the same timing, L2 flushed and warm, in turns,
 beside ``Tensor.fill_`` of the same 21 MB output (a fresh tensor and one
 reused), the least a kernel that writes it could take; p1 and k0 the same
 timing at each of their probes, and whether the output equals the plain
-version's (kb and kc2 too), then the floor's time beside each probe with
-one. Variants that drop work give wrong results on purpose.
+version's (ka, kb and kc2 too), then the floor's time beside each probe
+with one. Variants that drop work give wrong results on purpose.
 """
 
 import ctypes
@@ -352,11 +357,19 @@ COPY = {
 # 8's re-read of x's block 0 served by L2), the former thread per output
 # element, diagnostics (no stores: wrong on purpose) and the kernel emptied
 FAMILY_D_END = "// Every output row reads its own input row through the one tap.\n"
+# the former designs' launch: 256-thread CTAs over a count of threads
+OLD_LAUNCH = """constexpr int THREADS = 256;
+
+unsigned grid_for(long long threads) {
+  return (unsigned)((threads + THREADS - 1) / THREADS);
+}
+
+"""
 CONCAT_CTA = "constexpr int CONCAT_THREADS = 256;"
 CONCAT_VEC = "    return launch_lane_concat<true>(xb, o, rows, w_in, width * pieces, s);\n"
 CONCAT_DISPATCH = ("  if (width % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0)\n"
                    + CONCAT_VEC)
-CONCAT_OLD = """__global__ void __launch_bounds__(THREADS)
+CONCAT_OLD = OLD_LAUNCH + """__global__ void __launch_bounds__(THREADS)
 lane_concat_old_kernel(const bf16* __restrict__ x, float* __restrict__ out, int rows,
                        int w_in, int width, int pieces) {
   const int w_out = width * pieces;
@@ -421,7 +434,7 @@ CONCAT = {
 SUM_CTA = "constexpr int SUM_THREADS = 128;"
 SUM_LAUNCH = ("  sum_rows_kernel<<<(b + SUM_THREADS - 1) / SUM_THREADS, SUM_THREADS, 0, s>>>"
               "(r, o, rows, b);\n")
-SUM_OLD = """__global__ void __launch_bounds__(THREADS)
+SUM_OLD = OLD_LAUNCH + """__global__ void __launch_bounds__(THREADS)
 sum_rows_old_kernel(const int* __restrict__ rb, float* __restrict__ out, int rows,
                     int b) {
   const int col = blockIdx.x * THREADS + threadIdx.x;
@@ -484,6 +497,68 @@ SUM_ROWS = {
              "  sum_rows_old_kernel<<<grid_for(b), THREADS, 0, s>>>(r, o, rows, b);\n")],
     "empty": [("probe_kernels.cu", SUM_SIG, SUM_SIG + "  if (rows >= 0) return;\n")],
 }
+# P5 ka (probe_kernels.cu:slab_slots): a column a thread, two 16-byte
+# streaming stores of its output row, 4 CTAs of 128 at the probe as built;
+# other CTA sizes (1 x 512, 2 x 256, 16 x 32); 4 columns a thread by one
+# 16-byte load and eight 16-byte stores where B is a multiple of 4 and rb and
+# out are 16-byte aligned (1 CTA of 128); plain stores; the former thread per
+# output element; diagnostics (no stores, the load kept: wrong on purpose)
+# and the kernel emptied
+SLOT_CTA = "constexpr int SLOT_THREADS = 128;"
+SLOT_SIG = "slab_slots_kernel(const int* __restrict__ rb, float* __restrict__ out, int b) {\n"
+SLOT_LAUNCH = ("  slab_slots_kernel<<<(unsigned)(((long long)b + SLOT_THREADS - 1) / SLOT_THREADS), "
+               "SLOT_THREADS,\n")
+SLOT_STORES = ("  __stcs(reinterpret_cast<float4*>(dst), v4);\n"
+               "  __stcs(reinterpret_cast<float4*>(dst) + 1, v4);\n")
+SLOT_ROW = "  float* dst = out + (size_t)col * 8;\n"
+SLOT_OLD = OLD_LAUNCH + """__global__ void __launch_bounds__(THREADS)
+slab_slots_old_kernel(const int* __restrict__ rb, float* __restrict__ out, int b) {
+  const int e = blockIdx.x * THREADS + threadIdx.x;
+  if (e >= b * 8) return;
+  const int r = rb[e / 8];
+  out[e] = r >= 0 ? (float)(r % 8 + 1) : 0.f;
+}
+
+"""
+SLOT_VEC4 = """__global__ void __launch_bounds__(SLOT_THREADS)
+slab_slots_vec4_kernel(const int* __restrict__ rb, float* __restrict__ out, int b) {
+  const unsigned c = (blockIdx.x * SLOT_THREADS + threadIdx.x) * 4;
+  if (c >= (unsigned)b) return;
+  const int4 r = __ldg(reinterpret_cast<const int4*>(rb + c));
+  const int rs[4] = {r.x, r.y, r.z, r.w};
+  float4* dst = reinterpret_cast<float4*>(out + (size_t)c * 8);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float v = (float)(rs[q] >= 0 ? rs[q] % 8 + 1 : 0);
+    const float4 v4 = make_float4(v, v, v, v);
+    __stcs(dst + 2 * q, v4);
+    __stcs(dst + 2 * q + 1, v4);
+  }
+}
+
+"""
+SLOT_VEC4_LAUNCH = """  if (b % 4 == 0 && reinterpret_cast<uintptr_t>(rb) % 16 == 0) {
+    slab_slots_vec4_kernel<<<(unsigned)(((long long)b / 4 + SLOT_THREADS - 1) / SLOT_THREADS),
+                             SLOT_THREADS, 0, s>>>(r, o, b);
+    return static_cast<int>(cudaGetLastError());
+  }
+"""
+SLOTS = {
+    "base": [],
+    **{f"cta{n}": [("probe_kernels.cu", SLOT_CTA, SLOT_CTA.replace("128", str(n)))]
+       for n in (512, 256, 32)},
+    "vec4": [("probe_kernels.cu", FAMILY_D_END, SLOT_VEC4 + FAMILY_D_END),
+             ("probe_kernels.cu", SLOT_LAUNCH, SLOT_VEC4_LAUNCH + SLOT_LAUNCH)],
+    "plainst": [("probe_kernels.cu", SLOT_STORES,
+                 "  reinterpret_cast<float4*>(dst)[0] = v4;\n"
+                 "  reinterpret_cast<float4*>(dst)[1] = v4;\n")],
+    "old": [("probe_kernels.cu", FAMILY_D_END, SLOT_OLD + FAMILY_D_END),
+            ("probe_kernels.cu", SLOT_LAUNCH,
+             "  slab_slots_old_kernel<<<grid_for((long long)b * 8), THREADS, 0, s>>>(r, o, b);\n"
+             "  return static_cast<int>(cudaGetLastError());\n" + SLOT_LAUNCH)],
+    "nostore": [("probe_kernels.cu", SLOT_ROW, "  if (r != -123456789) return;\n" + SLOT_ROW)],
+    "empty": [("probe_kernels.cu", SLOT_SIG, SLOT_SIG + "  if (b >= 0) return;\n")],
+}
 
 def build(source, variants):
     """{name: CDLL} of ``csrc/<source>.cu`` with each variant's edits."""
@@ -526,6 +601,26 @@ def bind(kernel, lib):
     err = getattr(lib, kernel.error_symbol)
     err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
     kernel._lib = lib
+
+
+def empty_kernel_ms(source, edits, kernel, fn, iters=20):
+    """A launch floor: ``csrc/<source>.cu`` built with ``edits`` (which
+    empty ``kernel``), bound in place of the real build for ``fn``, one
+    launch of ``kernel`` at its real grid, and timed as the probes are
+    (``probe_windowed_torch.graph_ms``: CUDA-graph replay, L2 flushed). The
+    real build and the launch count are restored after."""
+    import probe_windowed_torch as probe
+
+    libs = build(source, {"empty": edits})
+    if "empty" not in libs:
+        raise RuntimeError(f"the emptied {source}.cu did not build")
+    real, launches = kernel.lib(), kernel.launches
+    try:
+        bind(kernel, libs["empty"])
+        return probe.graph_ms(fn, iters)
+    finally:
+        bind(kernel, real)
+        kernel.launches = launches
 
 
 def fine_tune_levels():
@@ -800,17 +895,22 @@ def run_kc2(names):
                      lambda v: v.kernel is pk.SUM_ROWS, names)
 
 
+def run_ka(names):
+    run_probe_routes("probe_kernels", SLOTS, pk.SLAB_SLOTS,
+                     lambda v: v.kernel is pk.SLAB_SLOTS, names)
+
+
 def main():
     if not torch.cuda.is_available():
         print("probe_mma_variants_torch: needs a CUDA GPU", file=sys.stderr)
         return 2
     which = sys.argv[1] if len(sys.argv) > 1 else "kd"
     table = {"k1": K1, "k2": K2, "k4": K4, "kd": KD, "v5": V5, "p1": GATHER,
-             "k0": COPY, "kb": CONCAT, "kc2": SUM_ROWS}[which]
+             "k0": COPY, "ka": SLOTS, "kb": CONCAT, "kc2": SUM_ROWS}[which]
     names = sys.argv[2].split(",") if len(sys.argv) > 2 else list(table)
     print(os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read().strip())
     {"k1": run_k1, "k2": run_k2, "k4": run_k4, "kd": run_kd, "v5": run_v5, "p1": run_p1,
-     "k0": run_k0, "kb": run_kb, "kc2": run_kc2}[which](names)
+     "k0": run_k0, "ka": run_ka, "kb": run_kb, "kc2": run_kc2}[which](names)
     return 0
 
 

@@ -5,9 +5,11 @@ train SpUNet-v1m1 at ScanNet's batch, pretrain PonderIndoor-v2 at bench.py's
 workload, run every probe kernel at its probe's shape, train and serve the
 PPT fine-tune recipe from scene files, run the paper's multi-dataset
 pretrain from RGB-D scene files, train and evaluate its instance
-segmentation recipe from scene files with instance labels, and run its
+segmentation recipe from scene files with instance labels, run its
 outdoor half: the nuScenes LiDAR pretrain from procedural scans and the
-nuScenes lidarseg fine-tune from that checkpoint.
+nuScenes lidarseg fine-tune from that checkpoint, train, test and serve
+MinkUNet34C on ScanNet scenes, and train, test and profile the SpUNet
+classifier.
 
     python3 chip_smoke.py [--parent-log LOG]
 
@@ -178,13 +180,36 @@ repo around it, and runs in phases; any failure exits non-zero:
     else, the checks of 17, the val scans served through ``SemSegTester``
     (K1's launches, every ``contract_ok``, a time per fragment), K1-K3 as
     in 7 and one step's grads from the trained state as in 14;
-19. print times and peak memory, a JSON line of the kernels, and last
+19. write 36 + 2 scenes in ScanNet's layout and train MinkUNet34C on them
+    (``MINK_CONFIG``, the ScanNet SpUNet recipe with its backbone
+    MinkUNet34C, ``in_channels`` 6 from color + normal, as Pointcept's
+    ``semseg-minkunet34c-0-base.py``; batch 12, f32, the backbone's
+    ``remat`` on, its default): 3 steps with ``SemSegEvaluator`` and the
+    checks of 14, the routing traced from the model's convs and held to
+    the 36 band convs its config gives (``MINK_BAND_CONVS_PER_FORWARD``:
+    K1-K3), then ``PreciseEvaluator`` (its K1 launches counted apart):
+    ``SemSegTester`` with ``model_best.pth`` and ``submit`` over the 2 val
+    scenes, each ``submit/{name}.txt`` one of ScanNet's class ids a point;
+    ``PartSegTester`` once over the val scenes; K1-K3 against their plain
+    versions at the first batch's convs as in 7; the seeded step's grads as
+    in 15;
+20. train the SpUNet classifier (``CLS_RECIPE``: DefaultClassifier over
+    SpUNet-v1m1 in ``cls_mode`` at its published widths, 40 classes, batch
+    32, Pointcept's ``cls-spunet-v1m1-0-base.py``) on synthetic objects of
+    10,000 points (``register_object_dataset``): 3 steps with
+    ``ClsEvaluator`` and the checks of 14, ``ClsTester`` over 8 objects,
+    ``RuntimeProfiler`` over 1 + 2 more steps (its ``SystemExit(0)`` caught
+    and its code checked; its Chrome trace must name K1's kernel), K1-K3
+    against their plain versions as in 7 and the seeded step's grads as in
+    15;
+21. print times and peak memory, a JSON line of the kernels, and last
     ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -232,6 +257,68 @@ NUSCENES_PRETRAIN = {name: os.path.join(
 NUSCENES_SEMSEG = os.path.join(ROOT, "configs/nuscenes/semseg-ppt-v1m1-0-nu-sk-wa-spunet-ft.py")
 NUSCENES_PRETRAIN_SCANS, NUSCENES_ONE_STEP_SCANS = 12, 4
 NUSCENES_SEMSEG_SCANS, NUSCENES_VAL_SCANS = 36, 2
+# MinkUNet34C on ScanNet: the SpUNet recipe with its backbone replaced and
+# its features color + normal (in_channels 6), as Pointcept's
+# configs/scannet/semseg-minkunet34c-0-base.py has them; 36 + 2 scenes
+# written in ScanNet's layout
+MINK_CONFIG = os.path.join(ROOT, "configs/scannet/semseg-spunet-v1m1-0-base.py")
+MINK_TRAIN_SCENES, MINK_VAL_SCENES = 36, 2
+# band convs per forward of MinkUNet34C, from its config by the routing rule
+# (mink_unet.py, layers.py:subm_route): a level whose blocks are wider than
+# 64 channels carries a band plan, and every block conv on it runs band.
+# Encoder L3 (128) 4 blocks and L4 (256) 6 blocks -> 8 + 12 convs; the four
+# decoder stages (256, 128, 96, 96 at L3..L0) 2 blocks each -> 16. L1 (32)
+# and L2 (64) encoder blocks, the stem, strided/inverse convs and head are
+# not band.
+MINK_BAND_CONVS_PER_FORWARD = 36
+# the SpUNet classifier: Pointcept's configs/modelnet40/cls-spunet-v1m1-0-base.py
+# (DefaultClassifier over SpUNet-v1m1 in cls_mode at its published widths,
+# 40 classes, batch 32), on synthetic objects of ModelNet40's 10,000
+# resampled points: 3 batches to train on, 8 objects to evaluate and test
+CLS_TRAIN_OBJECTS, CLS_VAL_OBJECTS, CLS_POINTS, CLS_CLASSES = 96, 8, 10_000, 40
+# band convs per forward of its encoder: every level L1-L4 carries an
+# attached band plan (plans.py:build_spunet_plans, band-eligible at every
+# width) and runs 2, 3, 4, 6 blocks of 2 convs -> 30; no decoder
+CLS_BAND_CONVS_PER_FORWARD = 30
+CLS_RECIPE = """\
+_base_ = [{runtime!r}]
+num_classes = {classes}
+batch_size = 32
+batch_size_val = 8
+num_worker = 8
+epoch = 1
+eval_epoch = 1
+point_budget = 32 * {points}
+point_budget_val = 8 * {points}
+sparse_shape = (320, 320, 320)  # unit-sphere objects scaled up to 1.5 at 1 cm
+model = dict(
+    type="DefaultClassifier", num_classes=num_classes, backbone_embed_dim=256,
+    backbone=dict(type="SpUNet-v1m1", in_channels=6, num_classes=0, cls_mode=True,
+                  channels=(32, 64, 128, 256, 256, 128, 96, 96),
+                  layers=(2, 3, 4, 6, 2, 2, 2, 2)),
+    criteria=[dict(type="CrossEntropyLoss", loss_weight=1.0, ignore_index=-1)])
+optimizer = dict(type="SGD", lr=0.1, momentum=0.9, weight_decay=1e-4, nesterov=True)
+scheduler = dict(type="MultiStepLR", base_lr=0.1, milestones=[0.6, 0.8], gamma=0.1)
+_eval = [dict(type="GridSample", grid_size=0.01, hash_type="fnv", mode="train",
+              keys=("coord", "normal"), return_grid_coord=True),
+         dict(type="Collect", keys=("coord", "grid_coord", "category"),
+              feat_keys=("coord", "normal"))]
+_train = [dict(type="RandomScale", scale=[0.7, 1.5], anisotropic=True),
+          dict(type="RandomShift", shift=[(-0.2, 0.2), (-0.2, 0.2), (-0.2, 0.2)]),
+          _eval[0], dict(type="ShufflePoint"), _eval[1]]
+data = dict(
+    num_classes=num_classes,
+    train=dict(type="SyntheticObjectDataset", num_objects={train}, points={points},
+               num_classes=num_classes, transform=_train, seed=0),
+    val=dict(type="SyntheticObjectDataset", num_objects={val}, points={points},
+             num_classes=num_classes, transform=_eval, seed=1000),
+    test=dict(type="SyntheticObjectDataset", num_objects={val}, points={points},
+              num_classes=num_classes, transform=_eval, seed=1000))
+hooks = [dict(type="CheckpointLoader"), dict(type="IterationTimer", warmup_iter=2),
+         dict(type="InformationWriter"), dict(type="ClsEvaluator"),
+         dict(type="CheckpointSaver", save_freq=None)]
+test = dict(type="ClsTester")
+"""
 SEED = 0
 # band convs per forward of SpUNet-v1m1 at ScanNet's sparse_shape, from the
 # routing (models/sparse_unet/layers.py:subm_route): L0 runs the last decoder
@@ -443,7 +530,7 @@ def compare_band_kernels(convs, fused, level_rb, level_coords, gen, dtype, stats
 
     from ponderv2_tpu_torch.ops import band_conv as bc
 
-    dev = level_coords[0].device
+    dev = gen.device
     owner = {"fwd": "band_fwd_core", "dx": "band_fwd_core",
              "dxdw": "band_dxdw_core", "dw": "band_dw_core"}
     for (level, cin, cout), count in sorted(convs.items()):
@@ -546,11 +633,30 @@ def band_plan_of(rb):
     """The band plan a conv on this level runs (attached, or inline with
     the budget retry, as SubMConv builds it)."""
     from ponderv2_tpu_torch.ops import band_conv as bc
-    from ponderv2_tpu_torch.ops.spconv import SubmPlan
+    from ponderv2_tpu_torch.ops.spconv import BandedRulebook, SubmPlan
 
-    if isinstance(rb, SubmPlan):
-        return rb.legacy, rb.band
+    if isinstance(rb, (SubmPlan, BandedRulebook)):
+        if rb.band is not None:
+            return rb.legacy, rb.band
+        rb = rb.legacy
     return rb, bc.build_band_plan_auto(rb, 3)
+
+
+def launch_split(records):
+    """A hook class that, at the end of training, keeps the K1-K3 launches
+    so far in ``records["train_launches"]`` and sets every count to 0, so
+    that the hooks after it (a ``PreciseEvaluator``) are counted apart."""
+    from ponderv2_tpu_torch.engines.hooks import HookBase
+    from ponderv2_tpu_torch.ops import band_conv as bc
+    from ponderv2_tpu_torch.ops import windowed_gather as wg
+
+    class LaunchSplit(HookBase):
+        def after_train(self):
+            records["train_launches"] = [k.launches for k in bc.KERNELS]
+            for k in bc.KERNELS + wg.KERNELS:
+                k.launches = 0
+
+    return LaunchSplit
 
 
 def step_probe(records):
@@ -780,12 +886,13 @@ class PinnedRelu:
 def float64_step_grads(gmodel, inputs, remat=True):
     """One forward and backward of a float64 copy of ``gmodel`` through the
     plain versions, every sum in float64 (``ops.scatter.sum_dtype``): the
-    reference a grads check holds both f32 paths to. Each residual block
-    and each conv + norm of the backbone (SpUNet-v1m3's or v1m1's; the
-    packed strided and inverse convs keep 8 masked copies of their input
-    for the backward) runs under activation checkpointing (``remat``), so
-    the step fits beside the f32 model; without it every relu runs once, in
-    forward order, as ``PinnedRelu`` replays them.
+    reference a grads check holds both f32 paths to. Each strided and
+    inverse conv (the packed convs keep 8 masked copies of their input for
+    the backward), and with ``remat`` each residual block and each conv +
+    norm of the backbone (SpUNet-v1m3's or v1m1's, MinkUNet's blocks), runs
+    under activation checkpointing, so the step fits beside the f32 model;
+    without ``remat`` every relu runs in the order of the f32 runs (the
+    model's own ``remat`` included), as ``PinnedRelu`` replays them.
     Returns (loss, grads, peak GiB of the step on the card)."""
     import copy
     from functools import partial
@@ -796,8 +903,11 @@ def float64_step_grads(gmodel, inputs, remat=True):
     from ponderv2_tpu_torch.ops import band_conv as bc
 
     m64 = copy.deepcopy(gmodel).double()
-    for m in m64.modules() if remat else ():
-        if type(m).__name__ in ("PDBasicBlock", "PDConvNorm", "BasicBlock", "ConvBNRelu"):
+    units = ("PDBasicBlock", "PDConvNorm", "BasicBlock", "ConvBNRelu", "Bottleneck")
+    for m in m64.modules():
+        # the packed convs call no relu: checkpointed with or without remat
+        if type(m).__name__ in ("StridedConv", "InverseConv") or (
+                remat and type(m).__name__ in units):
             m.forward = partial(checkpoint, m.forward, use_reentrant=False)
     x64 = {k: v.double() if torch.is_tensor(v) and v.is_floating_point() else v
            for k, v in inputs.items()}
@@ -967,6 +1077,67 @@ def grads_either_bound(tag, gmodel, inputs, expect, pin_relu=False):
     return holds
 
 
+def traced_routing(model, inputs, expected):
+    """The band convs of one forward of ``model`` on ``inputs`` (a batch
+    dict), as its SubMConvs route them: an eval forward with a hook on each
+    records the convs that took a band route and the rulebook each ran on;
+    their count must be ``expected``, the band convs the model's config
+    gives. Returns the ``spunet_routing`` tuple: per level (from its rows:
+    each level's capacity halves the last's) the rulebook its band convs ran
+    on and its rows' coords; {(level, cin, cout): count}; {key: fused};
+    K1/K2/K3 launches per train step (each band conv's forward twice under
+    the backbone's ``remat``: every band conv sits in a checkpointed block);
+    band convs per forward."""
+    import torch
+
+    from ponderv2_tpu_torch.models.sparse_unet.layers import SubMConv
+    from ponderv2_tpu_torch.ops import band_conv as bc
+
+    level_rb, level_coords, convs = {}, {}, {}
+    rows0 = inputs["feat"].shape[0]
+
+    def record(module, args, out):
+        if not module.last_route.startswith("band"):
+            return
+        st, rb = args[0], args[1]
+        # the level, from the rows (each level's capacity halves the last's)
+        level = round(math.log2(rows0 / st.coords.shape[0]))
+        level_rb[level], level_coords[level] = rb, st.coords
+        key = (level, module.in_channels, module.out_channels)
+        convs[key] = convs.get(key, 0) + 1
+
+    handles = [m.register_forward_hook(record) for m in model.modules()
+               if isinstance(m, SubMConv)]
+    was_training = model.training
+    try:
+        model.eval()
+        with torch.no_grad():
+            model(inputs)
+    finally:
+        for h in handles:
+            h.remove()
+        model.train(was_training)
+    n_band = sum(convs.values())
+    check(n_band == expected, f"the traced forward ran {n_band} band convs, its config "
+          f"gives {expected}: {convs}")
+    fused = {key: bc.fused_bwd_fits(-(-key[1] // 128) * 128, -(-key[2] // 128) * 128)
+             for key in convs}
+    n_fused = sum(c for key, c in convs.items() if fused[key])
+    n_fwd = n_band * (2 if model.backbone.remat else 1)
+    per_step = [n_fwd + (n_band - n_fused), n_fused, n_band - n_fused]
+    return level_rb, level_coords, convs, fused, per_step, n_band
+
+
+def spunet_routing(model, inputs, st):
+    """SpUNet-v1m1's band convs on the batch ``inputs`` (sorted sparse
+    tensor ``st``), derived from its plans (``level_plans``,
+    ``band_routing``): the ``traced_routing`` tuple."""
+    spunet = spunet_of(model)
+    level_rb, level_coords, _ = level_plans(spunet, st)
+    convs, fused, per_step = band_routing(spunet, level_rb)
+    return level_rb, level_coords, convs, fused, per_step, BAND_CONVS_PER_FORWARD
+
+
 def spunet_of(model):
     """The sparse U-Net under ``model``'s wrappers (segmentor, PPT, PG)."""
     m = model.backbone
@@ -975,7 +1146,8 @@ def spunet_of(model):
     return m
 
 
-def train_and_check(tag, cfg, dev, records=None, val_metric="val/mIoU", steps_expected=3):
+def train_and_check(tag, cfg, dev, records=None, val_metric="val/mIoU", steps_expected=3,
+                    band_convs_per_fwd=None):
     """Train ``cfg`` (3 steps and its evaluations) through
     ``tools/train_torch.py:main_worker`` with a ``step_probe`` hook, the
     K1-K5 counts set to 0 first, and check what each such run must show:
@@ -992,7 +1164,15 @@ def train_and_check(tag, cfg, dev, records=None, val_metric="val/mIoU", steps_ex
     ``weight_load`` report. ``records`` may ask the probe for more
     (``step_probe``; ``"peaks": []`` each step's peak memory); ``val_metric``
     is the evaluation's storage key to print (None: the config evaluates
-    nothing); ``steps_expected`` the steps of the run."""
+    nothing); ``steps_expected`` the steps of the run;
+    ``band_convs_per_fwd`` the band convs per forward that the config of a
+    backbone other than SpUNet-v1m1's U-Net gives: its routing is then
+    traced (``traced_routing``) and held to that count, else derived from
+    the SpUNet plans (``spunet_routing``). A ``PreciseEvaluator``'s tester
+    (``precise``) runs after training with the counts set to 0 just before
+    it (``launch_split``): each of its forwards must report ``contract_ok``
+    and launch K1 once a band conv, and its launches are returned apart
+    (``precise_launches``)."""
     from types import SimpleNamespace
 
     import numpy as np
@@ -1005,11 +1185,16 @@ def train_and_check(tag, cfg, dev, records=None, val_metric="val/mIoU", steps_ex
     from ponderv2_tpu_torch.ops import band_conv as bc
     from ponderv2_tpu_torch.ops import windowed_gather as wg
     from ponderv2_tpu_torch.ops.sparse import maybe_sort_by_key
-    from ponderv2_tpu_torch.ops.spconv import SubmPlan
+    from ponderv2_tpu_torch.ops.spconv import BandedRulebook, SubmPlan
     from train_torch import main_worker
 
     records = records if records is not None else {"steps": [], "conditions": []}
-    cfg.hooks = list(cfg.hooks) + [dict(type=step_probe(records))]
+    hooks = list(cfg.hooks)
+    precise_at = next((i for i, h in enumerate(hooks) if h["type"] == "PreciseEvaluator"),
+                      None)
+    if precise_at is not None:
+        hooks.insert(precise_at, dict(type=launch_split(records)))
+    cfg.hooks = hooks + [dict(type=step_probe(records))]
     torch.cuda.reset_peak_memory_stats(dev)
     for k in bc.KERNELS + wg.KERNELS:
         k.launches = 0
@@ -1017,7 +1202,8 @@ def train_and_check(tag, cfg, dev, records=None, val_metric="val/mIoU", steps_ex
     trainer = main_worker(cfg)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = [k.launches for k in bc.KERNELS]
+    launches = records.get("train_launches", [k.launches for k in bc.KERNELS])
+    precise_launches = [k.launches for k in bc.KERNELS] if precise_at is not None else None
     peak_gib = max(torch.cuda.max_memory_allocated(dev), records.get("peak_floor", 0),
                    *records.get("peaks", [])) / 2 ** 30
     steps = records["steps"]
@@ -1034,14 +1220,19 @@ def train_and_check(tag, cfg, dev, records=None, val_metric="val/mIoU", steps_ex
                               static)
     b_inputs.update(trainer.static_ctx)
     st, _ = maybe_sort_by_key(batch_to_sparse_tensor(b_inputs))
-    spunet = spunet_of(model)
-    level_rb, level_coords, _ = level_plans(spunet, st)
-    convs, fused, per_step = band_routing(spunet, level_rb)
+    if band_convs_per_fwd is None:
+        routing = spunet_routing(model, b_inputs, st)
+    else:
+        routing = traced_routing(model, b_inputs, band_convs_per_fwd)
+    level_rb, level_coords, convs, fused, per_step, band_per_fwd = routing
     n_band = sum(convs.values())
     live = int((b_inputs["batch"] >= 0).sum())
+    rbs = level_rb.values() if isinstance(level_rb, dict) else level_rb
+    attached = sum(isinstance(rb, (SubmPlan, BandedRulebook)) and rb.band is not None
+                   for rb in rbs)
     print(f"[{tag}] routing at batch {cfg.batch_size}: {n_band} band convs per forward "
-          f"({sum(isinstance(rb, SubmPlan) for rb in level_rb)} of 5 levels with attached "
-          f"plans), {per_step[1]} fused backward (K2), {per_step[2]} split (K1 + K3): "
+          f"(on {len(level_rb)} rulebooks, {attached} with attached plans), "
+          f"{per_step[1]} fused backward (K2), {per_step[2]} split (K1 + K3): "
           f"launches per step {per_step}; {live} live rows of {st.capacity}"
           + (f"; batch conditions {static['condition']}" if "condition" in static else ""))
     check(len(steps) == len(trainer.train_loader) == steps_expected,
@@ -1054,11 +1245,23 @@ def train_and_check(tag, cfg, dev, records=None, val_metric="val/mIoU", steps_ex
         check(m["lr"] == m["schedule_lr"], f"{tag} step {i} lr {m['lr']} != schedule")
         check(m["launches"] == per_step + [0, 0],
               f"{tag} step {i} launches {m['launches']} != routing {per_step}")
-    check(not n_val or val_band == BAND_CONVS_PER_FORWARD,
+    check(not n_val or val_band == band_per_fwd,
           f"{tag}: val forward ran {val_band} band convs")
+    precise = trainer.comm_info.get("precise_tester")
     n = steps_expected
-    check(launches == [n * per_step[0] + n_val * val_band, n * per_step[1], n * per_step[2]],
-          f"{tag}: training launches {launches}")
+    check(launches == [n * per_step[0] + n_val * band_per_fwd, n * per_step[1],
+                       n * per_step[2]],
+          f"{tag}: training launches {launches} ({n_val} val forwards)")
+    check((precise is None) == (precise_at is None), f"{tag}: no precise evaluation ran")
+    if precise is not None:
+        n_precise = len(precise.fragment_seconds)
+        check(all(precise.contract_ok),
+              f"{tag}: a precise-evaluation forward reported contract_ok False")
+        check(precise_launches == [n_precise * band_per_fwd, 0, 0],
+              f"{tag}: the precise evaluation's launches {precise_launches} != "
+              f"{n_precise} forwards x {band_per_fwd} band convs")
+        print(f"[{tag}] precise evaluation: {n_precise} forwards, launches (K1, K2, K3) "
+              f"{precise_launches}")
 
     ckpt_path = os.path.join(cfg.save_path, "model", "model_last.pth")
     ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
@@ -1092,7 +1295,10 @@ def train_and_check(tag, cfg, dev, records=None, val_metric="val/mIoU", steps_ex
         val_scalars={k: trainer.storage.history(k).latest()
                      for k in trainer.storage.histories() if k.startswith("val/")},
         data_ms=[1e3 * t for t in data_times], ckpt_path=ckpt_path,
-        weight_load=trainer.comm_info.get("weight_load"))
+        weight_load=trainer.comm_info.get("weight_load"), precise=precise,
+        precise_metrics=trainer.comm_info.get("precise_metrics"),
+        precise_weight=cfg.get("weight"), precise_launches=precise_launches,
+        band_per_fwd=band_per_fwd)
     del trainer, fresh, ckpt
     gc.collect()
     torch.cuda.empty_cache()
@@ -2132,6 +2338,299 @@ def nuscenes_semseg_phase(dev, tmp, gen, stats, weight):
     return out
 
 
+def minkunet_options(data_root, save_path):
+    """What a run of ``MINK_CONFIG`` on scenes under ``data_root`` changes:
+    the data roots, one epoch with one evaluation (3 steps of the 36 train
+    scenes), no weight, the save path, and ``submit`` for the precise
+    test."""
+    return {"data.train.data_root": data_root, "data.val.data_root": data_root,
+            "data.test.data_root": data_root, "epoch": 1, "eval_epoch": 1,
+            "weight": None, "save_path": save_path, "submit": True}
+
+
+def minkunet_recipe(data_root, save_path):
+    """``MINK_CONFIG`` with its backbone MinkUNet34C (``in_channels`` 6,
+    ``out_channels`` 20) and its Collects' features color + normal, as
+    Pointcept's ``semseg-minkunet34c-0-base.py``, and ``PreciseEvaluator``
+    after training; ``minkunet_options`` for the run."""
+    from ponderv2_tpu_torch.engines.defaults import default_config_parser
+
+    cfg = default_config_parser(MINK_CONFIG, minkunet_options(data_root, save_path))
+    cfg.model.backbone = dict(type="MinkUNet34C", in_channels=6, out_channels=20)
+    for collect in (cfg.data.train.transform[-1], cfg.data.val.transform[-1],
+                    cfg.data.test.test_cfg.post_transform[-1]):
+        collect.feat_keys = ("color", "normal")
+    cfg.hooks = list(cfg.hooks) + [dict(type="PreciseEvaluator")]
+    return cfg
+
+
+def minkunet_phase(dev, tmp, gen, stats):
+    """Phase 19: MinkUNet34C on ScanNet, trained and served at full width.
+    Writes ``MINK_TRAIN_SCENES`` + ``MINK_VAL_SCENES`` scenes, trains 3
+    steps at batch 12 with ``SemSegEvaluator`` and ``PreciseEvaluator``
+    (``train_and_check``, routing traced), checks the precise test's
+    ``submit/{name}.txt`` files (ScanNet's class ids, one a point), runs
+    ``PartSegTester`` once over the val scenes, holds K1-K3 against their
+    plain versions at the first batch's convs (f32, into ``stats``) and the
+    seeded step's grads kernel vs plain. Returns the run's launches and
+    times."""
+    import numpy as np
+    import torch
+
+    from ponderv2_tpu_torch.datasets.scannet import VALID_CLASS_IDS_20
+    from ponderv2_tpu_torch.engines.test import TESTERS
+    from ponderv2_tpu_torch.models import build_model
+    from ponderv2_tpu_torch.ops import band_conv as bc
+
+    tag = "minkunet"
+    data_root = os.path.join(tmp, "mink_scannet")
+    t0 = time.perf_counter()
+    write_scannet_scenes(data_root, MINK_TRAIN_SCENES, MINK_VAL_SCENES)
+    print(f"[{tag}] wrote {MINK_TRAIN_SCENES} train + {MINK_VAL_SCENES} val scenes of "
+          f"100,000 points in ScanNet's layout in {time.perf_counter() - t0:.1f} s")
+    cfg = minkunet_recipe(data_root, os.path.join(tmp, "mink_train"))
+    cfg.seed = SEED
+    cfg.device = str(dev)
+    records = {"steps": [], "conditions": [], "batches": [], "peaks": []}
+    run = train_and_check(tag, cfg, dev, records,
+                          band_convs_per_fwd=MINK_BAND_CONVS_PER_FORWARD)
+    remat = run.model.backbone.remat
+    for i, (m, batch) in enumerate(zip(records["steps"], records["batches"])):
+        live = int((np.asarray(batch["batch"]) >= 0).sum())
+        print(f"[{tag}] step {i}: {run.step_times_ms[i]:.1f} ms, data wait "
+              f"{run.data_ms[i]:.1f} ms, peak {records['peaks'][i] / 2 ** 30:.3f} GiB, "
+              f"{live} live rows, loss {m['loss']:.6f}")
+
+    # ---- the precise test after training: SemSegTester with submit
+    precise = run.precise
+    check(precise is not None and run.precise_weight.endswith("model_best.pth"),
+          f"{tag}: PreciseEvaluator tested {run.precise_weight}")
+    submit_dir = os.path.join(cfg.save_path, "submit")
+    names = sorted(f[:-len(".pth")] for f in os.listdir(os.path.join(data_root, "val")))
+    for name in names:
+        scene = torch.load(os.path.join(data_root, "val", f"{name}.pth"), weights_only=False)
+        ids = np.loadtxt(os.path.join(submit_dir, f"{name}.txt"), dtype=np.int64)
+        check(ids.shape == (len(scene["coord"]),) and np.isin(ids, VALID_CLASS_IDS_20).all(),
+              f"{tag}: submit/{name}.txt holds {ids.shape} ids, "
+              f"{np.setdiff1d(ids, VALID_CLASS_IDS_20)[:5]} outside ScanNet's")
+    frag_ms = [1e3 * t for t in precise.fragment_seconds]
+    print(f"[{tag}] PreciseEvaluator: SemSegTester with {os.path.basename(run.precise_weight)} "
+          f"over {len(names)} val scenes, {len(frag_ms)} fragments (4 rotations), mIoU "
+          f"{run.precise_metrics['m_iou']:.4f}; submit/{{{', '.join(names)}}}.txt hold "
+          f"ScanNet's class ids, one a point; {run.band_per_fwd} band convs (K1) a forward")
+    print(f"[time] {tag} per-fragment latency in the tester (host to logits): "
+          f"{', '.join(f'{t:.1f}' for t in frag_ms)} ms, median {np.median(frag_ms):.2f} ms")
+
+    # ---- PartSegTester once over the val scenes, one category of all parts
+    pcfg = minkunet_recipe(data_root, os.path.join(tmp, "mink_partseg"))
+    pcfg.data.test = pcfg.data.val
+    pcfg.weight = run.ckpt_path
+    pcfg.seed = SEED
+    pcfg.device = str(dev)
+    for k in bc.KERNELS:
+        k.launches = 0
+    tester = TESTERS.build(dict(type="PartSegTester", cfg=pcfg))
+    part = tester.test()
+    forwards = len(tester.fragment_seconds)
+    launches = [k.launches for k in bc.KERNELS]
+    check(forwards == MINK_VAL_SCENES and all(tester.contract_ok)
+          and launches == [forwards * run.band_per_fwd, 0, 0]
+          and list(part["iou_count"]) == [MINK_VAL_SCENES]
+          and 0.0 <= part["ins_miou"] <= 1.0,
+          f"{tag}: PartSegTester {forwards} forwards, launches {launches}, {part}")
+    print(f"[{tag}] PartSegTester over {forwards} val scenes (one category, 20 parts): "
+          f"ins.mIoU {part['ins_miou']:.4f} cat.mIoU {part['cat_miou']:.4f}; K1 launches "
+          f"{launches[0]}; {', '.join(f'{1e3 * t:.1f}' for t in tester.fragment_seconds)} ms "
+          f"a forward")
+    del tester
+
+    compare_band_kernels(run.convs, run.fused, run.level_rb, run.level_coords, gen,
+                         torch.float32, stats, fwd_runs=2 if remat else 1)
+    out = {"train_launches": run.launches, "step_ms": run.step_times_ms,
+           "data_ms": run.data_ms, "peak_gib": run.peak_gib, "fragment_ms": frag_ms,
+           "serve_launches": run.precise_launches,
+           "per_step": run.per_step}
+    b_inputs, per_step = run.b_inputs, run.per_step
+    del run, precise
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the seeded first batch's grads, kernel path against plain
+    gmodel = build_model(dict(cfg.model))
+    gmodel.reset_parameters(torch.Generator().manual_seed(SEED))
+    gmodel.to(dev).train()
+    out["grads_bound"] = grads_either_bound("MinkUNet34C step from the seeded state (f32)",
+                                            gmodel, b_inputs, per_step, pin_relu=True)
+    del gmodel, b_inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def register_object_dataset():
+    """Register ``SyntheticObjectDataset`` with the port's datasets (once):
+    ModelNet40-like objects made from the seed, ``points`` points on an
+    ellipsoid whose axes its class draws (each object's drawn within 10% of
+    them), with their normals, centred and scaled into the unit sphere, and
+    a 0-d ``category``."""
+    import numpy as np
+
+    from ponderv2_tpu_torch.datasets import DATASETS
+    from ponderv2_tpu_torch.datasets.transform import Compose
+
+    if "SyntheticObjectDataset" in DATASETS:
+        return
+
+    @DATASETS.register_module()
+    class SyntheticObjectDataset:
+        def __init__(self, num_objects=8, points=CLS_POINTS, num_classes=CLS_CLASSES,
+                     transform=None, seed=0, loop=1):
+            self.num_objects, self.points, self.num_classes = num_objects, points, num_classes
+            self.transform = Compose(transform or [])
+            self.seed, self.loop = seed, loop
+
+        def __len__(self):
+            return self.num_objects * self.loop
+
+        def make_object(self, i):
+            category = (self.seed + i) % self.num_classes
+            axes = np.random.RandomState(10_000 + category).uniform(0.3, 1.0, 3)
+            rng = np.random.RandomState(self.seed + i)
+            axes = axes * rng.uniform(0.9, 1.1, 3)
+            d = rng.randn(self.points, 3)
+            d /= np.linalg.norm(d, axis=1, keepdims=True)
+            coord = d * axes
+            normal = coord / axes ** 2
+            normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+            coord -= coord.mean(0)
+            coord /= np.linalg.norm(coord, axis=1).max()
+            return dict(coord=coord.astype(np.float32), normal=normal.astype(np.float32),
+                        category=np.asarray(category, np.int64))
+
+        def __getitem__(self, idx):
+            return self.transform(self.make_object(idx % self.num_objects))
+
+
+def classifier_recipe(tmp, save_path):
+    """``CLS_RECIPE`` written as a config file under ``tmp`` and parsed as
+    the training entry point parses one."""
+    from ponderv2_tpu_torch.engines.defaults import default_config_parser
+
+    path = os.path.join(tmp, "cls-spunet-v1m1-0-base.py")
+    with open(path, "w") as f:
+        f.write(CLS_RECIPE.format(runtime=os.path.join(ROOT, "configs/_base_/default_runtime.py"),
+                                  classes=CLS_CLASSES, points=CLS_POINTS,
+                                  train=CLS_TRAIN_OBJECTS, val=CLS_VAL_OBJECTS))
+    return default_config_parser(path, {"save_path": save_path})
+
+
+def classifier_phase(dev, tmp, gen, stats):
+    """Phase 20: the SpUNet classifier. Trains 3 steps at batch 32 with
+    ``ClsEvaluator`` (``train_and_check``, routing traced), tests 8 objects
+    with ``ClsTester``, profiles 2 more steps with ``RuntimeProfiler`` (its
+    ``SystemExit(0)`` caught on purpose and its code checked; the Chrome
+    trace must name K1's kernel), holds K1-K3 against their plain versions
+    at the first batch's convs (f32, into ``stats``) and the seeded step's
+    grads kernel vs plain. Returns the run's launches and times."""
+    import numpy as np
+    import torch
+
+    from ponderv2_tpu_torch.engines.test import TESTERS
+    from ponderv2_tpu_torch.models import build_model
+    from ponderv2_tpu_torch.ops import band_conv as bc
+    from train_torch import main_worker
+
+    tag = "classifier"
+    register_object_dataset()
+    cfg = classifier_recipe(tmp, os.path.join(tmp, "cls_train"))
+    cfg.seed = SEED
+    cfg.device = str(dev)
+    records = {"steps": [], "conditions": [], "batches": [], "peaks": []}
+    run = train_and_check(tag, cfg, dev, records, val_metric="val/allAcc",
+                          band_convs_per_fwd=CLS_BAND_CONVS_PER_FORWARD)
+    remat = run.model.backbone.remat
+    for i, (m, batch) in enumerate(zip(records["steps"], records["batches"])):
+        live = int((np.asarray(batch["batch"]) >= 0).sum())
+        print(f"[{tag}] step {i}: {run.step_times_ms[i]:.1f} ms, data wait "
+              f"{run.data_ms[i]:.1f} ms, peak {records['peaks'][i] / 2 ** 30:.3f} GiB, "
+              f"{live} live rows of {CLS_POINTS} points x 32 objects, loss {m['loss']:.6f}")
+    acc = run.val_scalars.get("val/allAcc")
+    check(acc is not None and 0.0 <= acc <= 1.0, f"{tag}: ClsEvaluator's val/allAcc {acc}")
+
+    # ---- ClsTester over the 8 test objects with the trained weights
+    tcfg = classifier_recipe(tmp, os.path.join(tmp, "cls_test"))
+    tcfg.weight = run.ckpt_path
+    tcfg.seed = SEED
+    tcfg.device = str(dev)
+    for k in bc.KERNELS:
+        k.launches = 0
+    tester = TESTERS.build(dict(type="ClsTester", cfg=tcfg))
+    metrics = tester.test()
+    forwards = len(tester.fragment_seconds)
+    launches = [k.launches for k in bc.KERNELS]
+    check(forwards == CLS_VAL_OBJECTS and all(tester.contract_ok)
+          and launches == [forwards * run.band_per_fwd, 0, 0]
+          and 0.0 <= metrics["all_acc"] <= 1.0,
+          f"{tag}: ClsTester {forwards} forwards, launches {launches}, {metrics}")
+    frag_ms = [1e3 * t for t in tester.fragment_seconds]
+    print(f"[{tag}] ClsEvaluator val/allAcc {acc:.4f}; ClsTester over {forwards} objects: "
+          f"allAcc {metrics['all_acc']:.4f} (random-init weights after 3 steps); K1 launches "
+          f"{launches[0]}; {', '.join(f'{t:.1f}' for t in frag_ms)} ms an object")
+    del tester
+
+    # ---- RuntimeProfiler: 1 warm-up step, 2 traced, then SystemExit(0)
+    pcfg = classifier_recipe(tmp, os.path.join(tmp, "cls_profile"))
+    pcfg.seed = SEED
+    pcfg.device = str(dev)
+    trace_dir = os.path.join(tmp, "cls_trace")
+    pcfg.hooks = [dict(type="RuntimeProfiler", trace_dir=trace_dir, warm_up=1, record=2)]
+    for k in bc.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    try:
+        main_worker(pcfg)
+    except SystemExit as e:  # the hook ends the run on purpose
+        code = e.code
+    else:
+        code = "no SystemExit"
+    check(code == 0, f"{tag}: RuntimeProfiler ended the run with {code!r}")
+    launches = [k.launches for k in bc.KERNELS]
+    check(launches == [3 * n for n in run.per_step],
+          f"{tag}: the profiled run's launches {launches} != 3 x {run.per_step}")
+    path = os.path.join(trace_dir, "trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    k1 = [e for e in events if "band_fwd_kernel" in e.get("name", "")]
+    check(k1, f"{tag}: the trace names no band_fwd_kernel")
+    k1_ms = sum(e.get("dur", 0) for e in k1) / 1e3 / 2
+    print(f"[{tag}] RuntimeProfiler: 3 steps in {time.perf_counter() - t0:.1f} s, "
+          f"SystemExit(0); {path} ({os.path.getsize(path) / 2 ** 20:.1f} MiB, "
+          f"{len(events)} events) names K1's kernel {len(k1)} times ({k1[0]['name']}; "
+          f"{k1_ms:.3f} ms of it a traced step)")
+    del events, k1
+
+    compare_band_kernels(run.convs, run.fused, run.level_rb, run.level_coords, gen,
+                         torch.float32, stats, fwd_runs=2 if remat else 1)
+    out = {"train_launches": run.launches, "step_ms": run.step_times_ms,
+           "data_ms": run.data_ms, "peak_gib": run.peak_gib, "object_ms": frag_ms,
+           "per_step": run.per_step}
+    b_inputs, per_step = run.b_inputs, run.per_step
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the seeded first batch's grads, kernel path against plain
+    gmodel = build_model(dict(cfg.model))
+    gmodel.reset_parameters(torch.Generator().manual_seed(SEED))
+    gmodel.to(dev).train()
+    out["grads_bound"] = grads_either_bound("classifier step from the seeded state (f32)",
+                                            gmodel, b_inputs, per_step, pin_relu=True)
+    del gmodel, b_inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def windowed_cases(probe, dev, level_rb, stem):
     """Phase 12's six convs, (label, tap group, rulebook (k3, n) int32 on
     ``dev``, cin, cout): the probe's four shapes (``probe``:
@@ -2209,7 +2708,7 @@ def main() -> int:
     import probe_windowed_torch as probe
 
     phase_s = {}
-    tic = time.perf_counter()
+    tic = run_start = time.perf_counter()
 
     def phase_done(name):
         nonlocal tic
@@ -2729,7 +3228,17 @@ def main() -> int:
         nseg = nuscenes_semseg_phase(dev, tmp, gen, nseg_stats, nus["ckpt"])
         phase_done("18 nuScenes semseg fine-tune from files")
 
-        # ---- 19. output
+        # ---- 19. MinkUNet34C on ScanNet: trained, precise-tested, served
+        mink_stats = new_stats()
+        mink = minkunet_phase(dev, tmp, gen, mink_stats)
+        phase_done("19 MinkUNet34C ScanNet semseg")
+
+        # ---- 20. the SpUNet classifier
+        cls_stats = new_stats()
+        clf = classifier_phase(dev, tmp, gen, cls_stats)
+        phase_done("20 SpUNet classifier")
+
+        # ---- 21. output
         print(f"[time] per fine-tune step at batch {tcfg.batch_size} (f32): "
               + "; ".join(f"{name} {stats[name]['ms']:.3f} ms vs plain "
                           f"{stats[name]['plain_ms']:.3f} ms (bound "
@@ -2754,11 +3263,16 @@ def main() -> int:
         for label, st in ((f"nuScenes pretrain step at batch 4 (f32, remat, the first batch's "
                            f"convs)", nus_stats),
                           (f"nuScenes semseg step at batch 12 (f32, remat, the first batch's "
-                           f"convs)", nseg_stats)):
+                           f"convs)", nseg_stats),
+                          (f"MinkUNet34C step at batch 12 (f32, remat, the first batch's "
+                           f"convs)", mink_stats),
+                          (f"classifier step at batch 32 (f32, remat, the first batch's "
+                           f"convs)", cls_stats)):
             print(f"[time] per {label}: " + "; ".join(
                 f"{name} {st[name]['ms']:.3f} ms vs plain {st[name]['plain_ms']:.3f} ms "
                 f"(bound {st[name]['bound_ms']:.3f} ms)" for name in BAND_CORES))
         print(f"[time] phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
+        print(f"[time] the whole run: {time.perf_counter() - run_start:.1f} s")
 
         def entry(name, launches, st):
             return {
@@ -2798,6 +3312,11 @@ def main() -> int:
                 row["nuscenes_semseg"] = entry(name, nseg["train_launches"][i],
                                                nseg_stats[name])
                 row["nuscenes_serving_launches"] = nseg["serve_launches"][i]
+                row["minkunet34c"] = entry(name, mink["train_launches"][i], mink_stats[name])
+                row["minkunet34c"]["launches_per_step"] = mink["per_step"][i]
+                row["minkunet34c_serving_launches"] = mink["serve_launches"][i]
+                row["classifier"] = entry(name, clf["train_launches"][i], cls_stats[name])
+                row["classifier"]["launches_per_step"] = clf["per_step"][i]
             kernels.append(row)
         # the probe kernels: one row per ported probe function, its launches
         # from its own run through the entry point

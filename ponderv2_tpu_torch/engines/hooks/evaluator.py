@@ -1,16 +1,20 @@
-"""Per-epoch evaluators (counterparts of ``SemSegEvaluator`` and
-``InsSegEvaluator`` in ``ponderv2_tpu/engines/hooks/evaluator.py``).
+"""Per-epoch evaluators (counterparts of ``SemSegEvaluator``,
+``ClsEvaluator`` and ``InsSegEvaluator`` in
+``ponderv2_tpu/engines/hooks/evaluator.py``).
 
 ``SemSegEvaluator`` runs the val loader through eval-mode forwards, computes
 per-class IoU on the host, and puts the metric scalars into EventStorage and
-``comm_info["current_metric_value"]`` for CheckpointSaver.
+``comm_info["current_metric_value"]`` for CheckpointSaver; where the class
+names fall in ScanNet200's head/common/tail tables
+(``datasets/preprocessing/scannet200_splits.py``) it also stores each
+split's mIoU as ``val/mIoU_{head,common,tail}``.
+``ClsEvaluator`` scores a classifier's ``cls_logits`` by overall accuracy.
 ``InsSegEvaluator`` clusters each val scene's shifted points into instance
 proposals on the host and scores them by the ScanNet AP protocol
 (``_associate_scene``, ``_scannet_ap`` and ``evaluate_instance_ap`` are
-copies of the JAX functions, numpy only). Not ported yet:
-the nearest-neighbour projection of voxel predictions onto raw points (val
-batches that carry ``origin_coord``; it needs ``ops/pointops.knn_query``) and
-the ScanNet200 head/common/tail split report.
+copies of the JAX functions, numpy only). Not ported yet: the
+nearest-neighbour projection of voxel predictions onto raw points (val
+batches that carry ``origin_coord``; it needs ``ops/pointops.knn_query``).
 """
 
 from __future__ import annotations
@@ -21,6 +25,32 @@ from ...utils import comm
 from ...utils.misc import intersection_and_union
 from .builder import HOOKS
 from .default import HookBase
+
+
+def _category_split_masks(names):
+    """Boolean masks over ``names`` for the ScanNet200 head/common/tail splits
+    (benchmark-defined frequency split; see
+    datasets/preprocessing/scannet200_splits.py). Returns () unless every
+    split has a name among ``names`` — e.g. for 20-class ScanNet or numeric
+    placeholder names. (The JAX function returns () only when no name falls
+    in any split, so on ScanNet's 20 names, 18 of which are head
+    categories, it reports a "head" mIoU: ROADMAP Queue 3 F13.)"""
+    from ...datasets.preprocessing.scannet200_splits import (
+        COMMON_CATS_SCANNET_200, HEAD_CATS_SCANNET_200, TAIL_CATS_SCANNET_200,
+    )
+
+    names = [str(n) for n in names]
+    masks = []
+    for split, cats in (
+        ("head", HEAD_CATS_SCANNET_200),
+        ("common", COMMON_CATS_SCANNET_200),
+        ("tail", TAIL_CATS_SCANNET_200),
+    ):
+        cat_set = set(cats)
+        masks.append((split, np.asarray([n in cat_set for n in names])))
+    if not all(m.any() for _, m in masks):
+        return ()
+    return tuple(masks)
 
 
 @HOOKS.register_module()
@@ -96,15 +126,56 @@ class SemSegEvaluator(HookBase):
                     f"Class_{c}-{names[c]} Result: iou/accuracy "
                     f"{iou_class[c]:.4f}/{acc_class[c]:.4f}"
                 )
+        # ScanNet200 protocol: report per-frequency-split mIoU when the class
+        # list matches the head/common/tail tables (no-op for other datasets)
+        split_metrics = {}
+        if len(names) == num_classes:
+            for split, mask in _category_split_masks(names):
+                if mask.any():
+                    split_metrics[split] = float(np.mean(iou_class[mask]))
+        for split, v in split_metrics.items():
+            logger.info(f"Val result ({split}): mIoU {v:.4f}")
         storage = trainer.storage
         storage.put_scalar("val/mIoU", m_iou, smoothing_hint=False)
         storage.put_scalar("val/mAcc", m_acc, smoothing_hint=False)
         storage.put_scalar("val/allAcc", all_acc, smoothing_hint=False)
+        for split, v in split_metrics.items():
+            storage.put_scalar(f"val/mIoU_{split}", v, smoothing_hint=False)
         if losses:
             storage.put_scalar("val/loss", float(np.mean(losses)), smoothing_hint=False)
         trainer.comm_info["current_metric_value"] = m_iou
         trainer.comm_info["current_metric_name"] = "mIoU"
         logger.info("<<<<<<<<<<<<<<<<< End Evaluation <<<<<<<<<<<<<<<<<")
+
+
+@HOOKS.register_module()
+class ClsEvaluator(HookBase):
+    """Overall accuracy of a classifier's ``cls_logits`` over the val loader,
+    stored as ``val/allAcc`` and handed to CheckpointSaver."""
+
+    def after_epoch(self):
+        if self.trainer.cfg.get("evaluate", True) and self.trainer.val_loader is not None:
+            self.eval()
+
+    def eval(self):
+        trainer = self.trainer
+        num_classes = trainer.cfg.data.num_classes
+        inter_sum = np.zeros(num_classes)
+        union_sum = np.zeros(num_classes)
+        target_sum = np.zeros(num_classes)
+        for input_dict in trainer.val_loader:
+            out = trainer.eval_step(input_dict)
+            pred = out["cls_logits"].float().cpu().numpy().argmax(-1)
+            target = np.asarray(input_dict["category"]).reshape(-1)
+            inter, union, t = intersection_and_union(pred, target, num_classes)
+            inter_sum += inter
+            union_sum += union
+            target_sum += t
+        acc = float(inter_sum.sum() / (target_sum.sum() + 1e-10))
+        trainer.logger.info(f"Val result: allAcc {acc:.4f}")
+        trainer.storage.put_scalar("val/allAcc", acc, smoothing_hint=False)
+        trainer.comm_info["current_metric_value"] = acc
+        trainer.comm_info["current_metric_name"] = "allAcc"
 
 
 def _associate_scene(preds, gt, valid_classes, segment_ignore_index,

@@ -1,9 +1,12 @@
-"""Core hooks: timing, logging, checkpointing.
+"""Core hooks: timing, logging, checkpointing, profiling, the precise test.
 
 Counterpart of ``ponderv2_tpu/engines/hooks/misc.py`` (``IterationTimer``,
-``InformationWriter``, ``CheckpointSaver``, ``CheckpointLoader``).
-Checkpoints hold the model's ``state_dict`` (reference PyTorch names), the
-optimizer's and the step count, written atomically with ``torch.save``.
+``InformationWriter``, ``CheckpointSaver``, ``CheckpointLoader``,
+``RuntimeProfiler``, ``PreciseEvaluator``). Checkpoints hold the model's
+``state_dict`` (reference PyTorch names), the optimizer's and the step
+count, written atomically with ``torch.save``. Not ported yet:
+``DataCacheOperator`` (the scene cache's key fault comes first, ROADMAP
+Queue 3).
 """
 
 from __future__ import annotations
@@ -235,3 +238,84 @@ class CheckpointLoader(HookBase):
                 f"entries; skipped {len(report['skipped'])} of the checkpoint "
                 f"{report['skipped']}; {len(report['missing'])} of the model's not in it "
                 f"{report['missing']}")
+
+
+@HOOKS.register_module()
+class RuntimeProfiler(HookBase):
+    """Before training: ``warm_up`` train steps, then ``record`` more under
+    ``torch.profiler`` (host ops, and the card's kernels on CUDA), written
+    as a Chrome trace ``{trace_dir}/trace.json`` (default
+    ``{save_path}/trace``); with ``exit_after`` the run then ends with
+    ``SystemExit(0)``, as the JAX hook's does."""
+
+    def __init__(self, trace_dir: Optional[str] = None, warm_up: int = 2,
+                 record: int = 3, exit_after: bool = True):
+        self.trace_dir = trace_dir
+        self.warm_up = warm_up
+        self.record = record
+        self.exit_after = exit_after
+        self.trace_path: Optional[str] = None
+
+    def _steps(self, n: int, batches) -> None:
+        trainer = self.trainer
+        for _ in range(n):
+            trainer.comm_info["input_dict"] = next(batches)
+            trainer.run_step()
+            trainer.sync_metrics()
+
+    def before_train(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        trainer = self.trainer
+        trace_dir = self.trace_dir or os.path.join(trainer.cfg.get("save_path", "."),
+                                                   "trace")
+        os.makedirs(trace_dir, exist_ok=True)
+        trainer.logger.info(f"Profiling {self.record} steps -> {trace_dir}")
+
+        def batches():
+            while True:
+                yield from trainer.train_loader
+
+        it = batches()
+        self._steps(self.warm_up, it)
+        activities = [ProfilerActivity.CPU]
+        if trainer.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+            torch.cuda.synchronize(trainer.device)
+        with profile(activities=activities) as prof:
+            self._steps(self.record, it)
+            if trainer.device.type == "cuda":
+                torch.cuda.synchronize(trainer.device)
+        self.trace_path = os.path.join(trace_dir, "trace.json")
+        prof.export_chrome_trace(self.trace_path)
+        trainer.logger.info(f"Profiling done: {self.trace_path}")
+        if self.exit_after:
+            raise SystemExit(0)
+
+
+@HOOKS.register_module()
+class PreciseEvaluator(HookBase):
+    """After training, the configured tester (``cfg.test``, SemSegTester by
+    default) over the test set with ``model_best.pth``, else (or with
+    ``test_last``) ``model_last.pth``, which ``cfg.weight`` then names; its
+    metrics go to
+    ``trainer.comm_info["precise_metrics"]``."""
+
+    def __init__(self, test_last: bool = False):
+        self.test_last = test_last
+
+    def after_train(self):
+        from ..test import TESTERS
+
+        trainer = self.trainer
+        trainer.logger.info(">>>>>>>>>>>>>>>> Start Precise Evaluation >>>>>>>>>>>>>>>>")
+        cfg = trainer.cfg
+        tester_cfg = dict(cfg.get("test", {"type": "SemSegTester"}))
+        which = "model_last.pth" if self.test_last else "model_best.pth"
+        weight = os.path.join(cfg.save_path, "model", which)
+        if not os.path.isfile(weight):
+            weight = os.path.join(cfg.save_path, "model", "model_last.pth")
+        cfg.weight = weight
+        tester = TESTERS.build(dict(type=tester_cfg.get("type", "SemSegTester"), cfg=cfg))
+        trainer.comm_info["precise_metrics"] = tester.test()
+        trainer.comm_info["precise_tester"] = tester

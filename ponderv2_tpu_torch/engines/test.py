@@ -1,11 +1,16 @@
-"""Testers: inference with TTA/fragment voting.
+"""Testers: inference with TTA/fragment voting, classification and part
+segmentation.
 
 Counterpart of ``ponderv2_tpu/engines/test.py`` (``TesterBase``,
-``SemSegTester``). Per scene the dataset emits aug x fragment variants; each
-fragment is collated, run through the model under ``torch.inference_mode()``
-on the tester's device, and its softmax probabilities are added into the
-full-resolution cloud by fragment index; the argmax is scored against the
-labels.
+``SemSegTester``, ``ClsTester``, ``PartSegTester``). Per scene the dataset
+emits aug x fragment variants; each fragment is collated, run through the
+model under ``torch.inference_mode()`` on the tester's device, and its
+softmax probabilities are added into the full-resolution cloud by fragment
+index; the argmax is scored against the labels and, with ``submit``,
+written as the dataset's submission file (``write_submission``).
+``ClsTester`` scores ``cls_logits`` by overall accuracy; ``PartSegTester``
+scores each sample's parts within its category (``category2part``). Each
+``test`` logs as the JAX one does and returns its metrics as a dict.
 """
 
 from __future__ import annotations
@@ -97,8 +102,11 @@ class SemSegTester(TesterBase):
         ignore_index = cfg.data.get("ignore_index", -1)
         point_budget = cfg.get("point_budget_test", cfg.get("point_budget"))
         save_path = cfg.get("save_path", ".")
+        submit = cfg.get("submit", False)
 
         os.makedirs(os.path.join(save_path, "result"), exist_ok=True)
+        if submit:
+            os.makedirs(os.path.join(save_path, "submit"), exist_ok=True)
         logger.info(">>>>>>>>>>>>>>>> Start Testing >>>>>>>>>>>>>>>>")
         inter_sum = np.zeros(num_classes)
         union_sum = np.zeros(num_classes)
@@ -126,6 +134,8 @@ class SemSegTester(TesterBase):
                     target_sum += target
                     records[name] = dict(intersection=inter, union=union,
                                          target=target)
+                if submit:
+                    self.write_submission(name, final, save_path)
                 continue
             fragments = data_dict["fragment_list"]
             num_points = (
@@ -164,6 +174,8 @@ class SemSegTester(TesterBase):
                     f"Accuracy {acc:.4f} mIoU {iou:.4f}"
                 )
             np.save(pred_save_path, final)
+            if submit:
+                self.write_submission(name, final, save_path)
 
         gathered = comm.gather(records, dst=0)
         metrics = None
@@ -194,3 +206,103 @@ class SemSegTester(TesterBase):
                            iou_class=iou_class)
         logger.info("<<<<<<<<<<<<<<<<< End Testing <<<<<<<<<<<<<<<<<")
         return metrics
+
+    def write_submission(self, name: str, pred: np.ndarray, save_path: str):
+        """Per-dataset submission writers (JAX ``test.py:221-241``):
+        ScanNet's class ids ``VALID_CLASS_IDS_20[pred]`` to ``{name}.txt``;
+        nuScenes' lidarseg ``uint8(pred + 1)`` to ``{name}_lidarseg.bin``;
+        otherwise ``pred`` to ``{name}.txt``."""
+        data_cfg = dict(self.cfg.data.test)
+        ds_type = data_cfg.get("type", "")
+        submit_dir = os.path.join(save_path, "submit")
+        if "ScanNet" in ds_type:
+            from ..datasets.scannet import VALID_CLASS_IDS_20
+
+            remapped = np.asarray(VALID_CLASS_IDS_20)[pred]
+            np.savetxt(os.path.join(submit_dir, f"{name}.txt"), remapped, fmt="%d")
+        elif "NuScenes" in ds_type:
+            np.asarray(pred + 1, np.uint8).tofile(
+                os.path.join(submit_dir, f"{name}_lidarseg.bin"))
+        else:
+            np.savetxt(os.path.join(submit_dir, f"{name}.txt"), pred, fmt="%d")
+
+
+def _one_sample(tester, data):
+    """One test sample collated alone, through ``eval_fragment``: (the
+    collated batch, the model's outputs on the host)."""
+    batch = collate_fn([data], point_budget=tester.cfg.get("point_budget"))
+    return batch, tester.eval_fragment(with_condition(*split_batch(batch)))
+
+
+@TESTERS.register_module()
+class ClsTester(TesterBase):
+    """Overall accuracy of ``cls_logits``' argmax against ``category``."""
+
+    def test(self):
+        num_classes = self.cfg.data.num_classes
+        inter_sum = np.zeros(num_classes)
+        union_sum = np.zeros(num_classes)
+        target_sum = np.zeros(num_classes)
+        for i in range(len(self.test_dataset)):
+            batch, out = _one_sample(self, self.test_dataset[i])
+            pred = np.asarray(out["cls_logits"]).argmax(-1)
+            target = np.asarray(batch["category"]).reshape(-1)
+            inter, union, t = intersection_and_union(pred, target, num_classes)
+            inter_sum += inter
+            union_sum += union
+            target_sum += t
+        acc = inter_sum.sum() / (target_sum.sum() + 1e-10)
+        self.logger.info(f"Test result: allAcc {acc:.4f}")
+        return dict(all_acc=float(acc))
+
+
+@TESTERS.register_module()
+class PartSegTester(TesterBase):
+    """Part segmentation (JAX ``test.py:269-323``): per sample, the IoU of
+    each part of its category (``category2part``), 1.0 for a part absent
+    from both the labels and the prediction; ins.mIoU over samples and
+    cat.mIoU over categories."""
+
+    def test(self):
+        logger = self.logger
+        num_classes = self.cfg.data.num_classes
+        ds = self.test_dataset
+        categories = list(getattr(ds, "categories", ()) or
+                          self.cfg.data.get("categories", ())) or ["all"]
+        category2part = getattr(ds, "category2part", None) or self.cfg.data.get(
+            "category2part", {"all": list(range(num_classes))})
+        num_categories = len(categories)
+        iou_category = np.zeros(num_categories)
+        iou_count = np.zeros(num_categories)
+        for i in range(len(ds)):
+            batch, out = _one_sample(self, ds[i])
+            valid = np.asarray(batch["batch"]) >= 0
+            pred = np.asarray(out["seg_logits"]).argmax(-1)[valid]
+            label = np.asarray(batch["segment"])[valid]
+            ci = 0
+            if "category" in batch:
+                ci = int(np.asarray(batch["category"]).reshape(-1)[0])
+            elif "cls_token" in batch:
+                ci = int(np.asarray(batch["cls_token"]).reshape(-1)[0])
+            ci = min(max(ci, 0), num_categories - 1)
+            parts = category2part.get(categories[ci], list(range(num_classes)))
+            parts_iou = np.zeros(len(parts))
+            for j, part in enumerate(parts):
+                if (label == part).sum() == 0 and (pred == part).sum() == 0:
+                    parts_iou[j] = 1.0  # part absent in both: perfect
+                else:
+                    inter = np.sum((label == part) & (pred == part))
+                    union = np.sum((label == part) | (pred == part))
+                    parts_iou[j] = inter / (union + 1e-10)
+            iou_category[ci] += parts_iou.mean()
+            iou_count[ci] += 1
+        ins_miou = iou_category.sum() / (iou_count.sum() + 1e-10)
+        cat_miou = float((iou_category / (iou_count + 1e-10)).mean())
+        logger.info(f"Test result: ins.mIoU/cat.mIoU {ins_miou:.4f}/{cat_miou:.4f}")
+        for ci in range(num_categories):
+            logger.info(
+                f"Class_{ci}-{categories[ci]} Result: iou_cat/num_sample "
+                f"{iou_category[ci] / (iou_count[ci] + 1e-10):.4f}/"
+                f"{int(iou_count[ci])}")
+        return dict(ins_miou=float(ins_miou), cat_miou=cat_miou,
+                    iou_category=iou_category, iou_count=iou_count)

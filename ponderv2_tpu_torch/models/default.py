@@ -1,8 +1,9 @@
-"""Segmentor wrapper: collated batch dict -> per-row logits (and loss).
+"""Task wrappers: collated batch dict -> per-row or per-scene logits (and loss).
 
 Counterpart of ``ponderv2_tpu/models/default.py`` (``batch_to_sparse_tensor``,
-``DefaultSegmentor``). Train or eval is the module's ``training`` flag
-(``model.train()`` / ``model.eval()``), the JAX ``train`` argument.
+``DefaultSegmentor``, ``DefaultClassifier``). Train or eval is the module's
+``training`` flag (``model.train()`` / ``model.eval()``), the JAX ``train``
+argument.
 """
 
 from __future__ import annotations
@@ -12,7 +13,8 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
-from ..ops.sparse import make_sparse_tensor, maybe_sort_by_key
+from ..ops.scatter import segment_mean
+from ..ops.sparse import make_sparse_tensor, maybe_sort_by_key, sort_by_key
 from .builder import MODELS, build_model
 from .losses import build_criteria
 
@@ -64,4 +66,42 @@ class DefaultSegmentor(nn.Module):
         out = {"seg_logits": seg_logits, "contract_ok": contract_ok}
         if "segment" in input_dict:
             out["loss"] = self.criteria(seg_logits, input_dict["segment"], st.mask)
+        return out
+
+
+@MODELS.register_module()
+class DefaultClassifier(nn.Module):
+    """A backbone and a linear ``cls_head`` from ``backbone_embed_dim`` to
+    ``num_classes``. A backbone that returns per-voxel rows (not a
+    ``cls_mode`` one) is mean-pooled per scene first, as in JAX."""
+
+    def __init__(self, backbone=None, criteria=None, num_classes: int = 40,
+                 backbone_embed_dim: int = 256):
+        super().__init__()
+        self.backbone = build_model(dict(backbone))
+        self.criteria = build_criteria(criteria or [])
+        self.num_classes = num_classes
+        self.cls_head = nn.Linear(backbone_embed_dim, num_classes)
+
+    def reset_parameters(self, generator=None) -> None:
+        self.backbone.reset_parameters(generator)
+        with torch.no_grad():
+            self.cls_head.weight.normal_(0.0, self.cls_head.in_features ** -0.5,
+                                         generator=generator)
+            self.cls_head.bias.zero_()
+
+    def forward(self, input_dict: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """Returns ``cls_logits`` (B, num_classes), ``contract_ok``, and
+        ``loss`` when the batch carries ``category``. Rows are sorted by
+        voxel key for the band plans; a per-scene mean does not depend on
+        the row order."""
+        st, _ = sort_by_key(batch_to_sparse_tensor(input_dict))
+        feat, contract_ok = self.backbone(st)
+        if feat.dim() == 2 and feat.shape[0] == st.capacity:
+            # per-voxel rows: pool per scene
+            feat = segment_mean(feat, st.coords[:, 0], st.batch_size)
+        cls_logits = self.cls_head(feat)
+        out = {"cls_logits": cls_logits, "contract_ok": contract_ok}
+        if "category" in input_dict:
+            out["loss"] = self.criteria(cls_logits, input_dict["category"].reshape(-1), None)
         return out

@@ -8,9 +8,10 @@ is the JAX package's ``kernel``.
 ``SubMConv`` mirrors the JAX routing exactly (``subm_route``):
 
 - ``band-attached`` / ``band-inline``: the band conv (``ops.band_conv``),
-  with the level's shared plan, or with a plan built inline from a plain
-  rulebook when ``cin > 64`` (with the attached plans' budget retry, which
-  the JAX package's inline plans lack);
+  with the level's shared plan (a ``SubmPlan``'s or a ``BandedRulebook``'s),
+  or with a plan built inline from a plain rulebook when ``cin > 64`` (with
+  the attached plans' budget retry, which the JAX package's inline plans
+  lack);
 - ``slab``: where the JAX package takes its slab conv (a ``SubmPlan`` and
   ``cin <= 64``), the port computes that function with the plain gather conv,
   zeroed when the plan's ``sorted_ok`` is False as the slab conv is;
@@ -36,6 +37,7 @@ from ...ops.band_conv import (
 )
 from ...ops.sparse import SparseTensor, make_sparse_tensor
 from ...ops.spconv import (
+    BandedRulebook,
     StridedPlan,
     SubmPlan,
     apply_sparse_conv,
@@ -51,8 +53,9 @@ from ...ops.spconv import (
 def subm_route(rulebook, cin: int, cout: int, kernel_size: int) -> str:
     """Which conv ``SubMConv`` runs for this plan and width (layers.py:88-123
     of the JAX package)."""
-    legacy = rulebook.legacy if isinstance(rulebook, SubmPlan) else rulebook
-    band_plan = rulebook.band if isinstance(rulebook, SubmPlan) else None
+    carrier = isinstance(rulebook, (SubmPlan, BandedRulebook))
+    legacy = rulebook.legacy if carrier else rulebook
+    band_plan = rulebook.band if carrier else None
     if band_eligible(cin, cout, kernel_size):
         if band_plan is not None:
             return "band-attached"
@@ -108,7 +111,8 @@ class SubMConv(_SparseConvBase):
                            self.kernel_size)
         self.last_route = route
         w = self.taps()
-        legacy = rulebook.legacy if isinstance(rulebook, SubmPlan) else rulebook
+        legacy = (rulebook.legacy if isinstance(rulebook, (SubmPlan, BandedRulebook))
+                  else rulebook)
         if route.startswith("band"):
             plan = (rulebook.band if route == "band-attached"
                     else build_band_plan_auto(legacy, 3))

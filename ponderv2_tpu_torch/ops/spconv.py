@@ -157,14 +157,36 @@ def attach_band_plan(
     )
 
 
+class BandedRulebook(NamedTuple):
+    """A plain (K^3, N) rulebook with the level's band plan attached: the
+    carrier of models that build raw rulebooks (MinkUNet), so that one band
+    plan serves every block of the level (JAX ``BandedRulebook``)."""
+
+    legacy: torch.Tensor
+    band: Optional[tuple] = None
+
+
+def attach_band_rulebook(legacy: torch.Tensor) -> BandedRulebook:
+    """Wrap a (K^3, N) subm rulebook with its band plan (k3 only), built
+    with the budget retry of the attached plans (``build_band_plan_auto``:
+    both budgets doubled while ``ok`` is False). The JAX package builds this
+    carrier's plan once at the default budgets (ROADMAP Queue 3)."""
+    from .band_conv import build_band_plan_auto
+
+    return BandedRulebook(legacy, build_band_plan_auto(legacy, 3))
+
+
 def plan_contract_flags(rb) -> list:
     """The loud-failure contract flags a rulebook/plan carries:
-    ``SubmPlan.sorted_ok`` and ``BandPlan.ok``."""
+    ``SubmPlan.sorted_ok`` and the ``BandPlan.ok`` of an attached plan
+    (on a ``SubmPlan`` or a ``BandedRulebook``)."""
     flags = []
     if isinstance(rb, SubmPlan):
         flags.append(rb.sorted_ok)
         if rb.band is not None:
             flags.append(rb.band.ok)
+    elif isinstance(rb, BandedRulebook) and rb.band is not None:
+        flags.append(rb.band.ok)
     return flags
 
 

@@ -38,6 +38,16 @@ PonderIndoor-v2, and the mask token ``mtoken``.
 ``state_dict_from_jax_point_group`` does PG-v1m1: its backbone through the
 SpUNet-v1m1 or PPT-v1m1 converter above, its heads' Dense kernels ->
 ``nn.Linear`` weights.
+
+``state_dict_from_jax_mink_unet`` does the MinkUNet family (basic and
+bottleneck blocks, scanned or not) into the reference names
+(``conv0p1s1``, ``bn0``, ``conv{s+1}p{2^s}s2``, ``bntr{4+s}``,
+``block{i}.{b}.{conv,norm}{1,2,3}``, ``downsample.{0,1}``; the Dense 1x1
+convs as ``(1, 1, 1, Cin, Cout)`` kernels), ``state_dict_from_jax_spunet_noskip``
+SpUNetNoSkipBase into SpUNet-v1m1's names, and
+``state_dict_from_jax_classifier`` a DefaultClassifier: its backbone by the
+converter of its type (SpUNet-v1m1 / v1m2 in ``cls_mode`` or not,
+SpUNetNoSkipBase, a MinkUNet) and ``cls_head``.
 """
 
 from __future__ import annotations
@@ -96,7 +106,7 @@ def state_dict_from_jax_spunet(params: Mapping, batch_stats: Mapping,
         st = batch_stats[f"enc{s}_blocks"]["blocks"]
         for b in range(layers[s]):
             _block(out, f"enc.{s}.block{b}", _unstack(p, b), _unstack(st, b))
-    for s in range(num_stages):
+    for s in range(num_stages if "up0" in params else 0):  # none in cls_mode
         ref = num_stages - 1 - s
         out[f"up.{ref}.0.weight"] = _kernel(params[f"up{s}"]["conv"]["kernel"])
         _bn(out, f"up.{ref}.1", params[f"up{s}"]["bn"], batch_stats[f"up{s}"]["bn"])
@@ -309,4 +319,119 @@ def state_dict_from_jax_ponder_outdoor(variables: Mapping, channels: Sequence[in
     constants = variables.get("constants") or {}
     if "class_embedding" in constants:
         out["class_embedding"] = np.asarray(constants["class_embedding"])
+    return out
+
+
+def _proj(out, name, p) -> None:
+    """A Dense kernel (Cin, Cout) as a 1x1x1 conv kernel (1, 1, 1, Cin, Cout)."""
+    w = np.asarray(p["kernel"])
+    out[name] = w.reshape(1, 1, 1, *w.shape)
+
+
+def _mink_block(out, name, p, s) -> None:
+    """A JAX MinkUNet BasicBlock / Bottleneck into the reference names."""
+    if np.asarray(p["conv1"]["kernel"]).ndim == 2:  # Bottleneck: 1x1 -> k3 -> 1x1
+        _proj(out, f"{name}.conv1.weight", p["conv1"])
+        out[f"{name}.conv2.weight"] = _kernel(p["conv2"]["kernel"])
+        _proj(out, f"{name}.conv3.weight", p["conv3"])
+        _bn(out, f"{name}.norm3", p["bn3"], s["bn3"])
+    else:
+        out[f"{name}.conv1.weight"] = _kernel(p["conv1"]["kernel"])
+        out[f"{name}.conv2.weight"] = _kernel(p["conv2"]["kernel"])
+    _bn(out, f"{name}.norm1", p["bn1"], s["bn1"])
+    _bn(out, f"{name}.norm2", p["bn2"], s["bn2"])
+    if "proj" in p:
+        _proj(out, f"{name}.downsample.0.weight", p["proj"])
+        _bn(out, f"{name}.downsample.1", p["proj_bn"], s["proj_bn"])
+
+
+def state_dict_from_jax_mink_unet(params: Mapping, batch_stats: Mapping,
+                                  layers: Sequence[int]) -> Dict[str, np.ndarray]:
+    """``params``/``batch_stats``: a JAX MinkUNet's collections (numpy
+    leaves), its blocks scanned (``{prefix}_blocks``, stacked after the
+    decoder's standalone ``{prefix}_b0``) or not (``{prefix}_b{b}``).
+    Returns the port's ``MinkUNetBase`` state_dict of numpy arrays."""
+    ns = len(layers) // 2
+    out: Dict[str, np.ndarray] = {}
+    out["conv0p1s1.weight"] = _kernel(params["stem"]["kernel"])
+    _bn(out, "bn0", params["stem_bn"], batch_stats["stem_bn"])
+
+    def blocks(prefix, module, n_blocks):
+        for b in range(n_blocks):
+            if f"{prefix}_b{b}" in params:
+                p, st = params[f"{prefix}_b{b}"], batch_stats[f"{prefix}_b{b}"]
+            else:  # scanned from the first block that is not standalone
+                first = int(f"{prefix}_b0" in params)
+                p = _unstack(params[f"{prefix}_blocks"]["blocks"], b - first)
+                st = _unstack(batch_stats[f"{prefix}_blocks"]["blocks"], b - first)
+            _mink_block(out, f"{module}.{b}", p, st)
+
+    for s in range(ns):
+        out[f"conv{s + 1}p{2 ** s}s2.weight"] = _kernel(params[f"down{s}"]["kernel"])
+        _bn(out, f"bn{s + 1}", params[f"down{s}_bn"], batch_stats[f"down{s}_bn"])
+        blocks(f"enc{s}", f"block{s + 1}", layers[s])
+    for s in range(ns):
+        out[f"convtr{ns + s}p{2 ** (ns - s)}s2.weight"] = _kernel(params[f"up{s}"]["kernel"])
+        _bn(out, f"bntr{ns + s}", params[f"up{s}_bn"], batch_stats[f"up{s}_bn"])
+        blocks(f"dec{s}", f"block{ns + 1 + s}", layers[ns + s])
+    if "final" in params:
+        _dense(out, "final", params["final"])
+    return out
+
+
+def state_dict_from_jax_spunet_noskip(params: Mapping, batch_stats: Mapping,
+                                      layers: Sequence[int]) -> Dict[str, np.ndarray]:
+    """``params``/``batch_stats``: the JAX SpUNetNoSkipBase collections
+    (numpy leaves). Returns the port's state_dict (SpUNet-v1m1's names)."""
+    ns = len(layers) // 2
+    out: Dict[str, np.ndarray] = {}
+    out["conv_input.0.weight"] = _kernel(params["stem_conv"]["kernel"])
+    _bn(out, "conv_input.1", params["stem_bn"], batch_stats["stem_bn"])
+    for s in range(ns):
+        out[f"down.{s}.0.weight"] = _kernel(params[f"down{s}"]["kernel"])
+        _bn(out, f"down.{s}.1", params[f"down{s}_bn"], batch_stats[f"down{s}_bn"])
+        for b in range(layers[s]):
+            _block(out, f"enc.{s}.block{b}", params[f"enc{s}_block{b}"],
+                   batch_stats[f"enc{s}_block{b}"])
+    for s in range(ns):
+        ref = ns - 1 - s
+        out[f"up.{ref}.0.weight"] = _kernel(params[f"up{s}"]["kernel"])
+        _bn(out, f"up.{ref}.1", params[f"up{s}_bn"], batch_stats[f"up{s}_bn"])
+        for b in range(layers[ns + s]):
+            _block(out, f"dec.{ref}.block{b}", params[f"dec{s}_block{b}"],
+                   batch_stats[f"dec{s}_block{b}"])
+    if "final" in params:
+        _dense(out, "final", params["final"])
+    return out
+
+
+def state_dict_from_jax_backbone(params: Mapping, batch_stats: Mapping,
+                                 backbone: Mapping) -> Dict[str, np.ndarray]:
+    """A sparse backbone's state_dict by the converter of its config's type."""
+    kind = backbone["type"]
+    if kind in ("SpUNet-v1m1", "SpUNet-v1m2"):
+        return state_dict_from_jax_spunet(params, batch_stats, backbone.get("channels"),
+                                          backbone["layers"])
+    if kind == "SpUNetNoSkipBase":
+        return state_dict_from_jax_spunet_noskip(params, batch_stats, backbone["layers"])
+    if kind.startswith("MinkUNet"):
+        from ..models.sparse_unet.mink_unet import _VARIANTS
+
+        layers = backbone.get("layers") or _VARIANTS.get(kind, (None, (2,) * 8))[1]
+        return state_dict_from_jax_mink_unet(params, batch_stats, layers)
+    raise KeyError(f"no converter for a {kind} backbone")
+
+
+def state_dict_from_jax_classifier(variables: Mapping,
+                                   backbone: Mapping) -> Dict[str, np.ndarray]:
+    """``variables``: the JAX DefaultClassifier collections ``params`` and
+    ``batch_stats`` with numpy leaves; ``backbone`` its backbone's config.
+    Returns the port's state_dict: the backbone's under ``backbone.`` (a
+    ``cls_mode`` SpUNet's ``final`` with it where it has one), and
+    ``cls_head`` as an ``nn.Linear``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: Dict[str, np.ndarray] = {
+        f"backbone.{k}": v for k, v in state_dict_from_jax_backbone(
+            params["backbone_net"], stats["backbone_net"], backbone).items()}
+    _dense(out, "cls_head", params["cls_head"])
     return out

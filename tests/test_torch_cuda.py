@@ -355,6 +355,43 @@ def test_segmentor_cuda_matches_cpu(cuda):
     assert _rel_err(gpu["seg_logits"].cpu(), ref["seg_logits"]) <= 1e-4
 
 
+def test_mink_unet_cuda_routes_band_levels_to_k1(cuda, monkeypatch):
+    """A MinkUNet segmentor on the GPU: its convs over the levels wider than
+    64 channels (``BandedRulebook``) launch K1, one each, and match the
+    model on the CPU; a carrier whose ``ok`` is False turns ``contract_ok``
+    False (and zeroes its convs)."""
+    from ponderv2_tpu_torch.models.sparse_unet import mink_unet
+    from ponderv2_tpu_torch.models.sparse_unet.layers import SubMConv
+
+    model = build_model(dict(type="DefaultSegmentor", backbone=dict(
+        type="MinkUNet14A", in_channels=9, out_channels=20, init_dim=16,
+        planes=(16, 72, 72, 16), layers=(1, 2, 2, 1)))).eval()
+    coords = _scene(4000, (100, 100, 40))
+    inputs = dict(feat=torch.randn(len(coords), 9,
+                                   generator=torch.Generator().manual_seed(0)),
+                  grid_coord=coords[:, 1:], batch=coords[:, 0],
+                  spatial_shape=(1024, 1024, 512), batch_size=2)
+    with torch.inference_mode():
+        ref = model(inputs)
+        model.to(cuda)
+        gpu_inputs = {k: v.to(cuda) if torch.is_tensor(v) else v for k, v in inputs.items()}
+        before = bc.BAND_FWD.launches
+        gpu = model(gpu_inputs)
+        routes = [m.last_route for m in model.modules() if isinstance(m, SubMConv)]
+        assert bc.BAND_FWD.launches - before == routes.count("band-attached") == 8
+        assert bool(gpu["contract_ok"]) and bool(ref["contract_ok"])
+        assert _rel_err(gpu["seg_logits"].cpu(), ref["seg_logits"]) <= 1e-4
+
+        attach = mink_unet.attach_band_rulebook
+
+        def failed(legacy):
+            rb = attach(legacy)
+            return rb._replace(band=rb.band._replace(ok=torch.zeros_like(rb.band.ok)))
+
+        monkeypatch.setattr(mink_unet, "attach_band_rulebook", failed)
+        assert not bool(model(gpu_inputs)["contract_ok"])
+
+
 @pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
 @pytest.mark.parametrize("adaptive", [True, False], ids=["adaptive", "plain"])
 def test_pdbatchnorm_cuda_matches_cpu(cuda, adaptive, train):

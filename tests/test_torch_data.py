@@ -223,9 +223,13 @@ class TestTrainDataPath:
                                   (js3, ts3, ["S3DIS_CLASS_NAMES"])]:
             for name in names:
                 assert getattr(tmod, name) == getattr(jmod, name), name
-        # the data modules the configs import and the scene cache, whole
-        # (utils/config.py:PORTED_MODULES)
-        for jmod, tmod in [(jvocab, tvocab), (jsc200, tsc200), (jcache, tcache)]:
+        # the data modules the configs import (utils/config.py:PORTED_MODULES),
+        # the scene cache and ScanNet200's split tables, whole
+        import ponderv2_tpu.datasets.preprocessing.scannet200_splits as jsplits
+        import ponderv2_tpu_torch.datasets.preprocessing.scannet200_splits as tsplits
+
+        for jmod, tmod in [(jvocab, tvocab), (jsc200, tsc200), (jcache, tcache),
+                           (jsplits, tsplits)]:
             with open(jmod.__file__, "rb") as fj, open(tmod.__file__, "rb") as ft:
                 assert fj.read() == ft.read(), tmod.__name__
 
@@ -685,6 +689,45 @@ assert len(loader) == 4
 assert [b["condition"] for b in loader] == [[c] for c in chip_smoke.MULTI_ORDER]
 shutil.rmtree(data_root)
 
+# the MinkUNet34C recipe (phase 19) and the SpUNet classifier recipe (phase
+# 20) build and run an eval forward at full width; every new hook and
+# tester builds, the testers over the recipes' data
+import ponderv2_tpu_torch.engines.launch
+from ponderv2_tpu_torch.engines.hooks import build_hooks
+from ponderv2_tpu_torch.engines.test import TESTERS
+data_root = tempfile.mkdtemp()
+chip_smoke.write_scannet_scenes(data_root, 1, 1, points=2000)
+mcfg = chip_smoke.minkunet_recipe(data_root, os.path.join(data_root, "exp"))
+assert mcfg.model.backbone["type"] == "MinkUNet34C" and mcfg.hooks[-1]["type"] == "PreciseEvaluator"
+mink = build_model(dict(mcfg.model)).eval()
+item = build_dataset(dict(mcfg.data.val))[0]
+mb = collate_fn([item], point_budget=2048, scene_budget=1)
+with torch.inference_mode():
+    mout = mink({**{k: torch.as_tensor(v) for k, v in mb.items() if isinstance(v, np.ndarray)},
+                 "spatial_shape": tuple(mcfg.sparse_shape), "batch_size": 1})
+assert mout["seg_logits"].shape == (2048, 20) and bool(mout["contract_ok"])
+chip_smoke.register_object_dataset()
+ccfg = chip_smoke.classifier_recipe(data_root, os.path.join(data_root, "cls"))
+cds = build_dataset(dict(ccfg.data.train, num_objects=2, points=3000))
+cb = collate_fn([cds[0], cds[1]], point_budget=6000, scene_budget=2)
+clf = build_model(dict(ccfg.model)).eval()
+with torch.inference_mode():
+    cout = clf({**{k: torch.as_tensor(v) for k, v in cb.items() if isinstance(v, np.ndarray)},
+                "spatial_shape": tuple(ccfg.sparse_shape), "batch_size": 2})
+assert cout["cls_logits"].shape == (2, 40) and bool(cout["contract_ok"])
+hooks = build_hooks([dict(type="ClsEvaluator"), dict(type="PreciseEvaluator"),
+                     dict(type="RuntimeProfiler"), dict(type="SemSegEvaluator")])
+assert [type(h).__name__ for h in hooks] == ["ClsEvaluator", "PreciseEvaluator",
+                                             "RuntimeProfiler", "SemSegEvaluator"]
+torch.save(clf.state_dict(), os.path.join(data_root, "clf.pth"))
+ccfg.weight, ccfg.device = os.path.join(data_root, "clf.pth"), "cpu"
+ccfg.data.test = dict(ccfg.data.test, num_objects=1, points=500)
+assert type(TESTERS.build(dict(type="ClsTester", cfg=ccfg))).__name__ == "ClsTester"
+torch.save(mink.state_dict(), os.path.join(data_root, "mink.pth"))
+mcfg.weight, mcfg.device, mcfg.data.test = os.path.join(data_root, "mink.pth"), "cpu", mcfg.data.val
+assert type(TESTERS.build(dict(type="PartSegTester", cfg=mcfg))).__name__ == "PartSegTester"
+shutil.rmtree(data_root)
+
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("NO_JAX_OK")
 """
@@ -705,7 +748,9 @@ def test_port_imports_and_runs_without_jax():
     multi-dataset pretrain's datasets and loader run one round over scene
     files, and the three instance-segmentation recipes build their datasets
     (over scene files with instance labels) and run a full-width training
-    forward of their PG-v1m1 models (the nuScenes configs:
+    forward of their PG-v1m1 models, the MinkUNet34C and SpUNet classifier
+    recipes of ``chip_smoke.py`` run a full-width eval forward and every
+    new hook and tester builds (the nuScenes configs:
     ``test_nuscenes_configs_run_without_jax``),
     with jax/jaxlib/flax/optax/ponderv2_tpu blocked; no port source
     names them in an import statement."""

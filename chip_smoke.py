@@ -202,7 +202,31 @@ repo around it, and runs in phases; any failure exits non-zero:
     and its code checked; its Chrome trace must name K1's kernel), K1-K3
     against their plain versions as in 7 and the seeded step's grads as in
     15;
-21. print times and peak memory, a JSON line of the kernels, and last
+21. the modules no recipe names, on the card: (a) the ScanNet SpUNet
+    recipe (``ORIGIN_CONFIG``) on 12 + 2 scene files in phase 14's layout
+    with ``cache=True`` and ``DataCacheOperator``, its val pipeline with
+    ``Copy`` (coord -> origin_coord, segment -> origin_segment) before
+    ``GridSample`` and ``Collect`` keeping both: one step at batch 12 with
+    the checks of 14, then ``SemSegEvaluator`` projecting each val voxel's
+    prediction onto the scene's original points (``pointops.knn_query`` on
+    the card). Checked: the cached scenes equal their files, each voxel row
+    is one of its scene's original points (one frame), the projection
+    equals an exact float64 nearest-neighbour search on the host
+    (``scipy.spatial.cKDTree``) wherever the two nearest squared distances
+    differ by more than ``NEAR_TIE`` of their terms (near-ties counted),
+    the stored ``val/mIoU`` equals one computed on the host from the
+    projected labels, and no segment of the run is left in /dev/shm;
+    (b) ``pointops`` at scene size (a val scene's 100k points against its
+    ~85k voxels): ``knn_query`` (k 1 and 16), ``ball_query``,
+    ``farthest_point_sampling`` (4096 of 100k), ``interpolation``,
+    ``grouping`` with its backward and the two attention steps, each
+    against float64 on the host, ms a call printed as ``[pointops]`` lines
+    (plain PyTorch: no kernel row); (c) the VolSDF pretrain: 9's config
+    with ``VolSDFModel`` and ``ErrorBoundedSampler`` at its defaults, 3
+    steps (each step's K1-K3 launches 9's routing, ``contract_ok``, finite
+    losses), one step's grads kernel vs plain at 11's bound with the same
+    draws, then one step of ``NeuSModel`` with ``UniSurfSampler``;
+22. print times and peak memory, a JSON line of the kernels, and last
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -319,6 +343,18 @@ hooks = [dict(type="CheckpointLoader"), dict(type="IterationTimer", warmup_iter=
          dict(type="CheckpointSaver", save_freq=None)]
 test = dict(type="ClsTester")
 """
+# phase 21: segmentation evaluated on the original points (the ScanNet
+# SpUNet recipe, one step at batch 12, two val scenes), and pointops at the
+# size of one of those scenes
+ORIGIN_CONFIG = os.path.join(ROOT, "configs/scannet/semseg-spunet-v1m1-0-base.py")
+ORIGIN_TRAIN_SCENES = 12
+ORIGIN_VAL_SCENES = 2
+# a near-tie of two squared distances: they differ by no more than this
+# share of |q|^2 + |r|^2 (16 f32 ulps of the terms the expanded form
+# |q|^2 + |r|^2 - 2 q.r cancels), or, for the direct form sum (q - r)^2 of
+# f32 coordinates, of 2 d (|q| + |r|) + d^2 (what rounding q and r to f32
+# and the sum's own rounding can move d^2 by)
+NEAR_TIE = 16 * 2.0 ** -24
 SEED = 0
 # band convs per forward of SpUNet-v1m1 at ScanNet's sparse_shape, from the
 # routing (models/sparse_unet/layers.py:subm_route): L0 runs the last decoder
@@ -850,7 +886,10 @@ class PinnedRelu:
     the recorded mask of that call is off and counts in ``flips`` the
     elements whose own decision differs. Runs that replay one record
     compute one smooth function, so their grads part only by rounding,
-    also where an activation sits within rounding of 0."""
+    also where an activation sits within rounding of 0. The recording run
+    applies its masks as the replays do (``masked_fill``): with
+    ``torch.relu`` there, the pretrain model's step gave other grads than
+    its replay, bit for bit, with no decision changed."""
 
     def __init__(self):
         self.masks, self.flips, self.mode, self.i = [], 0, None, 0
@@ -859,7 +898,7 @@ class PinnedRelu:
         own = x > 0
         if self.mode == "record":
             self.masks.append(own)
-            return self.relu(x)
+            return x.masked_fill(~own, 0)
         mask = self.masks[self.i]
         self.i += 1
         self.flips += int((own != mask).sum())
@@ -880,6 +919,46 @@ class PinnedRelu:
             torch.relu = self.relu
         check(mode == "record" or self.i == len(self.masks),
               f"pinned relu: {self.i} calls replayed, {len(self.masks)} recorded")
+        return out
+
+
+class PinnedSampler:
+    """A renderer's sampler whose samples are shared across runs of a step.
+    ``run(fn)`` puts it in the renderer's place for ``fn``: the first run
+    keeps every call's (starts, ends) in call order; every later run gets
+    the kept samples back, and ``moved`` records how far (in depth) its own
+    sampler's would lie from them. The error-bounded sampler's bisection
+    and inverse-CDF draws follow the sdf, which the kernel and plain paths
+    round differently; with one set of samples both compute one smooth
+    function of the parameters, and their grads part only by rounding."""
+
+    def __init__(self, renderer):
+        self.renderer, self.inner, self.samples = renderer, renderer.sampler, []
+
+    def __getattr__(self, name):
+        if name.startswith("__") or name == "inner":
+            raise AttributeError(name)
+        return getattr(self.inner, name)
+
+    def __call__(self, *args, **kwargs):
+        own = self.inner(*args, **kwargs)
+        if not self.replay:
+            self.samples.append(own)
+            return own
+        kept = self.samples[self.i]
+        self.i += 1
+        self.moved = max([self.moved] + [(a - b).abs().max().item() for a, b in zip(own, kept)])
+        return kept
+
+    def run(self, fn):
+        self.replay, self.i, self.moved = bool(self.samples), 0, 0.0
+        self.renderer.sampler = self
+        try:
+            out = fn()
+        finally:
+            self.renderer.sampler = self.inner
+        check(not self.replay or self.i == len(self.samples),
+              f"pinned samples: {self.i} calls replayed, {len(self.samples)} kept")
         return out
 
 
@@ -934,7 +1013,8 @@ def tightest_margins_line(tag, margins, rho, reference, k=3):
 
 
 def grads_kernel_vs_plain(tag, gmodel, inputs, expect, loss_rel, grad_rel,
-                          loss_spread, reference="reordered", pin_relu=False):
+                          loss_spread, reference="reordered", pin_relu=False,
+                          pin_samples=False):
     """Two runs of each path, and one reference run that measures the f32
     rounding a gradient carries. The step is reproducible (cuDNN
     deterministic, every sum in a fixed order), so the two runs of a path
@@ -965,7 +1045,8 @@ def grads_kernel_vs_plain(tag, gmodel, inputs, expect, loss_rel, grad_rel,
     an activation within rounding of 0 cannot switch a gradient on in one
     path and off in another; the line says how many decisions each run's
     own forward would have made otherwise, and the kernel path may make
-    at most 3x as many as the reference run."""
+    at most 3x as many as the reference run. With ``pin_samples`` every
+    run renders the first plain run's ray samples (``PinnedSampler``)."""
     import torch
 
     from ponderv2_tpu_torch.ops import band_conv as bc
@@ -976,19 +1057,27 @@ def grads_kernel_vs_plain(tag, gmodel, inputs, expect, loss_rel, grad_rel,
                        "band_dw_core": reordered_dw}
     pin = PinnedRelu()
     flips = {}
+    pinned = PinnedSampler(gmodel.renderer) if pin_samples else None
+    moved = {}
 
     def run(fn, name=None):
+        if pinned is not None:
+            fn = (lambda f: lambda: pinned.run(f))(fn)
         if not pin_relu:
-            return fn()
-        out = pin.run("replay" if pin.masks else "record", fn)
-        if name is not None:
-            flips[name] = pin.flips
+            out = fn()
+        else:
+            out = pin.run("replay" if pin.masks else "record", fn)
+            if name is not None:
+                flips[name] = pin.flips
+        if pinned is not None and name is not None:
+            moved[name] = pinned.moved
         return out
 
     def plain_runs():
         return [run(lambda: step_grads(gmodel, inputs, plain_cores)) for _ in range(2)]
 
-    plain = plain_runs() if pin_relu else None  # the record comes first
+    # the record comes first
+    plain = plain_runs() if pin_relu or pin_samples else None
     kern = [run(lambda: step_grads(gmodel, inputs), "kernel") for _ in range(2)]
     plain = plain or plain_runs()
     (loss_k, grads_k, launched_k, secs_k), (loss_p, grads_p, launched_p, secs_p) = (
@@ -1041,6 +1130,11 @@ def grads_kernel_vs_plain(tag, gmodel, inputs, expect, loss_rel, grad_rel,
         check(flips["kernel"] <= 3 * max(flips[reference], 1),
               f"{tag}: the kernel path's relus decide {flips['kernel']} elements otherwise, "
               f"the {reference} run's {flips[reference]}")
+    if pin_samples:
+        print(f"[grad] {tag}: every run renders the first plain run's ray samples "
+              f"({len(pinned.samples)} sampler calls); each run's own sampler would move "
+              "them by up to (depth): " + ", ".join(f"{k} {v:.3e}" for k, v in moved.items()),
+              flush=True)
     print(tightest_margins_line(tag, margins, rho, reference), flush=True)
     for m, name, against, err, scale, spread in margins:
         check(m <= 1.0, f"{tag}: grad {name}: kernel vs {against} {err:.3e} > {grad_rel} x "
@@ -2631,6 +2725,508 @@ def classifier_phase(dev, tmp, gen, stats):
     return out
 
 
+def origin_recipe(data_root, save_path):
+    """``ORIGIN_CONFIG`` on scenes under ``data_root``: its data roots, one
+    epoch with one evaluation, no weight, the save path; the scene cache on
+    for the train and val sets, filled by ``DataCacheOperator`` before
+    training; the val pipeline with ``Copy`` of coord and segment before
+    ``GridSample`` and ``Collect`` keeping both with their offset. Model,
+    criteria, optimizer, transforms, batch and budgets stay the recipe's."""
+    from ponderv2_tpu_torch.engines.defaults import default_config_parser
+
+    cfg = default_config_parser(ORIGIN_CONFIG, {
+        "data.train.data_root": data_root, "data.val.data_root": data_root,
+        "data.test.data_root": data_root, "epoch": 1, "eval_epoch": 1, "weight": None,
+        "save_path": save_path})
+    for split in ("train", "val"):
+        cfg.data[split]["cache"] = True
+    val = list(cfg.data.val.transform)
+    check(val[0]["type"] == "CenterShift" and val[1]["type"] == "GridSample"
+          and val[-1]["type"] == "Collect", f"the recipe's val pipeline {val}")
+    collect = dict(val[-1])
+    collect["keys"] = tuple(collect["keys"]) + ("origin_coord", "origin_segment")
+    collect["offset_keys_dict"] = dict(offset="coord", origin_offset="origin_coord")
+    cfg.data.val.transform = ([val[0], dict(type="Copy", keys_dict=dict(
+        coord="origin_coord", segment="origin_segment"))] + val[1:-1] + [collect])
+    # after Copy only CenterShift moves coord, and it moves origin_coord too
+    check([t["type"] for t in val[1:-1]] == ["GridSample", "CenterShift", "NormalizeColor"],
+          f"a transform after Copy: {[t['type'] for t in val[1:-1]]}")
+    cfg.hooks = [dict(type="DataCacheOperator", data_root=data_root, split="train")] + list(
+        cfg.hooks)
+    return cfg
+
+
+def tie_tolerance(q64, ref_sq_max):
+    """Per query: how far apart two squared distances may come out of the
+    expanded form by rounding, ``NEAR_TIE`` of |q|^2 + the largest |r|^2."""
+    return NEAR_TIE * ((q64 ** 2).sum(1) + ref_sq_max)
+
+
+def direct_tie_tolerance(q64, ref_norm_max, d2):
+    """Per query: the same for the direct form at squared distances up to
+    ``d2``, ``NEAR_TIE`` of 2 d (|q| + the largest |r|) + d^2."""
+    import numpy as np
+
+    return NEAR_TIE * (2 * np.sqrt(d2) * (np.sqrt((q64 ** 2).sum(1)) + ref_norm_max) + d2)
+
+
+def origin_eval_phase(dev, tmp, gen):
+    """Phase 21 (a): the ScanNet recipe evaluated on the original points,
+    with its scenes cached in shared memory. Returns the first val scene's
+    voxel rows and original points, for (b)."""
+    import numpy as np
+    import torch
+    from scipy.spatial import cKDTree
+
+    from ponderv2_tpu_torch.datasets.defaults import load_scene, scene_cache_name
+    from ponderv2_tpu_torch.engines.hooks import HookBase
+    from ponderv2_tpu_torch.engines.hooks import evaluator as ev
+    from ponderv2_tpu_torch.utils import cache
+    from ponderv2_tpu_torch.utils.misc import intersection_and_union
+
+    tag = "origin"
+    data_root = os.path.join(tmp, "origin_scannet")
+    t0 = time.perf_counter()
+    write_scannet_scenes(data_root, ORIGIN_TRAIN_SCENES, ORIGIN_VAL_SCENES)
+    print(f"[{tag}] wrote {ORIGIN_TRAIN_SCENES} train + {ORIGIN_VAL_SCENES} val scenes of "
+          f"100,000 points in ScanNet's layout in {time.perf_counter() - t0:.1f} s")
+    cfg = origin_recipe(data_root, os.path.join(tmp, "origin_train"))
+    cfg.seed = SEED
+    cfg.device = str(dev)
+    seen = {"val": [], "knn": []}
+
+    class Recorder(HookBase):
+        """Keeps each val forward's predictions and batch, and, after the
+        step, the run's key, its segments and every cached train scene
+        checked against its file."""
+
+        def before_train(self):
+            trainer = self.trainer
+            eval_step = trainer.eval_step
+
+            def recorded(input_dict):
+                out = eval_step(input_dict)  # the evaluator's own argmax
+                seen["val"].append(dict(
+                    batch=input_dict, pred=out["seg_logits"].float().cpu().numpy().argmax(-1)))
+                return out
+
+            trainer.eval_step = recorded
+
+        def after_step(self):
+            trainer = self.trainer
+            ds = trainer.train_loader.dataset.dataset
+            run = trainer.cache_run
+            equal = []
+            for path in ds.data_list:
+                cached = cache.shared_dict(scene_cache_name(ds.data_root, path), run=run)
+                scene = load_scene(path)
+                equal.append(sorted(cached) == sorted(scene) and all(
+                    np.array_equal(cached[k], scene[k]) for k in scene))
+            seen.update(run=run, segments=cache.segments(run), equal=equal)
+
+    knn = ev.knn_query
+
+    def recorded_knn(k, ref, ref_b, q, q_b, *args, **kwargs):
+        if q.is_cuda:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        idx, d2 = knn(k, ref, ref_b, q, q_b, *args, **kwargs)
+        if q.is_cuda:
+            torch.cuda.synchronize()
+        seen["knn"].append(dict(ms=1e3 * (time.perf_counter() - t), idx=idx.cpu().numpy(),
+                                d2=d2.cpu().numpy(), device=q.device.type,
+                                dtype=str(q.dtype), n_ref=len(ref)))
+        return idx, d2
+
+    cfg.hooks = [dict(type=Recorder)] + list(cfg.hooks)
+    ev.knn_query = recorded_knn
+    try:
+        run = train_and_check(tag, cfg, dev, steps_expected=1)
+    finally:
+        ev.knn_query = knn
+    n_train = len(seen.get("equal", []))
+    check(n_train == ORIGIN_TRAIN_SCENES and all(seen["equal"]),
+          f"{tag}: {sum(seen.get('equal', []))} of {n_train} cached train scenes equal "
+          "their files")
+    print(f"[{tag}] DataCacheOperator cached the {n_train} train scenes (each equal to its "
+          f"file); {len(seen['segments'])} segments of run {seen['run']} in /dev/shm after "
+          f"the step")
+    left = cache.segments(seen["run"])
+    check(not left and not os.path.exists(cache._manifest_dir(seen["run"])),
+          f"{tag}: {len(left)} segments of the run left in /dev/shm")
+    print(f"[{tag}] after training: no segment of the run left in /dev/shm and no manifest "
+          "in the temporary directory")
+
+    # ---- the projection against an exact float64 search, and val/mIoU
+    check(len(seen["val"]) == len(seen["knn"]) == ORIGIN_VAL_SCENES,
+          f"{tag}: {len(seen['val'])} val forwards, {len(seen['knn'])} projections")
+    num_classes, ignore = cfg.data.num_classes, cfg.data.ignore_index
+    sums = [np.zeros(num_classes) for _ in range(3)]
+    exact_sums = [np.zeros(num_classes) for _ in range(3)]
+    scene0 = None
+    for i, (val, knn_out) in enumerate(zip(seen["val"], seen["knn"])):
+        batch = val["batch"]
+        check(knn_out["device"] == "cuda", f"{tag}: the projection ran on the "
+              f"{knn_out['device']}")
+        coord, b = np.asarray(batch["coord"]), np.asarray(batch["batch"])
+        origin, ob = np.asarray(batch["origin_coord"]), np.asarray(batch["origin_batch"])
+        live = b >= 0
+        check(set(np.unique(b[live])) == {0} and set(np.unique(ob)) == {0},
+              f"{tag}: val batch {i} holds more than one scene")
+        rows = coord[live].astype(np.float64)
+        pts = origin.astype(np.float64)
+        # one frame: every voxel row is one of the scene's original points
+        d_frame, _ = cKDTree(pts).query(rows, k=1)
+        check(float(d_frame.max()) == 0.0, f"{tag}: a voxel row lies {d_frame.max():.3e} m "
+              "from every original point (frames differ)")
+        dist, hidx = cKDTree(rows).query(pts, k=2)
+        d2 = dist ** 2
+        host = hidx[:, 0]  # into the live rows, as the evaluator's search
+        pred = val["pred"][live]
+        check(knn_out["dtype"] == "torch.float32" and knn_out["n_ref"] == len(rows),
+              f"{tag}: the projection ran in {knn_out['dtype']} against {knn_out['n_ref']} "
+              f"rows ({len(rows)} live)")
+        # the evaluator's projection (f32, the direct form), and for the
+        # record the expanded form on the same f32 inputs
+        zero = torch.zeros(len(origin), dtype=torch.int32, device=dev)
+        expanded = ev.knn_query(
+            1, torch.as_tensor(rows, dtype=torch.float32, device=dev), zero[:len(rows)],
+            torch.as_tensor(origin, dtype=torch.float32, device=dev), zero)[0][:, 0]
+        forms = (("direct (the evaluator's)", knn_out["idx"][:, 0],
+                  direct_tie_tolerance(pts, float(np.sqrt((rows ** 2).sum(1)).max()),
+                                       d2[:, 1])),
+                 ("expanded", expanded.cpu().numpy(),
+                  tie_tolerance(pts, float((rows ** 2).sum(1).max()))))
+        notes = []
+        for form, idx, tol in forms:
+            tie = (d2[:, 1] - d2[:, 0]) <= tol
+            wrong = (idx != host) & ~tie
+            check(not wrong.any(), f"{tag}: val scene {i}: {form} form: {int(wrong.sum())} "
+                  "points project to another voxel than the exact search, away from "
+                  "near-ties")
+            notes.append(f"{form} form {int((idx != host).sum())} other voxels, all at "
+                         f"near-ties ({int(tie.sum())} near-ties, tolerance up to "
+                         f"{tol.max():.2e} m^2), {int((pred[idx] != pred[host]).sum())} "
+                         "labels changed by them")
+        port = knn_out["idx"][:, 0]
+        d2_err = np.abs(knn_out["d2"][:, 0] - d2[:, 0])
+        print(f"[{tag}] val scene {i}: {len(rows)} voxels ({len(coord)} rows with the "
+              f"padding), {len(origin)} original points ({origin.dtype} in the batch, f32 in "
+              f"the projection); projection {knn_out['ms']:.1f} ms on the card; against the "
+              "exact float64 search: " + "; ".join(notes) + "; the evaluator's sqdist error "
+              f"max {d2_err.max():.2e} m^2 (negative sqdist "
+              f"{int((knn_out['d2'][:, 0] < 0).sum())})")
+        segment = np.asarray(batch["origin_segment"])
+        valid = ob >= 0
+        for s, lab in ((sums, pred[port]), (exact_sums, pred[host])):
+            out = intersection_and_union(np.where(valid, lab, ignore),
+                                         np.where(valid, segment, ignore), num_classes, ignore)
+            for acc, x in zip(s, out):
+                acc += x
+        if scene0 is None:
+            scene0 = dict(coord=coord[live], origin_coord=origin)
+    m_iou = float(np.mean(sums[0] / (sums[1] + 1e-10)))
+    exact_iou = float(np.mean(exact_sums[0] / (exact_sums[1] + 1e-10)))
+    stored = run.val_scalars["val/mIoU"]
+    check(abs(stored - m_iou) <= 1e-12, f"{tag}: stored val/mIoU {stored} != {m_iou} "
+          "computed on the host from the projected labels")
+    print(f"[{tag}] val/mIoU {stored:.6f} over the original points, equal to the host's "
+          f"from the projected labels; {exact_iou:.6f} through the exact search")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return scene0
+
+
+def pointops_phase(dev, scene):
+    """Phase 21 (b): ``ops/pointops`` on one val scene's original points
+    (queries) and voxel rows (refs), each call against float64 on the host,
+    with its ms (CUDA events, median of 3 calls after one more)."""
+    import numpy as np
+    import torch
+    from scipy.spatial import cKDTree
+
+    from ponderv2_tpu_torch.ops import pointops as po
+
+    tag = "pointops"
+    # in f32, as a model's point features and the evaluator's projection are
+    # (the val batches' coordinates come out of CenterShift in float64)
+    ref = torch.as_tensor(scene["coord"], dtype=torch.float32, device=dev)
+    q = torch.as_tensor(scene["origin_coord"], dtype=torch.float32, device=dev)
+    ref64 = ref.cpu().numpy().astype(np.float64)
+    q64 = q.cpu().numpy().astype(np.float64)
+    rb = torch.zeros(len(ref), dtype=torch.int32, device=dev)
+    qb = torch.zeros(len(q), dtype=torch.int32, device=dev)
+    n_ref, n_q = len(ref), len(q)
+    ref_sq_max = float((ref64 ** 2).sum(1).max())
+    tree = cKDTree(ref64)
+    out = {}
+
+    def timed(name, fn, reps=3):
+        fn()
+        times = []
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        out[name] = float(np.median(times))
+        return res
+
+    # ---- knn_query, k = 1 and 16, and k = 1 in the direct form (the
+    # evaluator's projection)
+    dist, hidx = tree.query(q64, k=17)
+    d2 = dist ** 2
+    for k, direct in ((1, False), (16, False), (1, True)):
+        name = f"knn_query k={k}" + (" direct" if direct else "")
+        tol = (direct_tie_tolerance(q64, float(np.sqrt((ref64 ** 2).sum(1)).max()), d2[:, k])
+               if direct else tie_tolerance(q64, ref_sq_max))
+        idx, sq = timed(name, lambda: po.knn_query(k, ref, rb, q, qb, direct=direct))
+        idx, sq = idx.cpu().numpy(), sq.cpu().numpy().astype(np.float64)
+        gaps = np.diff(d2, axis=1)  # (n_q, 16): rank j to j + 1
+        tie_lo = np.concatenate([np.zeros((n_q, 1), bool), gaps[:, :k - 1] <= tol[:, None]], 1)
+        tie_hi = gaps[:, :k] <= tol[:, None]
+        free = ~(tie_lo | tie_hi)
+        wrong = (idx != hidx[:, :k]) & free
+        d_err = np.abs(sq - d2[:, :k]) - tol[:, None]
+        check(not wrong.any() and (d_err <= 0).all(),
+              f"{tag}: {name}: {int(wrong.sum())} indices off the exact search away "
+              f"from near-ties, sqdist beyond tolerance {int((d_err > 0).sum())}")
+        print(f"[pointops] {name}, {n_q} queries against {n_ref} refs: "
+              f"{out[name]:.2f} ms a call; against float64: "
+              f"{int((idx != hidx[:, :k]).sum())} indices differ, all at near-ties "
+              f"({int((~free).sum())} near-tied ranks, tolerance up to {tol.max():.2e} m^2); "
+              "sqdist within tolerance")
+    tol = tie_tolerance(q64, ref_sq_max)
+    knn16 = torch.as_tensor(hidx[:, :16].astype(np.int32), device=dev)
+
+    # ---- ball_query: 5 cm, 16 samples; the host check on 10k queries. A
+    # ref within rounding of the sphere, or of the query itself (min_radius
+    # 0: a d^2 of 0 may round below it and drop out, as in JAX), may be
+    # taken or not; every other ref must be, if its index comes in turn
+    radius, nsample, m = 0.05, 16, 10_000
+    idx, sq = timed("ball_query", lambda: po.ball_query(radius, nsample, ref, rb, q, qb))
+    idx = idx.cpu().numpy()
+    near = tree.query_ball_point(q64[:m], radius * 1.001)
+    loose = 0
+    for i, cand in enumerate(near):
+        row = idx[i]
+        n_hit = 1 + int(np.argmax(np.append(np.diff(row) <= 0, True)))
+        hits = row[:n_hit]
+        d_hit = ((ref64[hits] - q64[i]) ** 2).sum(1)
+        cand = np.sort(np.asarray(cand, np.int64))
+        dc = ((ref64[cand] - q64[i]) ** 2).sum(1)
+        clear = cand[(dc > tol[i]) & (dc < radius ** 2 - tol[i])]
+        loose += int(len(clear) < len(cand))
+        if not len(hits) or (d_hit > radius ** 2 + tol[i]).any():
+            # no ref in radius: every entry ref 0, as the JAX function gives
+            check(len(clear) == 0 and (row == 0).all(),
+                  f"{tag}: ball_query query {i}: {row} with in-radius refs {clear[:5]}")
+            continue
+        full = n_hit == nsample
+        want = clear[clear <= hits[-1]] if full else clear
+        check((row[n_hit:] == row[0]).all() and np.isin(want, hits).all(),
+              f"{tag}: ball_query query {i}: {row} leaves out {np.setdiff1d(want, hits)[:5]}")
+    print(f"[pointops] ball_query r={radius} nsample={nsample}, {n_q} queries: "
+          f"{out['ball_query']:.2f} ms a call; each of the first {m}: every hit in radius "
+          f"and in index order, no ref clearly in radius passed over, the fill the first "
+          f"hit ({loose} with a ref within rounding of the sphere or the query)")
+
+    # ---- farthest_point_sampling: 4096 of the 100k points
+    n_fps = 4096
+    mask = torch.ones(n_q, dtype=torch.bool, device=dev)
+    picks = timed("farthest_point_sampling", lambda: po.farthest_point_sampling(q, mask, n_fps),
+                  reps=1).cpu().numpy()
+    check(picks[0] == 0 and len(np.unique(picks)) == n_fps, f"{tag}: FPS picks {picks[:5]}")
+    far = np.full(n_q, np.inf)
+    agree, worst = 0, 0.0
+    for i in range(1, n_fps):
+        far = np.minimum(far, ((q64 - q64[picks[i - 1]]) ** 2).sum(1))
+        top = far.max()
+        worst = max(worst, (top - far[picks[i]]) / top)
+        agree += int(np.argmax(far) == picks[i])
+    check(worst <= 1e-5, f"{tag}: an FPS pick lies {worst:.2e} of the farthest distance short")
+    print(f"[pointops] farthest_point_sampling {n_fps} of {n_q}: "
+          f"{out['farthest_point_sampling']:.1f} ms a call; each pick within {worst:.1e} of "
+          f"the float64 farthest ({agree} of {n_fps - 1} the very argmax)")
+
+    # ---- interpolation of 32 channels from the voxels onto the points
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    feat = torch.randn(n_ref, 32, generator=g, device=dev)
+    res = timed("interpolation", lambda: po.interpolation(ref, rb, q, qb, feat))
+    idx3, sq3 = po.knn_query(3, ref, rb, q, qb)
+    w = 1.0 / (np.sqrt(np.maximum(sq3.cpu().numpy().astype(np.float64), 0.0)) + 1e-8)
+    w /= w.sum(1, keepdims=True)
+    f64 = feat.cpu().numpy().astype(np.float64)
+    want = (f64[idx3.cpu().numpy()] * w[..., None]).sum(1)
+    err = np.abs(res.cpu().numpy() - want).max() / np.abs(want).max()
+    check(err <= 1e-5, f"{tag}: interpolation {err:.2e} of max|ref| off float64")
+    we = 1.0 / (dist[:, :3] + 1e-8)
+    we /= we.sum(1, keepdims=True)
+    exact = (f64[hidx[:, :3]] * we[..., None]).sum(1)
+    print(f"[pointops] interpolation k=3, 32 channels onto {n_q} points: "
+          f"{out['interpolation']:.2f} ms a call; {err:.1e} of max|ref| off float64 on its "
+          f"neighbours and distances; {np.abs(res.cpu().numpy() - exact).max():.2e} off the "
+          "exact float64 search's")
+
+    # ---- grouping and its backward over the 16 nearest
+    feat.requires_grad_(True)
+    cot = torch.randn(n_q, 16, 32, generator=g, device=dev)
+
+    def group():
+        feat.grad = None
+        grouped = po.grouping(feat, knn16)
+        grouped.backward(cot)
+        return grouped
+
+    grouped = timed("grouping fwd+bwd", group)
+    idx16 = hidx[:, :16]
+    check(torch.equal(grouped.detach(), feat.detach()[knn16.long()]),
+          f"{tag}: grouping's rows")
+    want = np.zeros((n_ref, 32))
+    np.add.at(want, idx16.reshape(-1), cot.cpu().numpy().astype(np.float64).reshape(-1, 32))
+    err = np.abs(feat.grad.cpu().numpy() - want).max() / np.abs(want).max()
+    check(err <= 1e-5, f"{tag}: grouping's backward {err:.2e} of max|ref| off float64")
+    print(f"[pointops] grouping 16 x 32 onto {n_q} points, forward + backward: "
+          f"{out['grouping fwd+bwd']:.2f} ms a call; rows equal, the backward's sums "
+          f"{err:.1e} of max|ref| off float64")
+    feat.requires_grad_(False)
+
+    # ---- the attention steps over the 16-nearest edges
+    it = torch.arange(n_q, device=dev, dtype=torch.int32).repeat_interleave(16)
+    ir = knn16.reshape(-1)
+    qv = torch.randn(n_q, 16, generator=g, device=dev)
+    kv = torch.randn(n_ref, 16, generator=g, device=dev)
+    wr = torch.randn(16, generator=g, device=dev)
+    wf = torch.randn(len(it), 16, generator=g, device=dev)
+    rel = timed("attention_relation_step",
+                lambda: po.attention_relation_step(qv, kv, wr, it, ir))
+    fus = timed("attention_fusion_step",
+                lambda: po.attention_fusion_step(wf, kv, it, ir, n_q))
+    it_h, ir_h = it.cpu().numpy(), idx16.reshape(-1)
+    want = (qv.cpu().numpy().astype(np.float64)[it_h] * kv.cpu().numpy().astype(np.float64)[ir_h]
+            * wr.cpu().numpy().astype(np.float64))
+    err_r = np.abs(rel.cpu().numpy() - want).max() / np.abs(want).max()
+    want = np.zeros((n_q, 16))
+    np.add.at(want, it_h, wf.cpu().numpy().astype(np.float64)
+              * kv.cpu().numpy().astype(np.float64)[ir_h])
+    err_f = np.abs(fus.cpu().numpy() - want).max() / np.abs(want).max()
+    check(err_r <= 1e-6 and err_f <= 1e-5,
+          f"{tag}: attention steps {err_r:.2e} / {err_f:.2e} of max|ref| off float64")
+    print(f"[pointops] attention_relation_step / attention_fusion_step over {len(it)} edges, "
+          f"16 channels: {out['attention_relation_step']:.2f} / "
+          f"{out['attention_fusion_step']:.2f} ms a call; {err_r:.1e} / {err_f:.1e} of "
+          "max|ref| off float64")
+    return out
+
+
+def with_compute_dtype(cfg, dtype):
+    """A copy of the model config ``cfg`` with every ``compute_dtype`` set
+    to ``dtype``."""
+    if isinstance(cfg, dict):
+        return {k: dtype if k == "compute_dtype" else with_compute_dtype(v, dtype)
+                for k, v in cfg.items()}
+    if isinstance(cfg, (list, tuple)):
+        return type(cfg)(with_compute_dtype(v, dtype) for v in cfg)
+    return cfg
+
+
+def render_extras_phase(dev, tmp, p_step):
+    """Phase 21 (c): the VolSDF pretrain (9's workload with ``VolSDFModel``
+    and ``ErrorBoundedSampler`` at its defaults): 3 steps, each step's K1-K3
+    launches 9's routing ``p_step``, ``contract_ok`` and finite losses; one
+    step's grads kernel vs plain at 11's bound with the same draws, the
+    first plain run's ray samples and its relu decisions, in bf16 and in
+    f32; then one step of ``NeuSModel`` with ``UniSurfSampler``. Returns
+    the step times."""
+    import numpy as np
+    import torch
+
+    from ponderv2_tpu_torch.engines.common import split_batch
+    from ponderv2_tpu_torch.engines.defaults import default_config_parser
+    from ponderv2_tpu_torch.models import build_model
+    from ponderv2_tpu_torch.ops import band_conv as bc
+    from ponderv2_tpu_torch.ops import windowed_gather as wg
+    from train_torch import main_worker
+
+    out = {}
+    for tag, renderer, steps in (
+            ("volsdf", dict(type="VolSDFModel", sampler=dict(type="ErrorBoundedSampler")), 3),
+            ("unisurf", dict(type="NeuSModel", sampler=dict(type="UniSurfSampler")), 1)):
+        cfg = default_config_parser(PRETRAIN_CONFIG, {"save_path": os.path.join(tmp, tag)})
+        cfg.seed = SEED
+        cfg.device = "cuda"
+        cfg.model.renderer = dict(cfg.model.renderer, **renderer)
+        cfg.data.train.num_scenes = steps * cfg.batch_size
+        records = {"steps": [], "conditions": []}
+        cfg.hooks = list(cfg.hooks) + [dict(type=step_probe(records))]
+        for k in bc.KERNELS + wg.KERNELS:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        trainer = main_worker(cfg)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        sampler = trainer.model.renderer.sampler
+        check(type(sampler).__name__ == renderer["sampler"]["type"]
+              and type(trainer.model.renderer).__name__ == renderer["type"],
+              f"{tag}: built {type(trainer.model.renderer).__name__} over "
+              f"{type(sampler).__name__}")
+        check(len(records["steps"]) == steps, f"{tag}: {len(records['steps'])} steps")
+        for i, m in enumerate(records["steps"]):
+            terms = {k: m[k] for k in cfg.metric_keys if k in m}
+            print(f"[{tag}] step {i}: loss {m['loss']:.6f} contract_ok {m['contract_ok']} "
+                  f"launches {m['launches']} " + " ".join(f"{k} {v:.4f}"
+                                                         for k, v in terms.items()))
+            check(np.isfinite(m["loss"]) and all(np.isfinite(v) for v in terms.values()),
+                  f"{tag} step {i}: a loss is not finite")
+            check(m["contract_ok"] == 1.0, f"{tag} step {i} contract_ok False")
+            check(m["launches"] == p_step + [0, 0],
+                  f"{tag} step {i} launches {m['launches']} != phase 9's routing {p_step}")
+        batch_times = [v for v, _ in trainer.storage.history("batch_time").values()]
+        data_times = [v for v, _ in trainer.storage.history("data_time").values()]
+        step_ms = [1e3 * (b - d) for b, d in zip(batch_times, data_times)]
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        print(f"[time] {tag} pretrain step at batch {cfg.batch_size} (bf16, "
+              f"{sampler.total_samples()} samples a ray): "
+              f"{', '.join(f'{t:.1f}' for t in step_ms)} ms; {secs:.1f} s in all; peak "
+              f"{peak:.3f} GiB")
+        out[tag] = dict(step_ms=step_ms, peak_gib=peak)
+        if tag == "volsdf":
+            inputs = {k: torch.as_tensor(v, device=dev)
+                      for k, v in split_batch(records["batch"])[0].items()}
+            inputs.update(trainer.static_ctx)
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            B, V, H, W = inputs["depth"].shape
+            draws = None
+            # the config's bf16, and f32 (where the two paths' rounding moves
+            # grads far less, so a wrong kernel shows), each from the same
+            # seeded weights
+            for dtype, label in (("bfloat16", "bf16"), ("float32", "f32")):
+                gmodel = build_model(with_compute_dtype(dict(cfg.model), dtype))
+                gmodel.reset_parameters(torch.Generator().manual_seed(SEED))
+                gmodel.to(dev).train()
+                if draws is None:
+                    draws = gmodel.draw_noise(torch.Generator(device=dev).manual_seed(SEED),
+                                              B, V, H * W)
+                grads_kernel_vs_plain(f"VolSDF pretrain step from the seeded state ({label})",
+                                      gmodel, {**inputs, "draws": draws}, p_step, 3e-2, 3e-2,
+                                      True, pin_relu=True, pin_samples=True)
+                del gmodel
+                gc.collect()
+                torch.cuda.empty_cache()
+            del draws, inputs
+        else:
+            del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def windowed_cases(probe, dev, level_rb, stem):
     """Phase 12's six convs, (label, tap group, rulebook (k3, n) int32 on
     ``dev``, cin, cout): the probe's four shapes (``probe``:
@@ -3238,7 +3834,15 @@ def main() -> int:
         clf = classifier_phase(dev, tmp, gen, cls_stats)
         phase_done("20 SpUNet classifier")
 
-        # ---- 21. output
+        # ---- 21. the modules no recipe names: segmentation evaluated on the
+        # original points, pointops at scene size, the VolSDF / UniSurf renders
+        scene0 = origin_eval_phase(dev, tmp, gen)
+        pointops_ms = pointops_phase(dev, scene0)
+        extras = render_extras_phase(dev, tmp, p_step)
+        del scene0
+        phase_done("21 origin-point evaluation, pointops, VolSDF and UniSurf")
+
+        # ---- 22. output
         print(f"[time] per fine-tune step at batch {tcfg.batch_size} (f32): "
               + "; ".join(f"{name} {stats[name]['ms']:.3f} ms vs plain "
                           f"{stats[name]['plain_ms']:.3f} ms (bound "
@@ -3271,6 +3875,11 @@ def main() -> int:
             print(f"[time] per {label}: " + "; ".join(
                 f"{name} {st[name]['ms']:.3f} ms vs plain {st[name]['plain_ms']:.3f} ms "
                 f"(bound {st[name]['bound_ms']:.3f} ms)" for name in BAND_CORES))
+        print(f"[time] phase 21: pointops ms a call at scene size: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in pointops_ms.items())
+              + "; " + "; ".join(f"{tag} pretrain steps {', '.join(f'{t:.1f}' for t in r['step_ms'])}"
+                                 f" ms, peak {r['peak_gib']:.3f} GiB"
+                                 for tag, r in extras.items()))
         print(f"[time] phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
         print(f"[time] the whole run: {time.perf_counter() - run_start:.1f} s")
 

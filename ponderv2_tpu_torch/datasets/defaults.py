@@ -5,7 +5,14 @@ with RGB-D views for pretraining; no disk assets).
 Copies of ``load_scene``, ``DefaultDataset``, ``ConcatDataset``,
 ``SyntheticDataset``, ``_lookat_world2cam`` and ``SyntheticRGBDDataset``
 from ``ponderv2_tpu/datasets/defaults.py`` with only the import lines
-changed (see ``transform.py`` for why they are copies). Scenes are dicts of
+changed (see ``transform.py`` for why they are copies), but for the scene
+cache's key (ROADMAP Queue 3): with ``cache`` the JAX ``get_data`` names a
+scene ``ponderv2-{basename(data_root)}-{basename(path)}`` in one host-wide
+namespace, so two runs whose data roots share a basename read each other's
+scenes. Here a scene is named after its full data root, under the dataset's
+``cache_run`` key (``utils/cache.py``), which only the trainer sets, to its
+own (``set_cache_run``), and unlinks after training; with ``cache`` and no
+key, ``get_data`` raises. Scenes are dicts of
 numpy arrays (``coord``, ``color``, ``normal``, ``segment``, ...) in
 ``.pth`` (torch pickles of numpy arrays), ``.npz`` or ``.npy`` files.
 """
@@ -13,6 +20,7 @@ numpy arrays (``coord``, ``color``, ``normal``, ``segment``, ...) in
 from __future__ import annotations
 
 import glob
+import hashlib
 import os
 from copy import deepcopy
 from typing import Any, Dict, List, Optional
@@ -39,6 +47,22 @@ def load_scene(path: str) -> Dict[str, np.ndarray]:
     }
 
 
+def scene_cache_name(data_root: str, path: str) -> str:
+    """A scene's name in the run's cache: a digest of its data root's
+    absolute path, and its file name."""
+    root = hashlib.sha1(os.path.abspath(data_root).encode()).hexdigest()[:12]
+    return f"ponderv2-{root}-{os.path.basename(path)}"
+
+
+def set_cache_run(dataset, run: str) -> None:
+    """Give ``dataset`` and the datasets it holds (``ConcatDataset``) the
+    cache key ``run``."""
+    if getattr(dataset, "cache", False):
+        dataset.cache_run = run
+    for inner in getattr(dataset, "datasets", ()):
+        set_cache_run(inner, run)
+
+
 @DATASETS.register_module()
 class DefaultDataset:
     def __init__(
@@ -57,6 +81,7 @@ class DefaultDataset:
         self.test_mode = test_mode
         self.test_cfg = test_cfg if test_mode else None
         self.cache = cache
+        self.cache_run = None
         self.loop = loop if not test_mode else 1
 
         if test_mode:
@@ -88,12 +113,12 @@ class DefaultDataset:
     def get_data(self, idx: int) -> Dict[str, Any]:
         path = self.data_list[idx % len(self.data_list)]
         if self.cache:
-            cache_name = f"ponderv2-{os.path.basename(self.data_root)}-{os.path.basename(path)}"
+            cache_name = scene_cache_name(self.data_root, path)
             try:
-                return dict(shared_dict(cache_name))
+                return dict(shared_dict(cache_name, run=self.cache_run))
             except (AssertionError, FileNotFoundError):
                 data = load_scene(path)
-                return dict(shared_dict(cache_name, data))
+                return dict(shared_dict(cache_name, data, run=self.cache_run))
         return load_scene(path)
 
     def get_data_name(self, idx: int) -> str:

@@ -1,10 +1,15 @@
-"""Data transform pipeline (numpy, host-side): the port's subset.
+"""Data transform pipeline (numpy, host-side).
 
-A copy of the transforms that the ScanNet test and train paths run, taken
-from ``ponderv2_tpu/datasets/transform.py`` with only the import lines changed:
-the JAX package cannot be imported without JAX (its ``utils`` package
-imports ``optax``). Goes away once that package imports lazily.
-``RandomShift`` differs: it also reads a scalar per axis (F10).
+A copy of the transforms of ``ponderv2_tpu/datasets/transform.py`` with only
+the import lines changed: the JAX package cannot be imported without JAX
+(its ``utils`` package imports ``optax``). Goes away once that package
+imports lazily. Three pieces differ, each a fault of the JAX one (ROADMAP
+Queue 3): ``RandomShift`` also reads a scalar per axis (F10); and, so that
+labels can be projected onto the original points (F14), ``_index_points``
+leaves the ``origin_*`` keys that ``Copy`` makes at their full length (as
+the reference's ``index_operator`` leaves every key outside its list), and
+``CenterShift`` moves ``origin_coord`` with ``coord``, so the two stay in
+one frame.
 """
 
 from __future__ import annotations
@@ -60,12 +65,33 @@ class Collect:
 
 
 @TRANSFORMS.register_module()
+class Copy:
+    def __init__(self, keys_dict=None):
+        self.keys_dict = keys_dict or dict(coord="origin_coord", segment="origin_segment")
+
+    def __call__(self, data_dict):
+        for src, dst in self.keys_dict.items():
+            if src in data_dict:
+                data_dict[dst] = copy.deepcopy(data_dict[src])
+        return data_dict
+
+
+@TRANSFORMS.register_module()
 class Add:
     def __init__(self, keys_dict=None):
         self.keys_dict = keys_dict or {}
 
     def __call__(self, data_dict):
         data_dict.update(copy.deepcopy(self.keys_dict))
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class ToTensor:
+    """No-op in the numpy pipeline (arrays go to device at collate); kept for
+    config parity with the reference."""
+
+    def __call__(self, data_dict):
         return data_dict
 
 
@@ -115,6 +141,8 @@ class CenterShift:
         x_max, y_max, _ = coord.max(axis=0)
         shift = [(x_min + x_max) / 2, (y_min + y_max) / 2, z_min if self.apply_z else 0]
         data_dict["coord"] = coord - shift
+        if "origin_coord" in data_dict:  # F14: the original points in coord's frame
+            data_dict["origin_coord"] = data_dict["origin_coord"] - shift
         _update_cameras(data_dict, self.keys, _mat4_translate(-np.asarray(shift)))
         return data_dict
 
@@ -149,6 +177,19 @@ class PositiveShift:
         mins = data_dict["coord"].min(axis=0)
         data_dict["coord"] = data_dict["coord"] - mins
         _update_cameras(data_dict, self.keys, _mat4_translate(-mins))
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class NormalizeCoord:
+    """Center by centroid, scale by max radius (reference transform.py:124-149)."""
+
+    def __call__(self, data_dict):
+        coord = data_dict["coord"]
+        centroid = coord.mean(axis=0)
+        coord = coord - centroid
+        scale = np.max(np.sqrt(np.sum(coord**2, axis=1)))
+        data_dict["coord"] = coord / max(scale, 1e-12)
         return data_dict
 
 
@@ -221,9 +262,13 @@ class NormalizeColor:
 
 
 def _index_points(data_dict, idx):
+    """Index every per-point array but the ``origin_*`` ones, which keep the
+    original points whatever is sampled (F14: the JAX function subsamples
+    them too, so a projection onto them is the identity)."""
     n = len(data_dict["coord"])
     for k, v in data_dict.items():
-        if isinstance(v, np.ndarray) and v.ndim >= 1 and v.shape[0] == n:
+        if (isinstance(v, np.ndarray) and v.ndim >= 1 and v.shape[0] == n
+                and not k.startswith("origin_")):
             data_dict[k] = v[idx]
     return data_dict
 
@@ -431,6 +476,32 @@ class RandomJitter:
 
 
 @TRANSFORMS.register_module()
+class ClipGaussianJitter:
+    def __init__(self, scalar=0.02):
+        self.scalar = scalar
+        self.quantile = 1.96
+
+    def __call__(self, data_dict):
+        noise = np.random.randn(*data_dict["coord"].shape)
+        noise = np.clip(noise, -self.quantile, self.quantile) / self.quantile
+        data_dict["coord"] = data_dict["coord"] + self.scalar * noise
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class PointClip:
+    def __init__(self, point_cloud_range=(-80, -80, -3, 80, 80, 1)):
+        self.range = point_cloud_range
+
+    def __call__(self, data_dict):
+        data_dict["coord"] = np.clip(
+            data_dict["coord"],
+            a_min=self.range[:3], a_max=self.range[3:],
+        )
+        return data_dict
+
+
+@TRANSFORMS.register_module()
 class RandomDropout:
     def __init__(self, dropout_ratio=0.2, dropout_application_ratio=0.5):
         self.ratio = dropout_ratio
@@ -521,6 +592,106 @@ class ChromaticJitter:
 
 
 @TRANSFORMS.register_module()
+class RandomColorGrayScale:
+    def __init__(self, p=0.1):
+        self.p = p
+
+    def __call__(self, data_dict):
+        if "color" in data_dict and np.random.rand() < self.p:
+            gray = data_dict["color"] @ np.array([0.299, 0.587, 0.114])
+            data_dict["color"] = np.stack([gray] * 3, axis=-1)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class RandomColorJitter:
+    """Brightness/contrast/saturation/hue jitter on [0,255] colors."""
+
+    def __init__(self, brightness=0.4, contrast=0.4, saturation=0.2, hue=0.02, p=0.95):
+        self.brightness, self.contrast = brightness, contrast
+        self.saturation, self.hue = saturation, hue
+        self.p = p
+
+    def __call__(self, data_dict):
+        if "color" not in data_dict:
+            return data_dict
+        color = data_dict["color"].astype(np.float32)
+        if np.random.rand() < self.p:
+            color = color * np.random.uniform(1 - self.brightness, 1 + self.brightness)
+        if np.random.rand() < self.p:
+            mean = color.mean()
+            color = (color - mean) * np.random.uniform(
+                1 - self.contrast, 1 + self.contrast
+            ) + mean
+        if np.random.rand() < self.p:
+            gray = (color @ np.array([0.299, 0.587, 0.114]))[:, None]
+            color = (color - gray) * np.random.uniform(
+                1 - self.saturation, 1 + self.saturation
+            ) + gray
+        data_dict["color"] = np.clip(color, 0, 255)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class RandomColorDrop:
+    def __init__(self, p=0.2, color_augment=0.0):
+        self.p, self.color_augment = p, color_augment
+
+    def __call__(self, data_dict):
+        if "color" in data_dict and np.random.rand() < self.p:
+            data_dict["color"] = data_dict["color"] * self.color_augment
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class HueSaturationTranslation:
+    def __init__(self, hue_max=0.5, saturation_max=0.2):
+        self.hue_max, self.saturation_max = hue_max, saturation_max
+
+    @staticmethod
+    def _rgb_to_hsv(rgb):
+        hsv = np.zeros_like(rgb)
+        maxc = rgb.max(-1)
+        minc = rgb.min(-1)
+        v = maxc
+        delta = maxc - minc
+        s = np.where(maxc > 0, delta / np.maximum(maxc, 1e-12), 0)
+        dr = np.where(delta > 0, (rgb[..., 0] == maxc) * ((rgb[..., 1] - rgb[..., 2]) / np.maximum(delta, 1e-12)), 0)
+        dg = np.where(delta > 0, (rgb[..., 1] == maxc) * (2.0 + (rgb[..., 2] - rgb[..., 0]) / np.maximum(delta, 1e-12)), 0)
+        db = np.where(delta > 0, (rgb[..., 2] == maxc) * (4.0 + (rgb[..., 0] - rgb[..., 1]) / np.maximum(delta, 1e-12)), 0)
+        h = (dr + dg + db) / 6.0 % 1.0
+        hsv[..., 0], hsv[..., 1], hsv[..., 2] = h, s, v
+        return hsv
+
+    @staticmethod
+    def _hsv_to_rgb(hsv):
+        h, s, v = hsv[..., 0], hsv[..., 1], hsv[..., 2]
+        i = (h * 6).astype(int)
+        f = h * 6 - i
+        p = v * (1 - s)
+        q = v * (1 - f * s)
+        t = v * (1 - (1 - f) * s)
+        i = i % 6
+        out = np.zeros_like(hsv)
+        lut = [(v, t, p), (q, v, p), (p, v, t), (p, q, v), (t, p, v), (v, p, q)]
+        for k, (r, g, b) in enumerate(lut):
+            m = i == k
+            out[..., 0][m], out[..., 1][m], out[..., 2][m] = r[m], g[m], b[m]
+        return out
+
+    def __call__(self, data_dict):
+        if "color" not in data_dict:
+            return data_dict
+        hsv = self._rgb_to_hsv(data_dict["color"] / 255.0)
+        hsv[..., 0] = (hsv[..., 0] + (np.random.rand() - 0.5) * 2 * self.hue_max) % 1.0
+        hsv[..., 1] = np.clip(
+            hsv[..., 1] + (np.random.rand() - 0.5) * 2 * self.saturation_max, 0, 1
+        )
+        data_dict["color"] = np.clip(self._hsv_to_rgb(hsv) * 255.0, 0, 255)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
 class SphereCrop:
     def __init__(self, point_max=80000, sample_rate=None, mode="random"):
         self.point_max = point_max
@@ -585,6 +756,14 @@ class ShufflePoint:
 
 
 @TRANSFORMS.register_module()
+class CropBoundary:
+    def __call__(self, data_dict):
+        segment = data_dict["segment"]
+        keep = (segment != 0) & (segment != 1)
+        return _index_points(data_dict, np.where(keep)[0])
+
+
+@TRANSFORMS.register_module()
 class InstanceParser:
     """Derive per-instance centroids/bboxes for instance-seg training
     (reference transform.py:1387-1431)."""
@@ -616,6 +795,22 @@ class InstanceParser:
         data_dict["instance"] = instance
         data_dict["instance_centroid"] = centroid.astype(np.float32)
         data_dict["bbox"] = bbox.astype(np.float32)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class ContrastiveViewsGenerator:
+    def __init__(self, view_keys=("coord", "color", "normal"),
+                 view_trans_cfg=None):
+        self.view_keys = view_keys
+        self.view_trans = Compose(view_trans_cfg or [])
+
+    def __call__(self, data_dict):
+        for view in ("view1_", "view2_"):
+            view_dict = {k: data_dict[k].copy() for k in self.view_keys}
+            view_dict = self.view_trans(view_dict)
+            for k, v in view_dict.items():
+                data_dict[view + k] = v
         return data_dict
 
 

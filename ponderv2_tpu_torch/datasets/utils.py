@@ -1,10 +1,18 @@
 """Collation: variable-size scenes -> fixed-capacity padded batches.
 
-A copy of ``collate_fn`` from ``ponderv2_tpu/datasets/utils.py`` with only
-the import lines changed (see ``transform.py`` for why it is a copy), and
-its train-loader alias ``point_collate_fn`` with the single-shard branch
-only (the sharded collate belongs to the data-parallel trainer, not ported
-yet). Rows come out sorted by (batch, voxel key), padding last.
+A copy of ``collate_fn`` from ``ponderv2_tpu/datasets/utils.py`` (see
+``transform.py`` for why it is a copy), and its train-loader alias
+``point_collate_fn`` with the single-shard branch only (the sharded collate
+belongs to the data-parallel trainer, not ported yet). Rows come out sorted
+by (batch, voxel key), padding last.
+
+One difference, a fault of the JAX function (ROADMAP Queue 3, F14): the
+``origin_*`` keys (the original points that ``Copy`` keeps for projecting
+labels back onto them) are a point set of their own. They are concatenated
+in scene order with no padding, no sort and no Mix3D merge, and
+``origin_batch`` / ``origin_offset`` give their scenes. The JAX function
+pads and sorts them as voxel rows when their length happens to equal the
+voxels', and makes no ``origin_batch``, so its evaluator cannot project.
 """
 
 from __future__ import annotations
@@ -54,7 +62,7 @@ def collate_fn(
             # single over-budget scene: truncate (should be prevented upstream)
             batch0 = {
                 k: (v[:point_budget] if isinstance(v, np.ndarray) and v.ndim >= 1
-                    and v.shape[0] == sizes[0] else v)
+                    and v.shape[0] == sizes[0] and not k.startswith("origin_") else v)
                 for k, v in batch[0].items()
             }
             batch = [batch0] + list(batch[1:])
@@ -67,7 +75,7 @@ def collate_fn(
 
     out: Dict[str, Any] = {}
     point_keys = []
-    keys = batch[0].keys()
+    keys = [k for k in batch[0].keys() if not k.startswith("origin_")]
     for key in keys:
         vals = [s[key] for s in batch]
         v0 = vals[0]
@@ -126,6 +134,28 @@ def collate_fn(
     out["batch"] = batch_ids
     out["offset"] = np.cumsum(np.asarray(sizes, dtype=np.int64))
     out["batch_size"] = scene_budget if scene_budget is not None else batch_size
+    if "origin_coord" in batch[0]:
+        out.update(_collate_origin(batch))
+    return out
+
+
+def _collate_origin(batch: List[Mapping]) -> Dict[str, Any]:
+    """The scenes' ``origin_*`` point arrays concatenated in scene order (no
+    padding, no sort, no Mix3D merge), their ``origin_batch`` ids and
+    cumulative ``origin_offset``; each scene counts its ``origin_coord``'s
+    points, and every other ``origin_*`` array must hold as many."""
+    counts = [len(s["origin_coord"]) for s in batch]
+    out: Dict[str, Any] = {}
+    for key in batch[0]:
+        if key.startswith("origin_") and key != "origin_offset":
+            vals = [np.asarray(s[key]) for s in batch]
+            if [len(v) for v in vals] != counts:
+                raise ValueError(f"{key}: {[len(v) for v in vals]} points for the "
+                                 f"scenes' {counts} original points")
+            out[key] = np.concatenate(vals, axis=0)
+    out["origin_batch"] = np.concatenate(
+        [np.full(n, i, dtype=np.int32) for i, n in enumerate(counts)])
+    out["origin_offset"] = np.cumsum(np.asarray(counts, dtype=np.int64))
     return out
 
 

@@ -12,15 +12,20 @@ split's mIoU as ``val/mIoU_{head,common,tail}``.
 ``InsSegEvaluator`` clusters each val scene's shifted points into instance
 proposals on the host and scores them by the ScanNet AP protocol
 (``_associate_scene``, ``_scannet_ap`` and ``evaluate_instance_ap`` are
-copies of the JAX functions, numpy only). Not ported yet: the
-nearest-neighbour projection of voxel predictions onto raw points (val
-batches that carry ``origin_coord``; it needs ``ops/pointops.knn_query``).
+copies of the JAX functions, numpy only). On val batches that carry the
+original points (``origin_coord``, ``origin_segment``, ``origin_batch``:
+a ``Copy`` before ``GridSample``), ``SemSegEvaluator`` projects each
+voxel's prediction onto the points nearest to it (``ops/pointops.knn_query``
+in f32 on the trainer's device) and scores the original points, as the JAX
+evaluator would; its input pipeline cannot give it those keys (F14).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ...ops.pointops import knn_query
 from ...utils import comm
 from ...utils.misc import intersection_and_union
 from .builder import HOOKS
@@ -73,10 +78,6 @@ class SemSegEvaluator(HookBase):
         target_sum = np.zeros(num_classes)
         losses = []
         for i, input_dict in enumerate(trainer.val_loader):
-            if "origin_coord" in input_dict:
-                raise NotImplementedError(
-                    "SemSegEvaluator: projecting onto origin_coord needs "
-                    "knn_query, not ported yet")
             out = trainer.eval_step(input_dict)
             seg_logits = out["seg_logits"].float().cpu().numpy()
             if "loss" in out:
@@ -84,6 +85,24 @@ class SemSegEvaluator(HookBase):
             pred = seg_logits.argmax(-1)
             segment = np.asarray(input_dict["segment"])
             valid = np.asarray(input_dict["batch"]) >= 0
+            if "origin_coord" in input_dict:
+                # project voxel predictions back to raw points by nearest
+                # neighbor among the live voxel rows, in f32 as the JAX
+                # evaluator (CenterShift hands over float64), by the direct
+                # distance form: the expanded one's ~1e-5 m^2 error at
+                # ScanNet's |x| ~ 5 m picks another voxel at near-ties and
+                # changes labels there
+                live = np.flatnonzero(valid)
+                dev = trainer.device
+                coord, batch = (torch.as_tensor(np.asarray(input_dict[k])[live]).to(dev)
+                                for k in ("coord", "batch"))
+                origin, origin_batch = (torch.as_tensor(np.asarray(input_dict[k])).to(dev)
+                                        for k in ("origin_coord", "origin_batch"))
+                idx, _ = knn_query(1, coord.float(), batch, origin.float(), origin_batch,
+                                   direct=True)
+                pred = pred[live[idx[:, 0].cpu().numpy()]]
+                segment = np.asarray(input_dict["origin_segment"])
+                valid = np.asarray(input_dict["origin_batch"]) >= 0
             pred = np.where(valid, pred, ignore_index)
             segment = np.where(valid, segment, ignore_index)
             inter, union, target = intersection_and_union(

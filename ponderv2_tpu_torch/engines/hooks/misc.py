@@ -4,9 +4,8 @@ Counterpart of ``ponderv2_tpu/engines/hooks/misc.py`` (``IterationTimer``,
 ``InformationWriter``, ``CheckpointSaver``, ``CheckpointLoader``,
 ``RuntimeProfiler``, ``PreciseEvaluator``). Checkpoints hold the model's
 ``state_dict`` (reference PyTorch names), the optimizer's and the step
-count, written atomically with ``torch.save``. Not ported yet:
-``DataCacheOperator`` (the scene cache's key fault comes first, ROADMAP
-Queue 3).
+count, written atomically with ``torch.save``. ``DataCacheOperator``
+fills the run's scene cache before training (the trainer unlinks it after).
 """
 
 from __future__ import annotations
@@ -238,6 +237,27 @@ class CheckpointLoader(HookBase):
                 f"entries; skipped {len(report['skipped'])} of the checkpoint "
                 f"{report['skipped']}; {len(report['missing'])} of the model's not in it "
                 f"{report['missing']}")
+
+
+@HOOKS.register_module()
+class DataCacheOperator(HookBase):
+    """Pre-populates the shared-memory scene cache (reference misc.py:283-314):
+    before training, reads every scene of the train set once (into the
+    run's cache where the dataset has ``cache=True``), then synchronizes."""
+
+    def __init__(self, data_root: str, split: str):
+        self.data_root = data_root
+        self.split = split
+
+    def before_train(self):
+        self.trainer.logger.info("=> Caching dataset ...")
+        dataset = getattr(self.trainer.train_loader, "dataset", None)
+        inner = getattr(dataset, "dataset", dataset)
+        if inner is None or not hasattr(inner, "get_data"):
+            return
+        for i in range(len(inner.data_list)):
+            inner.get_data(i)
+        comm.synchronize()
 
 
 @HOOKS.register_module()

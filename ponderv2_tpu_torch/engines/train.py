@@ -8,8 +8,11 @@ running stats), the ``torch.optim`` optimizer and the step count, and
 ``optimizer.step()`` at ``schedule(step)``, ``zero_grad``. Conv plans are
 built on the device inside the step; a config's ``host_plans`` key is
 accepted and has no effect. ``MultiDatasetTrainer`` trains on the
-round-robin ``MultiDatasetDataloader``. Not ported yet: the data-parallel
-mesh branch and the host plan prefetch (``engines/plan_prefetch.py``).
+round-robin ``MultiDatasetDataloader``. A run keys the scenes its datasets
+cache in shared memory (``cache=True``) on a key of its own
+(``cache_run``), and unlinks them when training ends or raises. Not ported
+yet: the data-parallel mesh branch and the host plan prefetch
+(``engines/plan_prefetch.py``).
 """
 
 from __future__ import annotations
@@ -21,7 +24,9 @@ import torch
 
 from ..datasets import build_dataloader, build_dataset
 from ..datasets.dataloader import MultiDatasetDataloader
+from ..datasets.defaults import set_cache_run
 from ..models import build_model
+from ..utils import cache
 from ..utils.config import Config
 from ..utils.events import EventStorage
 from ..utils.logger import get_root_logger
@@ -41,6 +46,8 @@ class TrainerBase:
         self.max_epoch = 0
         self.comm_info: Dict[str, Any] = {}
         self.storage: Optional[EventStorage] = None
+        # the key of the scenes this run caches in shared memory
+        self.cache_run = cache.new_run_key()
 
     def register_hooks(self, hooks_cfg) -> None:
         from .hooks.builder import build_hooks
@@ -75,20 +82,24 @@ class TrainerBase:
             h.after_train()
 
     def train(self):
-        with EventStorage(self.start_epoch * len(self.train_loader)) as self.storage:
-            self.before_train()
-            self.logger.info(">>>>>>>>>>>>>>>> Start Training >>>>>>>>>>>>>>>>")
-            for self.epoch in range(self.start_epoch, self.max_epoch):
-                self.before_epoch()
-                for i, input_dict in enumerate(self.train_loader):
-                    self.comm_info["iter"] = i
-                    self.comm_info["input_dict"] = input_dict
-                    self.before_step()
-                    self.run_step()
-                    self.after_step()
-                self.after_epoch()
-            self.after_train()
-            self.logger.info("<<<<<<<<<<<<<<<<< End Training <<<<<<<<<<<<<<<<<")
+        try:
+            with EventStorage(self.start_epoch * len(self.train_loader)) as self.storage:
+                self.before_train()
+                self.logger.info(">>>>>>>>>>>>>>>> Start Training >>>>>>>>>>>>>>>>")
+                for self.epoch in range(self.start_epoch, self.max_epoch):
+                    self.before_epoch()
+                    for i, input_dict in enumerate(self.train_loader):
+                        self.comm_info["iter"] = i
+                        self.comm_info["input_dict"] = input_dict
+                        self.before_step()
+                        self.run_step()
+                        self.after_step()
+                    self.after_epoch()
+                self.after_train()
+                self.logger.info("<<<<<<<<<<<<<<<<< End Training <<<<<<<<<<<<<<<<<")
+        finally:
+            # the run's cached scenes (``cache=True``), also when a step raised
+            cache.clear(run=self.cache_run)
 
 
 @TRAINERS.register_module("Trainer")
@@ -147,6 +158,7 @@ class Trainer(TrainerBase):
     def build_train_loader(self):
         cfg = self.cfg
         dataset = build_dataset(dict(cfg.data.train))
+        set_cache_run(dataset, self.cache_run)
         return build_dataloader(
             dataset,
             batch_size=cfg.batch_size,
@@ -164,6 +176,7 @@ class Trainer(TrainerBase):
         if not cfg.get("evaluate", True) or "val" not in cfg.data:
             return None
         dataset = build_dataset(dict(cfg.data.val))
+        set_cache_run(dataset, self.cache_run)
         return build_dataloader(
             dataset,
             batch_size=cfg.get("batch_size_val", 1),
@@ -241,8 +254,10 @@ class MultiDatasetTrainer(Trainer):
 
     def build_train_loader(self):
         cfg = self.cfg
+        dataset = build_dataset(dict(cfg.data.train))
+        set_cache_run(dataset, self.cache_run)
         return MultiDatasetDataloader(
-            build_dataset(dict(cfg.data.train)),
+            dataset,
             batch_size_per_dataset=cfg.batch_size,
             num_workers=cfg.get("num_worker", 0),
             point_budget=cfg.get("point_budget"),

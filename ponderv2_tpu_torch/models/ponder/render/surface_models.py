@@ -1,8 +1,8 @@
 """Surface rendering models: NeuS forward and the render losses.
 
 Counterpart of ``ponderv2_tpu/models/ponder/render/surface_models.py``
-(``SurfaceModel.get_loss``, ``NeuSModel``). One pass renders all scenes'
-rays at once: (B, R) rays x S samples. ``VolSDFModel`` is not ported yet.
+(``SurfaceModel.get_loss``, ``NeuSModel``, ``VolSDFModel``). One pass
+renders all scenes' rays at once: (B, R) rays x S samples.
 
 Losses: depth L1, RGB L1 (+ PSNR), ray-batch contrastive semantic CE
 against CLIP text embeddings (chunk-local at eval), free-space/truncation
@@ -18,8 +18,9 @@ from torch import nn
 
 from ....utils.registry import Registry
 from .colliders import COLLIDERS
-from .fields import SDFField
-from .rays import get_weights_from_alphas, safe_norm, safe_normalize
+from .fields import LaplaceDensity, SDFField
+from .rays import (get_weights_from_alphas, get_weights_from_densities, safe_norm,
+                   safe_normalize)
 from .renderers import (
     render_accumulation,
     render_depth,
@@ -66,9 +67,39 @@ class SurfaceModel(nn.Module):
     def reset_parameters(self, generator=None) -> None:
         self.field.reset_parameters(generator)
 
+    def draw_shapes(self, rays_shape) -> Sequence[Sequence[int]]:
+        """Shapes of the uniforms one training render takes (``draws``)."""
+        return self.sampler.draw_shapes(rays_shape)
+
     def forward(self, vol_cl, origins, directions, draws=None,
                 cos_anneal_ratio: float = 1.0):
         raise NotImplementedError
+
+    def _samples(self, vol_cl, origins, directions, draws):
+        """(starts, ends) of the rays' samples. ``draws``: the sampler's
+        uniforms when training, None at eval."""
+        nears, fars = self.collider(origins, directions)
+        return self.sampler(
+            nears, fars, lambda p: self.field.get_sdf(vol_cl, p), origins,
+            directions, train=draws is not None, draws=draws)
+
+    @staticmethod
+    def _outputs(weights, starts, ends, field_out) -> Dict[str, torch.Tensor]:
+        outputs = dict(
+            weights=weights,
+            sdf=field_out["sdf"],
+            gradients=field_out["gradients"],
+            inv_s=field_out["inv_s"],
+            sample_depths=0.5 * (starts + ends),
+            depth=render_depth(weights, starts, ends),
+            accumulation=render_accumulation(weights),
+            normal=render_normal(weights, field_out["gradients"]),
+        )
+        if "rgb" in field_out:
+            outputs["rgb"] = render_rgb(weights, field_out["rgb"])
+        if "semantic" in field_out:
+            outputs["semantic"] = render_semantic(weights, field_out["semantic"])
+        return outputs
 
     # ------------------------------------------------------------------ losses
     def get_loss(self, outputs: Dict[str, torch.Tensor],
@@ -169,34 +200,37 @@ class SurfaceModel(nn.Module):
 
 @RENDERERS.register_module()
 class NeuSModel(SurfaceModel):
-    def draw_shapes(self, rays_shape) -> Sequence[Sequence[int]]:
-        """Shapes of the uniforms one training render takes (``draws``)."""
-        return self.sampler.draw_shapes(rays_shape)
-
     def forward(self, vol_cl, origins, directions, draws=None,
                 cos_anneal_ratio: float = 1.0) -> Dict[str, torch.Tensor]:
         """Render rays through the channels-last volume ``vol_cl``
         (``field.volume_channels_last``). ``draws``: the sampler's uniforms
-        when training (stratified, one per upsample step), None at eval."""
-        nears, fars = self.collider(origins, directions)
-        starts, ends = self.sampler(
-            nears, fars, lambda p: self.field.get_sdf(vol_cl, p), origins,
-            directions, train=draws is not None, draws=draws)
+        when training (``draw_shapes``), None at eval."""
+        starts, ends = self._samples(vol_cl, origins, directions, draws)
         field_out = self.field(vol_cl, origins, directions, starts, ends,
                                cos_anneal_ratio=cos_anneal_ratio)
         weights, _ = get_weights_from_alphas(field_out["alphas"])
-        outputs = dict(
-            weights=weights,
-            sdf=field_out["sdf"],
-            gradients=field_out["gradients"],
-            inv_s=field_out["inv_s"],
-            sample_depths=0.5 * (starts + ends),
-            depth=render_depth(weights, starts, ends),
-            accumulation=render_accumulation(weights),
-            normal=render_normal(weights, field_out["gradients"]),
-        )
-        if "rgb" in field_out:
-            outputs["rgb"] = render_rgb(weights, field_out["rgb"])
-        if "semantic" in field_out:
-            outputs["semantic"] = render_semantic(weights, field_out["semantic"])
-        return outputs
+        return self._outputs(weights, starts, ends, field_out)
+
+
+@RENDERERS.register_module()
+class VolSDFModel(SurfaceModel):
+    """VolSDF: weights from the Laplace density of the sdf. As in the JAX
+    model, the sampler's bisection starts from its own beta0 (0.1), not
+    from the learned ``laplace_density.beta`` (ROADMAP Queue 3)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.laplace_density = LaplaceDensity()
+
+    def reset_parameters(self, generator=None) -> None:
+        super().reset_parameters(generator)
+        self.laplace_density.reset_parameters(generator)
+
+    def forward(self, vol_cl, origins, directions, draws=None,
+                cos_anneal_ratio: float = 1.0) -> Dict[str, torch.Tensor]:
+        starts, ends = self._samples(vol_cl, origins, directions, draws)
+        field_out = self.field(vol_cl, origins, directions, starts, ends,
+                               cos_anneal_ratio=cos_anneal_ratio)
+        densities = self.laplace_density(field_out["sdf"])
+        weights, _ = get_weights_from_densities(densities, starts, ends)
+        return self._outputs(weights, starts, ends, field_out)

@@ -9,6 +9,10 @@ keys are ``conv_input.{conv,bn}``, ``down.{s}.{conv,bn}``,
 ``up.{ref}.{conv,bn}``, ``dec.{ref}.block{b}.*`` and ``final.*``, where
 decoder step ``s`` runs module index ``ref = num_stages - 1 - s``.
 
+``cls_mode`` runs the encoder only and mean-pools each scene's voxels of the
+last level, then ``final`` (none with ``num_classes == 0``: the pooled
+``(B, channels[num_stages - 1])`` features), as the JAX model does.
+
 The conv plans come from ``build_spunet_plans_auto``, as SpUNet-v1m1's do,
 so the band convs take the same routes (and the same budget retry). The JAX
 v1m3 builds its own rulebooks (band plans only where a level is wider than
@@ -23,6 +27,7 @@ from typing import List, Optional, Sequence
 import torch
 from torch import nn
 
+from ...ops.scatter import segment_mean
 from ...ops.sparse import SparseTensor
 from ...ops.spconv import StridedPlan, plan_contract_flags
 from ...utils.misc import as_dtype
@@ -30,7 +35,7 @@ from ..builder import MODELS
 from ..norm import PDBatchNorm
 from .layers import InverseConv, StridedConv, SubMConv
 from .plans import build_spunet_plans_auto, capacity_schedule, level_spatial_shapes
-from .spunet import Proj, _reset_all
+from .spunet import Proj, _all_flags, _reset_all
 
 
 class PDBasicBlock(nn.Module):
@@ -99,9 +104,8 @@ class SpUNetPDNorm(nn.Module):
     ):
         super().__init__()
         del zero_init, norm_affine  # accepted for config parity, as in the JAX model
-        if cls_mode:
-            raise NotImplementedError("SpUNet-v1m3 cls_mode is not ported yet")
         self.num_classes = num_classes
+        self.cls_mode = cls_mode
         self.channels = tuple(channels)
         self.layers = tuple(layers)
         self.conditions = tuple(conditions)
@@ -131,7 +135,7 @@ class SpUNetPDNorm(nn.Module):
         # built in reference module order (index ref), run reversed
         up, dec = [None] * num_stages, [None] * num_stages
         dec_prev = prev
-        for s in range(num_stages):
+        for s in range(0 if cls_mode else num_stages):
             ref = num_stages - 1 - s
             dec_c = channels[num_stages + s]
             skip_c = enc_channels[num_stages - 1 - s]
@@ -141,8 +145,9 @@ class SpUNetPDNorm(nn.Module):
                                           norm, cdt)
                 for b in range(layers[num_stages + s])})
             dec_prev = dec_c
-        self.up = nn.ModuleList(up)
-        self.dec = nn.ModuleList(dec)
+        if not cls_mode:
+            self.up = nn.ModuleList(up)
+            self.dec = nn.ModuleList(dec)
         self.final = nn.Linear(dec_prev, num_classes) if num_classes > 0 else None
         self.reset_parameters(torch.Generator().manual_seed(0))
 
@@ -151,7 +156,8 @@ class SpUNetPDNorm(nn.Module):
 
     def forward(self, st: SparseTensor, condition: Optional[str] = None,
                 context: Optional[torch.Tensor] = None, plans=None):
-        """Returns ``(features or logits (N, C), contract_ok () bool)``.
+        """Returns ``(features or logits (N, C), contract_ok () bool)`` (in
+        ``cls_mode`` ``(B, num_classes)`` or the pooled features).
         ``condition`` is the dataset's name: this backbone takes its own index
         of it (the first condition when it names none of them), so a head
         may order its conditions otherwise. ``context`` is the (C_ctx,)
@@ -179,6 +185,12 @@ class SpUNetPDNorm(nn.Module):
                 x = block(x, rb, band_flags, ci, context)
             skips.append(x)
 
+        if self.cls_mode:
+            # global mean pool over each scene's valid voxels -> classifier
+            pooled = segment_mean(x.features, x.coords[:, 0], x.batch_size)
+            out = pooled if self.final is None else self.final(pooled)
+            return out, _all_flags(contract + band_flags, st)
+
         for s in range(num_stages):
             ref = num_stages - 1 - s
             skip = skips[ref]
@@ -191,9 +203,7 @@ class SpUNetPDNorm(nn.Module):
             for block in self.dec[ref].values():
                 x = block(x, rb, band_flags, ci, context)
 
-        flags = contract + band_flags
-        contract_ok = (torch.stack(flags).all() if flags else
-                       torch.ones((), dtype=torch.bool, device=st.features.device))
+        contract_ok = _all_flags(contract + band_flags, st)
         if self.final is None:
             return x.features, contract_ok
         return x.replace_features(self.final(x.features)).features, contract_ok

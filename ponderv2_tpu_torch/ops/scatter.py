@@ -98,3 +98,31 @@ def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
 def segment_min(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int, initial: Optional[float] = None) -> torch.Tensor:
     return _segment_extreme(data, segment_ids, num_segments, initial, "amin")
+
+
+class _OrderedGather(torch.autograd.Function):
+    """``data[index]`` whose backward adds the grads into each row in a fixed
+    order (``ordered_scatter_add``): the backward of plain indexing is an
+    ``index_add_`` with atomics on CUDA, whose bits vary run to run."""
+
+    @staticmethod
+    def forward(ctx, data, index):
+        flat = index.reshape(-1).to(torch.int64)
+        ctx.save_for_backward(flat)
+        ctx.rows, ctx.index_shape = data.shape[0], index.shape
+        return data.index_select(0, flat).reshape(*index.shape, *data.shape[1:])
+
+    @staticmethod
+    def backward(ctx, grad):
+        (flat,) = ctx.saved_tensors
+        grad = grad.reshape(flat.shape[0], *grad.shape[len(ctx.index_shape):])
+        out = grad.new_zeros((ctx.rows, *grad.shape[1:]))
+        return ordered_scatter_add(out, flat, grad), None
+
+
+def ordered_gather(data: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``data[index]`` along the first axis (negative indices count from the
+    end, as in numpy and JAX), differentiable in ``data`` with a fixed-order
+    backward (``_OrderedGather``)."""
+    index = torch.where(index < 0, index + data.shape[0], index)
+    return _OrderedGather.apply(data, index)

@@ -3,7 +3,8 @@
 Counterpart of ``ponderv2_tpu/ops/sparse.py``: a padded ``(capacity, C)``
 feature buffer plus ``(capacity, 4)`` int32 ``(b, x, y, z)`` coordinates.
 Padding rows have coords ``(-1, -1, -1, -1)`` and zero features; every op
-keeps that invariant.
+keeps that invariant. ``voxel_pool``, ``to_dense``, ``offset2batch`` and
+``batch2offset`` sum in a fixed order (``ops/scatter.py``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Sequence, Tuple
 import torch
 
 from . import hashing
+from .scatter import ordered_scatter_add, segment_mean, segment_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +96,56 @@ def unique_voxels(
     inverse = torch.empty(n, dtype=torch.int32, device=dev)
     inverse[order] = uid_sorted
     return unique_coords[:capacity], inverse, count.clamp(max=capacity)
+
+
+def voxel_pool(
+    features: torch.Tensor,
+    coords: torch.Tensor,
+    spatial_shape: Sequence[int],
+    batch_size: int,
+    capacity: int,
+    reduce: str = "mean",
+) -> Tuple[SparseTensor, torch.Tensor]:
+    """Pool point/voxel features into unique voxels (mean by default).
+    Returns the pooled SparseTensor and the (N,) inverse map (input row ->
+    voxel id, ``capacity`` for dropped rows)."""
+    unique_coords, inverse, _ = unique_voxels(coords, spatial_shape, batch_size, capacity)
+    if reduce == "mean":
+        pooled = segment_mean(features, inverse, capacity)
+    elif reduce == "sum":
+        pooled = segment_sum(features, inverse, capacity)
+    else:
+        raise ValueError(f"unsupported reduce: {reduce}")
+    return make_sparse_tensor(pooled, unique_coords, spatial_shape, batch_size), inverse
+
+
+def to_dense(st: SparseTensor, channels_last: bool = False) -> torch.Tensor:
+    """Densify to (B, C, X, Y, Z) (or (B, X, Y, Z, C)); padding rows are
+    dropped and rows on one voxel add up (spconv's ``dense()``)."""
+    X, Y, Z = st.spatial_shape
+    B, C = st.batch_size, st.features.shape[1]
+    c = st.coords.to(torch.int64)
+    idx = ((c[:, 0] * X + c[:, 1]) * Y + c[:, 2]) * Z + c[:, 3]
+    idx = torch.where(st.mask, idx, B * X * Y * Z)
+    flat = st.features.new_zeros((B * X * Y * Z + 1, C))
+    flat = ordered_scatter_add(flat, idx, st.features)
+    dense = flat[:-1].reshape(B, X, Y, Z, C)
+    return dense if channels_last else dense.permute(0, 4, 1, 2, 3)
+
+
+def offset2batch(offset: torch.Tensor, total: int) -> torch.Tensor:
+    """Cumulative ``offset`` (B,) -> per-row batch ids (total,) int32; rows
+    past ``offset[-1]`` get -1 (padding)."""
+    row = torch.arange(total, device=offset.device)
+    batch = (row[:, None] >= offset[None, :]).sum(1)
+    return torch.where(row < offset[-1], batch, -1).to(torch.int32)
+
+
+def batch2offset(batch: torch.Tensor, batch_size: int) -> torch.Tensor:
+    """Per-row batch ids -> cumulative offsets (batch_size,) int32; ids
+    outside [0, batch_size) count for no scene."""
+    counts = segment_sum(torch.ones_like(batch, dtype=torch.int32), batch, batch_size)
+    return torch.cumsum(counts, 0, dtype=torch.int32)
 
 
 def maybe_sort_by_key(st: SparseTensor, assume_sorted: bool = False):

@@ -57,3 +57,9 @@ def reduce_dict(input_dict: dict, average: bool = True) -> dict:
         vals = [float(g[k]) for g in gathered]
         out[k] = sum(vals) / world if average else sum(vals)
     return out
+
+
+def synchronize() -> None:
+    """Barrier across processes (no-op in a world of one)."""
+    if get_world_size() > 1:
+        dist.barrier()

@@ -29,7 +29,9 @@ invert ``convert_spunet_v1m3`` and ``convert_ppt_v1m1`` for the port's
 ``conditions`` order (or ``bn``), its ``modulation`` Dense -> the Linear
 ``modulation.1``, the block shortcut ``proj`` / ``proj_bn`` ->
 ``proj_conv`` / ``proj_norm``, ``context.embedding`` ->
-``embedding_table.weight``, and ``constants.class_embedding`` -> the buffer.
+``embedding_table.weight``, and ``constants.class_embedding`` -> the buffer;
+in ``cls_mode`` there is no decoder, and ``final`` where the model has one.
+A VolSDF renderer's ``laplace_density.beta`` goes across with the field.
 
 ``state_dict_from_jax_ponder_outdoor`` does PonderOutdoor-v2: the backbone
 as above, SimpleConv3D's conv and BatchNorm, the render field as in
@@ -164,6 +166,14 @@ def _render_field(out, prefix, field) -> None:
         field["deviation_network"]["variance"], np.float32).reshape(())
 
 
+def _render_model(out, prefix, render_model) -> None:
+    """The renderer's field and, for VolSDF, its ``laplace_density`` beta."""
+    _render_field(out, f"{prefix}.field", render_model["field"])
+    if "laplace_density" in render_model:
+        out[f"{prefix}.laplace_density.beta"] = np.asarray(
+            render_model["laplace_density"]["beta"], np.float32).reshape(())
+
+
 def state_dict_from_jax_ponder_indoor(variables: Mapping, channels: Sequence[int],
                                       layers: Sequence[int],
                                       num_levels: int = 4) -> Dict[str, np.ndarray]:
@@ -176,7 +186,7 @@ def state_dict_from_jax_ponder_indoor(variables: Mapping, channels: Sequence[int
                                            channels, layers).items():
         out[f"backbone.{k}"] = v
     _unet3d_v1m2(out, "proj_net", params["proj_net"], stats["proj_net"], num_levels)
-    _render_field(out, "renderer.field", params["render_model"]["field"])
+    _render_model(out, "renderer", params["render_model"])
     if "proj_head" in params:
         _dense(out, "proj_head", params["proj_head"])
         out["logit_scale"] = np.asarray(params["logit_scale"], np.float32).reshape(())
@@ -235,7 +245,7 @@ def state_dict_from_jax_spunet_v1m3(params: Mapping, batch_stats: Mapping,
         for b in range(layers[s]):
             _pd_block(out, f"enc.{s}.block{b}",
                       *_block_tree(params, batch_stats, f"enc{s}", b, 0), conditions)
-    for s in range(num_stages):
+    for s in range(num_stages if "up0" in params else 0):  # none in cls_mode
         ref = num_stages - 1 - s
         out[f"up.{ref}.conv.weight"] = _kernel(params[f"up{s}"]["kernel"])
         _pdnorm(out, f"up.{ref}.bn", params[f"up{s}_bn"], batch_stats[f"up{s}_bn"],
@@ -313,7 +323,7 @@ def state_dict_from_jax_ponder_outdoor(variables: Mapping, channels: Sequence[in
                                                (4, 3, 0, 1, 2))
     out["proj_net.conv.bias"] = np.asarray(proj["conv"]["bias"])
     _bn(out, "proj_net.batchnorm", proj["batchnorm"], proj_stats["batchnorm"])
-    _render_field(out, "renderer.field", params["render_model"]["field"])
+    _render_model(out, "renderer", params["render_model"])
     if "mtoken" in params:
         out["mtoken"] = np.asarray(params["mtoken"])
     constants = variables.get("constants") or {}

@@ -882,3 +882,121 @@ def test_probe_entry_points_on_cuda(cuda):
         assert [k.launches - b for k, b in zip(kernels, before)] == [
             int(k is v.kernel) for k in kernels], v.name
         assert probe_windowed_torch.agree(out, v.run(True), v.tol)[0], v.name
+
+
+# ------------------------------------------------------------- pointops, VolSDF
+
+
+def _room(n, seed):
+    """``n`` points of a 8 x 6 x 3 m room centred on the origin, as a
+    CenterShift-ed ScanNet scene's coordinates lie."""
+    rng = np.random.RandomState(seed)
+    return ((rng.rand(n, 3) - [0.5, 0.5, 0.0]) * [8.0, 6.0, 3.0]).astype(np.float32)
+
+
+def test_knn_and_ball_query_match_float64_on_cuda(cuda):
+    """``knn_query`` (k 1 and 8, in the expanded and the direct form) and
+    ``ball_query`` on CUDA tensors against a float64 search on the CPU
+    (``scipy.spatial.cKDTree``): indices equal wherever the squared
+    distances around a rank differ by more than 16 f32 ulps of |q|^2 +
+    max|r|^2 (the rounding of the expanded form, more than the direct
+    form's), the distances within that tolerance."""
+    from scipy.spatial import cKDTree
+
+    from ponderv2_tpu_torch.ops import pointops as po
+
+    ref, q = _room(20_000, 0), _room(30_000, 1)
+    rb = torch.zeros(len(ref), dtype=torch.int32, device=cuda)
+    qb = torch.zeros(len(q), dtype=torch.int32, device=cuda)
+    ref64, q64 = ref.astype(np.float64), q.astype(np.float64)
+    tree = cKDTree(ref64)
+    dist, hidx = tree.query(q64, k=9)
+    d2 = dist ** 2
+    tol = 16 * 2.0 ** -24 * ((q64 ** 2).sum(1) + (ref64 ** 2).sum(1).max())
+    for k, direct in ((1, False), (8, False), (1, True), (8, True)):
+        idx, sq = po.knn_query(k, torch.from_numpy(ref).to(cuda), rb,
+                               torch.from_numpy(q).to(cuda), qb, direct=direct)
+        idx, sq = idx.cpu().numpy(), sq.cpu().numpy().astype(np.float64)
+        gaps = np.diff(d2, axis=1)
+        tie = np.concatenate([np.zeros((len(q), 1), bool), gaps[:, :k - 1] <= tol[:, None]], 1)
+        tie |= gaps[:, :k] <= tol[:, None]
+        assert not ((idx != hidx[:, :k]) & ~tie).any()
+        assert (np.abs(sq - d2[:, :k]) <= tol[:, None]).all()
+    radius, nsample = 0.2, 8
+    idx, _ = po.ball_query(radius, nsample, torch.from_numpy(ref).to(cuda), rb,
+                           torch.from_numpy(q).to(cuda), qb)
+    idx = idx.cpu().numpy()
+    checked = 0
+    for i, cand in enumerate(tree.query_ball_point(q64[:3000], radius * 1.001)):
+        cand = np.sort(np.asarray(cand, np.int64))
+        dc = ((ref64[cand] - q64[i]) ** 2).sum(1)
+        if (np.abs(dc - radius ** 2) <= tol[i]).any():
+            continue  # a ref on the sphere, within rounding
+        hits = cand[dc <= radius ** 2][:nsample]
+        first = hits[0] if len(hits) else 0
+        np.testing.assert_array_equal(
+            idx[i], np.concatenate([hits, np.full(nsample - len(hits), first)]))
+        checked += 1
+    assert checked > 2900
+
+
+def test_volsdf_render_forward_and_backward_on_cuda(cuda):
+    """A training render of ``VolSDFModel`` (``ErrorBoundedSampler``) on the
+    card and its backward: finite, the same bits twice (every sum in a
+    fixed order), and, on the samples it drew, the field and compositing of
+    the same model on the CPU within 1e-4 of max|ref| (outputs) and 1e-3 of
+    max|ref| (grads: second order through the field's spatial gradient).
+    The depth divides by the accumulated weight, which a random field
+    leaves near 0 on some rays: it is compared where the accumulation is
+    0.1 or more, and the loss leaves it out."""
+    from ponderv2_tpu_torch.models.ponder.render.surface_models import RENDERERS
+
+    cfg = dict(type="VolSDFModel", feature_dim=6,
+               field=dict(hidden_dim=16, num_layers=2, geo_feat_dim=4, semantic_dim=8,
+                          share_volume=False),
+               collider=dict(type="AABBBoxCollider", near_plane=0.01),
+               sampler=dict(type="ErrorBoundedSampler", num_samples=16, num_samples_eval=32,
+                            num_samples_extra=8),
+               loss=dict(weights=dict(rgb=10.0, depth=0.0, eikonal=0.01, sdf=10.0)))
+    model = RENDERERS.build(dict(cfg))
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    vol = torch.from_numpy(rng.randn(2, 6, 8, 8, 6).astype(np.float32))
+    o = torch.from_numpy(rng.rand(2, 64, 3).astype(np.float32) * 0.3 + 0.1)
+    d = torch.nn.functional.normalize(torch.from_numpy(rng.randn(2, 64, 3).astype(np.float32)),
+                                      dim=-1)
+    targets = dict(rgb=torch.rand(2, 64, 3), depth=torch.rand(2, 64) + 0.1)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    draws = [torch.rand(s, generator=gen, device=cuda) for s in model.draw_shapes((2, 64))]
+
+    def run(m, device, draws, samples=None):
+        m.zero_grad(set_to_none=True)
+        v = vol.to(device).requires_grad_()
+        if samples is not None:
+            m.sampler = lambda *a, **k: samples
+        out = m(m.field.volume_channels_last(v), o.to(device), d.to(device), draws=draws)
+        loss = m.get_loss(out, {k: x.to(device) for k, x in targets.items()})["render_loss"]
+        loss.backward()
+        grads = {n: p.grad for n, p in m.named_parameters() if p.grad is not None}
+        return out, grads, v.grad
+
+    gpu = RENDERERS.build(dict(cfg)).to(cuda)
+    gpu.load_state_dict(model.state_dict())
+    first = run(gpu, cuda, draws)
+    second = run(gpu, cuda, draws)
+    for k, x in first[0].items():
+        assert torch.isfinite(x).all() and torch.equal(x, second[0][k]), k
+    for n, g in first[1].items():
+        assert torch.isfinite(g).all() and torch.equal(g, second[1][n]), n
+    assert torch.equal(first[2], second[2])
+    samples = gpu._samples(gpu.field.volume_channels_last(vol.to(cuda)), o.to(cuda),
+                           d.to(cuda), draws)
+    cpu = run(model, "cpu", None, tuple(s.cpu() for s in samples))
+    for k in ("weights", "sdf", "gradients", "accumulation", "rgb"):
+        assert _rel_err(first[0][k].cpu(), cpu[0][k]) <= 1e-4, k
+    well = cpu[0]["accumulation"] >= 0.1
+    assert well.sum() >= 16
+    assert _rel_err(first[0]["depth"].cpu()[well], cpu[0]["depth"][well]) <= 1e-4
+    for n, g in cpu[1].items():
+        assert (first[1][n].cpu() - g).abs().max() <= 1e-3 * g.abs().max().clamp(min=1e-12), n
+    assert _rel_err(first[2].cpu(), cpu[2]) <= 1e-3

@@ -156,7 +156,6 @@ class TestTrainDataPath:
         import ponderv2_tpu.datasets.defaults as jdef
         import ponderv2_tpu.datasets.s3dis as js3
         import ponderv2_tpu.datasets.scannet as jsc
-        import ponderv2_tpu.utils.cache as jcache
         import ponderv2_tpu.datasets.ppt_vocab as jvocab
         import ponderv2_tpu.datasets.preprocessing.scannet200_constants as jsc200
         import ponderv2_tpu.datasets.transform as jtr
@@ -171,7 +170,6 @@ class TestTrainDataPath:
         import ponderv2_tpu_torch.datasets.defaults as tdef
         import ponderv2_tpu_torch.datasets.s3dis as ts3
         import ponderv2_tpu_torch.datasets.scannet as tsc
-        import ponderv2_tpu_torch.utils.cache as tcache
         import ponderv2_tpu_torch.datasets.ppt_vocab as tvocab
         import ponderv2_tpu_torch.datasets.preprocessing.scannet200_constants as tsc200
         import ponderv2_tpu_torch.datasets.transform as ttr
@@ -198,8 +196,9 @@ class TestTrainDataPath:
             (jdef, tdef, ["_lookat_world2cam", "SyntheticRGBDDataset"]),
             (jclip, tclip, ["_fallback_embeddings", "_find_committed_asset",
                             "get_text_embeddings"]),
-            # the file-backed datasets of the PPT fine-tune recipe
-            (jdef, tdef, ["load_scene", "DefaultDataset", "ConcatDataset"]),
+            # the file-backed datasets of the PPT fine-tune recipe;
+            # DefaultDataset's scene cache is keyed on the run (below)
+            (jdef, tdef, ["load_scene", "ConcatDataset"]),
             (jtr, ttr, ["Add"]),
             (jsc, tsc, ["ScanNetDataset", "ScanNet200Dataset"]),
             (js3, ts3, ["S3DISDataset"]),
@@ -212,6 +211,12 @@ class TestTrainDataPath:
             (jtr, ttr, ["InstanceParser"]),
             (jhev, thev, ["_associate_scene", "_scannet_ap", "evaluate_instance_ap"]),
             (jcl, tcl, ["cluster_proposals"]),
+            # the transforms no recipe names (``_index_points`` and
+            # ``CenterShift``, which they call or sit beside, differ: F14)
+            (jtr, ttr, ["Copy", "ToTensor", "NormalizeCoord", "ClipGaussianJitter",
+                        "PointClip", "RandomColorGrayScale", "RandomColorJitter",
+                        "RandomColorDrop", "HueSaturationTranslation", "CropBoundary",
+                        "ContrastiveViewsGenerator"]),
         ]
         for jmod, tmod, names in copies:
             for name in names:
@@ -228,10 +233,32 @@ class TestTrainDataPath:
         import ponderv2_tpu.datasets.preprocessing.scannet200_splits as jsplits
         import ponderv2_tpu_torch.datasets.preprocessing.scannet200_splits as tsplits
 
-        for jmod, tmod in [(jvocab, tvocab), (jsc200, tsc200), (jcache, tcache),
-                           (jsplits, tsplits)]:
+        # (the scene cache, ``utils/cache.py``, is no longer a copy: the JAX
+        # one keys every run's segments on the data root's basename in one
+        # host-wide namespace, ROADMAP Queue 3's cache-key fault; the port's
+        # is keyed on the run, tests/test_torch_origin_eval.py holds it)
+        import ponderv2_tpu.utils.visualization as jvis
+        import ponderv2_tpu_torch.utils.visualization as tvis
+
+        for jmod, tmod in [(jvocab, tvocab), (jsc200, tsc200), (jsplits, tsplits),
+                           (jvis, tvis)]:
             with open(jmod.__file__, "rb") as fj, open(tmod.__file__, "rb") as ft:
                 assert fj.read() == ft.read(), tmod.__name__
+        # DefaultDataset is the JAX one but for the cache key of get_data and
+        # the run key its trainer sets (the cache-key fault)
+        jsrc = inspect.getsource(jdef.DefaultDataset).replace(
+            "        self.cache = cache\n",
+            "        self.cache = cache\n"
+            "        self.cache_run = None\n").replace(
+            '            cache_name = f"ponderv2-{os.path.basename(self.data_root)}-'
+            '{os.path.basename(path)}"\n',
+            "            cache_name = scene_cache_name(self.data_root, path)\n").replace(
+            "return dict(shared_dict(cache_name))",
+            "return dict(shared_dict(cache_name, run=self.cache_run))").replace(
+            "return dict(shared_dict(cache_name, data))",
+            "return dict(shared_dict(cache_name, data, run=self.cache_run))")
+        assert jsrc.count("run=self.cache_run") == 2
+        assert inspect.getsource(tdef.DefaultDataset) == jsrc
 
     def test_scannet_train_batches_match_jax(self, np_global_seed):
         """The ScanNet train transform (every random augmentation) and the
@@ -561,6 +588,10 @@ import ponderv2_tpu_torch.models.point_group.point_group
 import ponderv2_tpu_torch.models.point_group.cluster
 import ponderv2_tpu_torch.models.ponder.ponder_outdoor
 import ponderv2_tpu_torch.datasets.nuscenes, ponderv2_tpu_torch.datasets.image_io
+import ponderv2_tpu_torch.ops.pointops, ponderv2_tpu_torch.ops.sparse
+import ponderv2_tpu_torch.models.ponder.render.samplers
+import ponderv2_tpu_torch.models.ponder.render.surface_models
+import ponderv2_tpu_torch.utils.visualization
 sys.path.insert(0, root + "/tools/experiments")
 import chip_smoke, probe_windowed_torch, test_torch, train_torch
 import probe_bisect_torch, probe_gather_torch, profile_pretrain_torch, profile_semseg_torch
@@ -716,9 +747,11 @@ with torch.inference_mode():
                 "spatial_shape": tuple(ccfg.sparse_shape), "batch_size": 2})
 assert cout["cls_logits"].shape == (2, 40) and bool(cout["contract_ok"])
 hooks = build_hooks([dict(type="ClsEvaluator"), dict(type="PreciseEvaluator"),
-                     dict(type="RuntimeProfiler"), dict(type="SemSegEvaluator")])
+                     dict(type="RuntimeProfiler"), dict(type="SemSegEvaluator"),
+                     dict(type="DataCacheOperator", data_root=data_root, split="train")])
 assert [type(h).__name__ for h in hooks] == ["ClsEvaluator", "PreciseEvaluator",
-                                             "RuntimeProfiler", "SemSegEvaluator"]
+                                             "RuntimeProfiler", "SemSegEvaluator",
+                                             "DataCacheOperator"]
 torch.save(clf.state_dict(), os.path.join(data_root, "clf.pth"))
 ccfg.weight, ccfg.device = os.path.join(data_root, "clf.pth"), "cpu"
 ccfg.data.test = dict(ccfg.data.test, num_objects=1, points=500)
@@ -750,7 +783,9 @@ def test_port_imports_and_runs_without_jax():
     (over scene files with instance labels) and run a full-width training
     forward of their PG-v1m1 models, the MinkUNet34C and SpUNet classifier
     recipes of ``chip_smoke.py`` run a full-width eval forward and every
-    new hook and tester builds (the nuScenes configs:
+    new hook and tester builds, and the pointops, the sparse helpers, the
+    VolSDF / UniSurf render modules and the ply writers import (the
+    nuScenes configs:
     ``test_nuscenes_configs_run_without_jax``),
     with jax/jaxlib/flax/optax/ponderv2_tpu blocked; no port source
     names them in an import statement."""

@@ -226,7 +226,29 @@ repo around it, and runs in phases; any failure exits non-zero:
     steps (each step's K1-K3 launches 9's routing, ``contract_ok``, finite
     losses), one step's grads kernel vs plain at 11's bound with the same
     draws, then one step of ``NeuSModel`` with ``UniSurfSampler``;
-22. print times and peak memory, a JSON line of the kernels, and last
+22. data parallelism (``parallel/mesh.py``, ``engines/launch.py``): (a) in
+    this process, a process group of one over NCCL: one step of the
+    ScanNet SpUNet-v1m1 recipe (``DP_CONFIG``, batch 12, on phase 14's
+    scene files) through the trainer's data-parallel branch (DDP) equals
+    the single-process step bit for bit (loss, every grad, parameters,
+    running statistics), and one NCCL allreduce of the grads' volume timed
+    under ``torch.profiler``; then ``launch`` spawns two ranks sharing
+    the card over gloo, each running (b) the same recipe at its global
+    batch of 12, 6 a rank, 3 steps and one more with SyncBN: every step's
+    K1-K3 launches as the rank's own batch routes them, ``contract_ok``
+    the ranks' minimum and the two replicas equal bit for bit; the first
+    step's grads against the mean of both shards' grads computed in rank
+    0's process and the running statistics against the mean of both
+    shards' moves; in the SyncBN step each BN's statistics against one
+    forward over both shards' valid rows; the DP step's grads kernel vs
+    plain with the relus pinned, each within phase 7's 1e-4 of its
+    max|ref|, and one gloo allreduce of the grads' volume timed under
+    ``torch.profiler``; and (c) two steps of
+    ``configs/_test_/pretrain_bench_torch.py`` (bf16, one scene a rank,
+    the eikonal double backward under DDP): the ranks' ray draws differ,
+    rank 0's are one process's, the replicas stay equal; per rank the
+    step ms, peak memory and launches, and the phase's wall time;
+23. print times and peak memory, a JSON line of the kernels, and last
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -355,6 +377,12 @@ ORIGIN_VAL_SCENES = 2
 # f32 coordinates, of 2 d (|q| + |r|) + d^2 (what rounding q and r to f32
 # and the sum's own rounding can move d^2 by)
 NEAR_TIE = 16 * 2.0 ** -24
+# phase 22: data parallelism, the ScanNet SpUNet-v1m1 recipe on phase 14's
+# scene files; loader workers a process (the recipe's 12, for two ranks on
+# the 8-CPU host) and each rank's share of the card's memory
+DP_CONFIG = os.path.join(ROOT, "configs/scannet/semseg-spunet-v1m1-0-base.py")
+DP_WORKERS = 3
+DP_MEMORY_FRACTION = 0.45
 SEED = 0
 # band convs per forward of SpUNet-v1m1 at ScanNet's sparse_shape, from the
 # routing (models/sparse_unet/layers.py:subm_route): L0 runs the last decoder
@@ -3263,6 +3291,554 @@ def parent_probe_times(path):
         return {m[1]: float(m[2]) for m in map(line.match, f) if m}
 
 
+def dp_recipe(data_root, save_path, **options):
+    """``DP_CONFIG`` (the ScanNet SpUNet-v1m1 recipe) on scenes under
+    ``data_root``: its data roots, one epoch, no weight, no evaluation or
+    hooks (the phase drives ``Trainer.run_step`` itself), ``DP_WORKERS``
+    loader workers a process, the save path, and ``options``. Model,
+    criteria, optimizer, transforms, global batch and budgets stay the
+    recipe's."""
+    from ponderv2_tpu_torch.engines.defaults import default_config_parser
+
+    cfg = default_config_parser(DP_CONFIG, {
+        "data.train.data_root": data_root, "data.val.data_root": data_root,
+        "data.test.data_root": data_root, "epoch": 1, "eval_epoch": 1, "weight": None,
+        "evaluate": False, "num_worker": DP_WORKERS, "save_path": save_path, **options})
+    cfg.hooks = []
+    cfg.seed = SEED
+    return cfg
+
+
+def model_digest(model):
+    """sha256 of the bytes of every parameter and buffer of ``model``."""
+    import hashlib
+
+    import torch
+
+    digest = hashlib.sha256()
+    for name, t in list(model.named_parameters()) + list(model.named_buffers()):
+        digest.update(name.encode())
+        digest.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy())
+    return digest.hexdigest()
+
+
+def allreduce_ranges(prof):
+    """The profiler's events that name an allreduce (gloo / NCCL ranges,
+    NCCL kernels): {name: (calls, host ms, device ms)}."""
+    rows = {}
+    for e in prof.key_averages():
+        key = e.key.lower()
+        if "allreduce" in key or "all_reduce" in key:
+            device_us = getattr(e, "device_time_total", None)
+            if device_us is None:
+                device_us = getattr(e, "cuda_time_total", 0.0)
+            rows[e.key] = (e.count, e.cpu_time_total / 1e3, device_us / 1e3)
+    return rows
+
+
+class CoreTimer:
+    """While entered, CUDA events around every K1-K3 call (the band cores of
+    ``ops/band_conv.py``, looked up at each call); ``ms()``: each core's
+    summed device ms, from one stream's events, so that a rank sharing the
+    card counts the time its calls took beside the other's."""
+
+    def __enter__(self):
+        from ponderv2_tpu_torch.ops import band_conv as bc
+
+        self.saved = {name: getattr(bc, name) for name in BAND_CORES}
+        self.events = {name: [] for name in BAND_CORES}
+        for name, fn in self.saved.items():
+            setattr(bc, name, self._timed(name, fn))
+        return self
+
+    def _timed(self, name, fn):
+        import torch
+
+        def timed(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.events[name].append((start, end))
+            return out
+
+        return timed
+
+    def __exit__(self, *exc):
+        from ponderv2_tpu_torch.ops import band_conv as bc
+
+        for name, fn in self.saved.items():
+            setattr(bc, name, fn)
+
+    def ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return [sum(s.elapsed_time(e) for s, e in self.events[name]) for name in BAND_CORES]
+
+
+def timed_allreduce(model, dev, reps=3):
+    """One allreduce of a f32 buffer as large as ``model``'s parameters (the
+    gradients DDP sums a step) on the process group's backend, ``reps``
+    times under ``torch.profiler``, each waited for: (the median ms, its
+    MiB, the profiler's allreduce ranges of the ``reps`` calls)."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from ponderv2_tpu_torch.utils import comm
+
+    buf = torch.ones(sum(p.numel() for p in model.parameters()), device=dev)
+    times = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            comm.synchronize()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            dist.all_reduce(buf)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t))
+    return sorted(times)[len(times) // 2], 4 * buf.numel() / 2 ** 20, allreduce_ranges(prof)
+
+
+def ranges_note(rows):
+    return "; ".join(f"{k} x{c} host {h:.2f} ms device {d:.2f} ms"
+                     for k, (c, h, d) in rows.items())
+
+
+def dp_kernel_vs_plain(tag, gmodel, inputs, expect):
+    """One forward and backward of the DDP-wrapped ``gmodel`` through the
+    plain versions, every relu's decision recorded (``PinnedRelu``), then
+    one through the kernels taking those decisions: the loss within 1e-5
+    of the plain path's and every averaged gradient within phase 7's 1e-4
+    of its max|ref|."""
+    from ponderv2_tpu_torch.ops import band_conv as bc
+
+    pin = PinnedRelu()
+    plain_cores = {name: getattr(bc, f"{name}_plain") for name in BAND_CORES}
+    loss_p, grads_p, launched_p, secs_p = pin.run(
+        "record", lambda: step_grads(gmodel, inputs, plain_cores))
+    loss_k, grads_k, launched_k, secs_k = pin.run("replay", lambda: step_grads(gmodel, inputs))
+    check(launched_k == expect and launched_p == [0, 0, 0],
+          f"{tag}: launches kernel path {launched_k}, plain path {launched_p}")
+    check(sorted(grads_k) == sorted(grads_p), f"{tag}: grads of other params")
+    check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), f"{tag}: loss {loss_k} vs {loss_p}")
+    rel = {n: (grads_k[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+           for n, g in grads_p.items()}
+    worst = max(rel, key=rel.get)
+    check(rel[worst] <= 1e-4, f"{tag}: grad {worst} kernel vs plain {rel[worst]:.3e} of max|ref|")
+    print(f"[grad] {tag}: the DP step kernel vs plain, relus pinned ({pin.flips} decisions "
+          f"the kernel path's own forward makes otherwise): loss {loss_k:.7f} / {loss_p:.7f}, "
+          f"every one of {len(rel)} averaged grads within 1e-4 of its max|ref|, worst {worst} "
+          f"{rel[worst]:.3e}; forward+backward {1e3 * secs_k:.1f} ms with the kernels, "
+          f"{1e3 * secs_p:.1f} ms plain", flush=True)
+    return rel[worst]
+
+
+def recorded_steps(trainer):
+    """Wrap ``trainer``'s optimizer step and metric reduction: returns a dict
+    whose ``grads`` each step's (averaged) grads fill, and ``local`` each
+    step's metrics before the ranks reduce them."""
+    from ponderv2_tpu_torch.engines import train as engine
+
+    seen = {"grads": [], "local": []}
+    step = trainer.optimizer.step
+    reduce = engine.reduce_metrics
+
+    def recorded_step(*args, **kwargs):
+        seen["grads"].append({n: p.grad.detach().clone()
+                              for n, p in trainer.model.named_parameters()})
+        return step(*args, **kwargs)
+
+    def recorded_reduce(metrics, keys=()):
+        seen["local"].append({k: float(v) for k, v in metrics.items()})
+        return reduce(metrics, keys)
+
+    trainer.optimizer.step = recorded_step
+    engine.reduce_metrics = recorded_reduce
+    seen["restore"] = lambda: setattr(engine, "reduce_metrics", reduce)
+    return seen
+
+
+def dp_world_one(dev, data_root, tmp):
+    """22 (a): one step of ``DP_CONFIG`` at its global batch of 12 through
+    the data-parallel branch (DDP over NCCL in a world of one) and through
+    the single-process trainer, from one seeded state on one batch: loss,
+    every grad, the parameters and the running statistics equal bit for
+    bit. The DP step is run once more under ``torch.profiler`` for its
+    allreduce ranges."""
+    import torch
+    import torch.distributed as dist
+
+    from ponderv2_tpu_torch.engines.launch import _free_port
+    from ponderv2_tpu_torch.engines.train import TRAINERS
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    runs, batch = {}, None
+    try:
+        for dp in (False, True):
+            cfg = dp_recipe(data_root, os.path.join(tmp, f"dp_one_{dp}"), data_parallel=dp)
+            cfg.device = str(dev)
+            trainer = TRAINERS.build(dict(type="Trainer", cfg=cfg))
+            check(trainer.data_parallel == dp and trainer.num_devices == 1,
+                  f"dp {dp}: branch {trainer.data_parallel}, {trainer.num_devices} ranks")
+            if batch is None:
+                batch = next(iter(trainer.train_loader))
+            seen = recorded_steps(trainer)
+            trainer.comm_info["input_dict"] = batch
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                trainer.run_step()
+                metrics = trainer.sync_metrics()
+            finally:
+                seen["restore"]()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t)
+            runs[dp] = dict(metrics=metrics, grads=seen["grads"][0], ms=ms,
+                            state={k: v.clone() for k, v in trainer.model.state_dict().items()},
+                            ddp=type(trainer.step_model).__name__)
+            if dp:
+                comm_ms, mib, rows = timed_allreduce(trainer.model, dev)
+                runs[dp].update(rows=rows, comm_ms=comm_ms, mib=mib)
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    one, ddp = runs[False], runs[True]
+    check(ddp["ddp"] == "DistributedDataParallel", f"the DP branch's model: {ddp['ddp']}")
+    check(one["metrics"] == ddp["metrics"],
+          f"world of one: metrics {one['metrics']} vs DP {ddp['metrics']}")
+    unequal = [n for n, g in one["grads"].items() if not torch.equal(g, ddp["grads"][n])]
+    unequal += [n for n, v in one["state"].items() if not torch.equal(v, ddp["state"][n])]
+    check(not unequal, f"world of one: {len(unequal)} grads / state entries differ from the "
+                       f"single-process step, e.g. {unequal[:3]}")
+    print(f"[dp] (a) NCCL, a world of one, batch 12: the DP step equals the single-process "
+          f"step bit for bit (loss {one['metrics']['loss']:.7f}, {len(one['grads'])} grads, "
+          f"{len(one['state'])} parameters and statistics); step {ddp['ms']:.1f} ms (DP) vs "
+          f"{one['ms']:.1f} ms (one process); one NCCL allreduce of the {ddp['mib']:.1f} MiB of "
+          f"f32 grads {ddp['comm_ms']:.3f} ms ({100 * ddp['comm_ms'] / ddp['ms']:.2f}% of the "
+          f"DP step), the profiler's ranges over 3: {ranges_note(ddp['rows'])}", flush=True)
+    return dict(ms_one=one["ms"], ms_dp=ddp["ms"], comm_ms=ddp["comm_ms"])
+
+
+def dp_fine_tune_rank(dev, data_root, save_path, rank):
+    """22 (b) on one of two ranks sharing the card over gloo: ``DP_CONFIG``
+    at its global batch of 12 (6 a rank), 3 steps without SyncBN and one
+    with. Checks every step: the K1-K3 launches this rank's batch routes
+    to (phase 6's routing), ``contract_ok`` the minimum of the ranks',
+    equal bits on both ranks after the step; the first step's grads equal
+    the mean of both shards' grads computed in rank 0's process and the
+    running statistics the mean of both shards' moves; in the SyncBN step
+    every BN's statistics equal those of one forward over both shards'
+    valid rows. Then the DP step's grads kernel vs plain
+    (``dp_kernel_vs_plain``), and one allreduce of the grads' volume timed
+    under the profiler."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from ponderv2_tpu_torch.engines.common import split_batch
+    from ponderv2_tpu_torch.engines.defaults import default_setup
+    from ponderv2_tpu_torch.engines.train import TRAINERS
+    from ponderv2_tpu_torch.models import norm
+    from ponderv2_tpu_torch.models.default import batch_to_sparse_tensor
+    from ponderv2_tpu_torch.ops import band_conv as bc
+    from ponderv2_tpu_torch.ops.sparse import maybe_sort_by_key
+    from ponderv2_tpu_torch.utils import comm
+
+    tag = f"[dp] (b) rank {rank}:"
+    cfg = default_setup(dp_recipe(data_root, save_path))
+    cfg.device = str(dev)
+    trainer = TRAINERS.build(dict(type="Trainer", cfg=cfg))
+    check(trainer.data_parallel and trainer.num_devices == 2
+          and trainer.static_ctx["batch_size"] == 6, f"{tag} the DP branch's set-up")
+    seen = recorded_steps(trainer)
+    loader = iter(trainer.train_loader)
+    out = dict(step_ms=[], launches=[], peak_gib=[])
+
+    def inputs_of(batch):
+        arrays = trainer._to_device(batch)
+        return {**arrays, **trainer.static_ctx}
+
+    def bn_stats_of(fn):
+        """Each MaskedBatchNorm's (mean, var) in ``fn``'s forward, in order."""
+        rec, batch_stats = [], norm.MaskedBatchNorm.batch_stats
+
+        def recording(self, x, mask):
+            mean, var = batch_stats(self, x, mask)
+            if self.training and not norm._RECOMPUTING[0]:
+                rec.append((mean.detach().clone(), var.detach().clone()))
+            return mean, var
+
+        norm.MaskedBatchNorm.batch_stats = recording
+        try:
+            fn()
+        finally:
+            norm.MaskedBatchNorm.batch_stats = batch_stats
+        return rec
+
+    try:
+        for i in range(4):
+            try:
+                batch = next(loader)
+            except StopIteration:
+                loader = iter(trainer.train_loader)
+                batch = next(loader)
+            sync = i == 3
+            trainer.sync_bn = sync
+            inputs = inputs_of(batch)
+            st, _ = maybe_sort_by_key(batch_to_sparse_tensor(inputs))
+            per_step = spunet_routing(trainer.model, inputs, st)[4]
+            batches = comm.all_gather({k: v for k, v in batch.items()}) if i in (0, 3) else None
+            pre = copy.deepcopy(trainer.model) if rank == 0 and i in (0, 3) else None
+            before = [k.launches for k in bc.KERNELS]
+            torch.cuda.reset_peak_memory_stats(dev)
+            trainer.comm_info["input_dict"] = batch
+            comm.synchronize()  # a step's time starts on both ranks at once
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if sync:
+                stats_dp = bn_stats_of(trainer.run_step)
+            elif i == 1:
+                with CoreTimer() as timer:
+                    trainer.run_step()
+                out["core_ms"] = timer.ms()
+            else:
+                trainer.run_step()
+            metrics = trainer.sync_metrics()
+            torch.cuda.synchronize()
+            out["step_ms"].append(1e3 * (time.perf_counter() - t))
+            out["peak_gib"].append(torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+            launched = [k.launches - b for k, b in zip(bc.KERNELS, before)]
+            out["launches"].append(launched)
+            check(launched == per_step, f"{tag} step {i}: launches {launched} != this "
+                                        f"rank's routing {per_step}")
+            local = comm.all_gather(seen["local"][-1]["contract_ok"])
+            check(metrics["contract_ok"] == min(local) == 1.0,
+                  f"{tag} step {i}: contract_ok {metrics['contract_ok']}, ranks' {local}")
+            digests = comm.all_gather(model_digest(trainer.model))
+            check(digests[0] == digests[1], f"{tag} step {i}: the replicas differ")
+            print(f"{tag} step {i}{' (SyncBN)' if sync else ''}: loss {metrics['loss']:.6f} "
+                  f"(this rank's {seen['local'][-1]['loss']:.6f}) lr {metrics['lr']:.6e} "
+                  f"contract_ok {metrics['contract_ok']} launches {launched}, "
+                  f"{out['step_ms'][-1]:.1f} ms, peak {out['peak_gib'][-1]:.3f} GiB; "
+                  "the replicas equal bit for bit", flush=True)
+            if i == 0 and rank == 0:
+                # both shards' grads and moves, one after the other in this process
+                grads, moves = [], []
+                for shard in batches:
+                    ref = copy.deepcopy(pre)
+                    ref.train()
+                    out_ref = ref(inputs_of(shard))
+                    out_ref["loss"].backward()
+                    grads.append({n: p.grad if p.grad is not None else torch.zeros_like(p)
+                                  for n, p in ref.named_parameters()})
+                    moves.append({n: b for n, b in ref.named_buffers() if "running" in n})
+                    del ref, out_ref
+                got = seen["grads"][0]
+                gerr = max((got[n] - (g + grads[1][n]) / 2).abs().max().item()
+                           / max(g.abs().max().item(), grads[1][n].abs().max().item(), 1e-30)
+                           for n, g in grads[0].items())
+                state = trainer.model.state_dict()
+                serr = max((state[n] - (m + moves[1][n]) / 2).abs().max().item()
+                           for n, m in moves[0].items())
+                check(gerr <= 2.0 ** -22 and serr <= 2.0 ** -21,
+                      f"{tag} step 0: grads {gerr:.3e} of max|shard grad| off the mean of "
+                      f"both shards', running statistics {serr:.3e} off the mean of both moves")
+                print(f"{tag} step 0: the DP grads against the mean of both shards' grads in "
+                      f"one process: {gerr:.3e} of max|grad| (equal bits where 0); running "
+                      f"statistics against the mean of both shards' moves: {serr:.3e}",
+                      flush=True)
+                out["mean_grad_err"], out["mean_stat_err"] = gerr, serr
+                del grads, moves
+            if sync and rank == 0:
+                # one forward over both shards' valid rows: the ranks' first
+                # rows, then the second's (scenes renumbered), padding last
+                parts = [split_batch(b)[0] for b in batches]
+                keys = [k for k in parts[0] if parts[0][k].shape[:1] == parts[0]["batch"].shape]
+                live = [np.asarray(p["batch"]) >= 0 for p in parts]
+                whole = {}
+                for k in keys:
+                    vals = [np.asarray(p[k]) for p in parts]
+                    if k == "batch":
+                        vals = [vals[0], np.where(live[1], vals[1] + 6, -1)]
+                    whole[k] = np.concatenate([vals[0][live[0]], vals[1][live[1]],
+                                               vals[0][~live[0]], vals[1][~live[1]]])
+                ref = copy.deepcopy(pre)
+                ref.train()
+                ref_inputs = {**{k: torch.as_tensor(v, device=dev) for k, v in whole.items()},
+                              **trainer.static_ctx, "batch_size": 12}
+                with torch.no_grad():
+                    stats_ref = bn_stats_of(lambda: ref(ref_inputs))
+                check(len(stats_ref) == len(stats_dp) > 0,
+                      f"{tag} SyncBN: {len(stats_dp)} BN calls vs {len(stats_ref)}")
+                worst = max(max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                                for a, b in zip(dp_pair, ref_pair))
+                            for dp_pair, ref_pair in zip(stats_dp, stats_ref))
+                check(worst <= 1e-4, f"{tag} SyncBN: BN statistics {worst:.3e} of max|ref| "
+                                     "off those over both shards' rows")
+                print(f"{tag} SyncBN step: each of {len(stats_dp)} BN calls' statistics "
+                      f"within {worst:.3e} of max|ref| of one forward over both shards' "
+                      f"{int(sum(l.sum() for l in live))} valid rows", flush=True)
+                out["sync_stat_err"] = worst
+                del ref, ref_inputs
+            del pre, batches
+        # the DP step kernel vs plain, from the trained state, relus pinned
+        trainer.sync_bn = False
+        out["kernel_vs_plain"] = dp_kernel_vs_plain(f"dp rank {rank}", trainer.step_model,
+                                                    inputs, per_step)
+    finally:
+        seen["restore"]()
+    # the allreduce of one step's grads over gloo, timed and under the profiler
+    out["comm_ms"], mib, rows = timed_allreduce(trainer.model, dev)
+    out["comm_share"] = out["comm_ms"] / sorted(out["step_ms"])[len(out["step_ms"]) // 2]
+    print(f"{tag} one gloo allreduce of the {mib:.1f} MiB of f32 grads (two ranks on the "
+          f"card: device to host, sum, host to device) {out['comm_ms']:.1f} ms, "
+          f"{100 * out['comm_share']:.1f}% of the median step; the profiler's ranges over 3: "
+          f"{ranges_note(rows)}", flush=True)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_pretrain_rank(dev, save_path, rank):
+    """22 (c) on one of two ranks: 2 steps of ``PRETRAIN_CONFIG`` (bench.py's
+    PonderIndoor-v2 workload, bf16, the eikonal term's double backward in
+    every forward) at its global batch of 2, one scene a rank. Checks: each
+    rank's ray draws differ from the other's, rank 0's are a world of one's,
+    the replicas equal bit for bit after each step, finite loss and
+    ``contract_ok``, the K1-K3 launches of this rank's routing."""
+    import torch
+
+    from ponderv2_tpu_torch.engines.defaults import default_config_parser, default_setup
+    from ponderv2_tpu_torch.engines.train import TRAINERS
+    from ponderv2_tpu_torch.models.default import batch_to_sparse_tensor
+    from ponderv2_tpu_torch.ops import band_conv as bc
+    from ponderv2_tpu_torch.ops.sparse import maybe_sort_by_key
+    from ponderv2_tpu_torch.utils import comm
+
+    tag = f"[dp] (c) rank {rank}:"
+    cfg = default_config_parser(PRETRAIN_CONFIG, {"save_path": save_path, "hooks": []})
+    cfg.seed = SEED
+    cfg = default_setup(cfg)
+    cfg.device = str(dev)
+    trainer = TRAINERS.build(dict(type="Trainer", cfg=cfg))
+    check(trainer.data_parallel and trainer.static_ctx["batch_size"] == 1,
+          f"{tag} the DP branch's set-up")
+    out = dict(step_ms=[], launches=[], peak_gib=[])
+    for i, batch in enumerate(trainer.train_loader):
+        if i == 2:
+            break
+        inputs = {**trainer._to_device(batch), **trainer.static_ctx}
+        _, views, h, w = inputs["depth"].shape
+        draws = trainer.model.draw_noise(trainer.step_generator(), 1, views, h * w)
+        mine = torch.cat([v.float().reshape(-1) for v in draws.values()
+                          if torch.is_tensor(v)]).cpu()
+        others = comm.all_gather(mine)
+        check(not torch.equal(others[0], others[1]), f"{tag} step {i}: both ranks draw alike")
+        if rank == 0:
+            one = trainer.model.draw_noise(torch.Generator(device=dev).manual_seed(
+                (SEED << 32) | trainer.step), 1, views, h * w)
+            check(all(torch.equal(one[k], v) for k, v in draws.items() if torch.is_tensor(v)),
+                  f"{tag} step {i}: rank 0 draws otherwise than one process")
+        st, _ = maybe_sort_by_key(batch_to_sparse_tensor(inputs))
+        level_rb = level_plans(trainer.model.backbone, st)[0]
+        per_step = band_routing(trainer.model.backbone, level_rb)[2]
+        before = [k.launches for k in bc.KERNELS]
+        torch.cuda.reset_peak_memory_stats(dev)
+        trainer.comm_info["input_dict"] = batch
+        comm.synchronize()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with CoreTimer() as timer:
+            trainer.run_step()
+        out["core_ms"] = timer.ms()
+        metrics = trainer.sync_metrics()
+        torch.cuda.synchronize()
+        out["step_ms"].append(1e3 * (time.perf_counter() - t))
+        out["peak_gib"].append(torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+        launched = [k.launches - b for k, b in zip(bc.KERNELS, before)]
+        out["launches"].append(launched)
+        check(launched == per_step, f"{tag} step {i}: launches {launched} != {per_step}")
+        check(math.isfinite(metrics["loss"]) and metrics["contract_ok"] == 1.0,
+              f"{tag} step {i}: loss {metrics['loss']} contract_ok {metrics['contract_ok']}")
+        digests = comm.all_gather(model_digest(trainer.model))
+        check(digests[0] == digests[1], f"{tag} step {i}: the replicas differ")
+        print(f"{tag} step {i}: loss {metrics['loss']:.6f} "
+              + " ".join(f"{k} {metrics[k]:.4f}" for k in cfg.metric_keys if k in metrics)
+              + f" launches {launched}, {out['step_ms'][-1]:.1f} ms, peak "
+              f"{out['peak_gib'][-1]:.3f} GiB; ray draws differ between the ranks, rank 0's "
+              "are one process's; the replicas equal bit for bit", flush=True)
+    check(len(out["step_ms"]) == 2, f"{tag} {len(out['step_ms'])} steps")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_rank(job):
+    """The body of each of phase 22's two ranks (spawned by
+    ``engines/launch.py:launch`` over gloo, both on ``job["device"]``): (b)
+    then (c); writes what it measured to ``{job["out"]}/rank{r}.pt``."""
+    import torch
+
+    from ponderv2_tpu_torch.utils import comm
+
+    rank = comm.get_rank()
+    dev = torch.device(job["device"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_per_process_memory_fraction(DP_MEMORY_FRACTION, dev)
+    t = time.perf_counter()
+    out = dict(b=dp_fine_tune_rank(dev, job["data_root"], os.path.join(job["out"], "b"), rank))
+    out["b_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["c"] = dp_pretrain_rank(dev, os.path.join(job["out"], f"c{rank}"), rank)
+    out["c_s"] = time.perf_counter() - t
+    torch.save(out, os.path.join(job["out"], f"rank{rank}.pt"))
+
+
+def data_parallel_phase(dev, tmp):
+    """Phase 22: (a) in this process, then (b) and (c) on two ranks that
+    ``launch`` spawns on this card over gloo. Returns the ranks' records
+    and (a)'s numbers."""
+    import torch
+
+    from ponderv2_tpu_torch.engines.launch import launch
+
+    data_root = os.path.join(tmp, "ppt_scannet")  # phase 14's scene files
+    check(len(os.listdir(os.path.join(data_root, "train"))) == PPT_TRAIN_SCENES,
+          "phase 14's scene files")
+    a = dp_world_one(dev, data_root, tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = os.path.join(tmp, "dp_ranks")
+    os.makedirs(out, exist_ok=True)
+    t = time.perf_counter()
+    launch(dp_rank, num_gpus_per_machine=2, backend="gloo",
+           cfg=(dict(data_root=data_root, out=out, device=str(dev)),))
+    spawned_s = time.perf_counter() - t
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    for r, rec in enumerate(ranks):
+        print(f"[dp] rank {r}: (b) {rec['b_s']:.1f} s, steps "
+              f"{', '.join(f'{t:.1f}' for t in rec['b']['step_ms'])} ms, peak "
+              f"{max(rec['b']['peak_gib']):.3f} GiB, launches {rec['b']['launches']}, gloo "
+              f"allreduce of the grads {rec['b']['comm_ms']:.1f} ms "
+              f"({100 * rec['b']['comm_share']:.1f}% of the median step), K1/K2/K3 "
+              f"{', '.join(f'{t:.3f}' for t in rec['b']['core_ms'])} ms in step 1; (c) "
+              f"{rec['c_s']:.1f} s, steps {', '.join(f'{t:.1f}' for t in rec['c']['step_ms'])} "
+              f"ms, peak {max(rec['c']['peak_gib']):.3f} GiB, launches {rec['c']['launches']}, "
+              f"K1/K2/K3 {', '.join(f'{t:.3f}' for t in rec['c']['core_ms'])} ms in step 1")
+    print(f"[dp] the two ranks, spawned to joined: {spawned_s:.1f} s")
+    return dict(a=a, ranks=ranks, spawned_s=spawned_s)
+
+
 def main() -> int:
     import torch
 
@@ -3842,7 +4418,12 @@ def main() -> int:
         del scene0
         phase_done("21 origin-point evaluation, pointops, VolSDF and UniSurf")
 
-        # ---- 22. output
+        # ---- 22. data parallelism: a world of one over NCCL, then two ranks
+        # sharing the card over gloo
+        dp = data_parallel_phase(dev, tmp)
+        phase_done("22 data parallel")
+
+        # ---- 23. output
         print(f"[time] per fine-tune step at batch {tcfg.batch_size} (f32): "
               + "; ".join(f"{name} {stats[name]['ms']:.3f} ms vs plain "
                           f"{stats[name]['plain_ms']:.3f} ms (bound "
@@ -3926,6 +4507,14 @@ def main() -> int:
                 row["minkunet34c_serving_launches"] = mink["serve_launches"][i]
                 row["classifier"] = entry(name, clf["train_launches"][i], cls_stats[name])
                 row["classifier"]["launches_per_step"] = clf["per_step"][i]
+                # phase 22 (b) / (c): each rank's launches a step
+                row["data_parallel"] = {
+                    "fine_tune_launches_per_rank_step": [
+                        [step[i] for step in r["b"]["launches"]] for r in dp["ranks"]],
+                    "fine_tune_ms_per_rank_step": [r["b"]["core_ms"][i] for r in dp["ranks"]],
+                    "pretrain_launches_per_rank_step": [
+                        [step[i] for step in r["c"]["launches"]] for r in dp["ranks"]],
+                    "pretrain_ms_per_rank_step": [r["c"]["core_ms"][i] for r in dp["ranks"]]}
             kernels.append(row)
         # the probe kernels: one row per ported probe function, its launches
         # from its own run through the entry point

@@ -6,6 +6,11 @@ A copy of ``build_dataloader`` (with ``_worker_init`` and
 only the import lines changed (see ``transform.py`` for why it is a copy),
 and ``MultiDatasetDataloader``, the round-robin loader of the multi-dataset
 pretrain, with the three differences its docstring lists.
+
+Under data parallelism each rank has a loader of its own
+(``build_rank_dataloader``): where JAX's one process collates every device's
+group of a global batch (``build_dataloader(num_shards=D)``), rank d loads
+and collates only group d, and yields what slice d of that batch holds.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import numpy as np
 
 from ..utils.env import derive_seed
 from .defaults import ConcatDataset
-from .utils import point_collate_fn
+from .utils import point_collate_fn, shard_collate_fn
 
 
 def _worker_init(worker_id: int, base_seed: int = 0):
@@ -67,6 +72,66 @@ class _TorchDatasetAdapter:
         return len(self.dataset)
 
 
+class _ShardBatchSampler:
+    """Rank ``shard``'s group of each global batch of ``batch_sampler``: the
+    contiguous ``len(batch) // num_shards`` scenes ``sharded_collate_fn``
+    gives it (the first group where a short last batch leaves it none)."""
+
+    def __init__(self, batch_sampler, num_shards: int, shard: int):
+        if not 0 <= shard < num_shards or batch_sampler.batch_size % num_shards:
+            raise ValueError(f"shard {shard} of {num_shards} of batches of "
+                             f"{batch_sampler.batch_size} scenes")
+        self.batch_sampler, self.shard = batch_sampler, shard
+        self.per_shard = batch_sampler.batch_size // num_shards
+
+    def __iter__(self):
+        n = self.per_shard
+        for batch in self.batch_sampler:
+            yield batch[self.shard * n:(self.shard + 1) * n] or batch[:n]
+
+    def __len__(self):
+        return len(self.batch_sampler)
+
+
+def build_rank_dataloader(
+    dataset,
+    batch_size: int,
+    num_shards: int,
+    shard: int,
+    num_workers: int = 0,
+    shuffle: bool = False,
+    drop_last: bool = False,
+    point_budget: Optional[int] = None,
+    mix_prob: float = 0.0,
+    seed: int = 0,
+    persistent_workers: bool = False,
+):
+    """Rank ``shard``'s loader of the global batches of ``batch_size``
+    scenes that ``build_dataloader(..., num_shards=num_shards)`` collates
+    at once: it reads only its own group of each and collates it at the
+    per-shard budgets (``shard_collate_fn``). Every rank shuffles with a
+    generator seeded from ``seed``, which they share, so that they cut the
+    same global batches; the loader's workers seed their draws from
+    ``seed`` and the shard."""
+    import torch
+    import torch.utils.data as tud
+
+    adapter = _TorchDatasetAdapter(dataset)
+    sampler = (tud.RandomSampler(adapter, generator=torch.Generator().manual_seed(seed))
+               if shuffle else tud.SequentialSampler(adapter))
+    return tud.DataLoader(
+        adapter,
+        batch_sampler=_ShardBatchSampler(tud.BatchSampler(sampler, batch_size, drop_last),
+                                         num_shards, shard),
+        num_workers=num_workers,
+        collate_fn=partial(shard_collate_fn, num_shards=num_shards,
+                           point_budget=point_budget, scene_budget=batch_size,
+                           mix_prob=mix_prob),
+        worker_init_fn=partial(_worker_init, base_seed=derive_seed(seed, num_shards, shard)),
+        persistent_workers=persistent_workers and num_workers > 0,
+    )
+
+
 class MultiDatasetDataloader:
     """Round-robin over one ``build_dataloader`` per dataset of a
     ``ConcatDataset``: ``ratio_i`` consecutive batches from dataset i, where
@@ -89,6 +154,11 @@ class MultiDatasetDataloader:
         main batches and main ratio ``r0``. The JAX loader stops right after
         the main loader's last batch, before the other datasets' turns of
         that round, while its ``len()`` counts them.
+
+    With ``shard`` (a rank under data parallelism) each dataset's loader is
+    that rank's (``build_rank_dataloader``): every rank takes its turns in
+    the same order, so one global batch comes from one dataset and every
+    rank's part of it has the same ``condition``.
     """
 
     def __init__(
@@ -100,6 +170,7 @@ class MultiDatasetDataloader:
         mix_prob: float = 0.0,
         seed: int = 0,
         num_shards: int = 1,
+        shard: Optional[int] = None,
     ):
         self.datasets = concat_dataset.datasets
         self.ratios = [getattr(ds, "loop", 1) for ds in self.datasets]
@@ -122,7 +193,10 @@ class MultiDatasetDataloader:
                 mix_prob=mix_prob,
                 seed=derive_seed(seed, i),
                 num_shards=num_shards,
-            )
+            ) if shard is None else build_rank_dataloader(
+                ds, batch_size_per_dataset, num_shards, shard, num_workers=num_workers,
+                shuffle=True, drop_last=True, point_budget=point_budget,
+                mix_prob=mix_prob, seed=derive_seed(seed, i))
             for i, ds in enumerate(self.datasets)
         ]
 

@@ -1,10 +1,11 @@
 """Collation: variable-size scenes -> fixed-capacity padded batches.
 
 A copy of ``collate_fn`` from ``ponderv2_tpu/datasets/utils.py`` (see
-``transform.py`` for why it is a copy), and its train-loader alias
-``point_collate_fn`` with the single-shard branch only (the sharded collate
-belongs to the data-parallel trainer, not ported yet). Rows come out sorted
-by (batch, voxel key), padding last.
+``transform.py`` for why it is a copy), its train-loader alias
+``point_collate_fn`` and the data-parallel ``sharded_collate_fn`` (copies),
+and ``shard_collate_fn``: one rank's group of a global batch, equal to its
+slice of ``sharded_collate_fn``'s. Rows come out sorted by (batch, voxel
+key), padding last.
 
 One difference, a fault of the JAX function (ROADMAP Queue 3, F14): the
 ``origin_*`` keys (the original points that ``Copy`` keeps for projecting
@@ -163,7 +164,69 @@ def point_collate_fn(batch, point_budget=None, mix_prob=0.0, scene_budget=None,
                      num_shards=1):
     """Reference-named alias used by train loaders."""
     if num_shards > 1:
-        raise NotImplementedError("sharded collate (num_shards > 1) is not ported")
+        return sharded_collate_fn(
+            batch, num_shards, point_budget=point_budget, mix_prob=mix_prob,
+            scene_budget=scene_budget,
+        )
     return collate_fn(
         batch, point_budget=point_budget, mix_prob=mix_prob, scene_budget=scene_budget
     )
+
+
+def sharded_collate_fn(
+    batch: List[Mapping],
+    num_shards: int,
+    point_budget: Optional[int] = None,
+    mix_prob: float = 0.0,
+    scene_budget: Optional[int] = None,
+) -> Dict[str, Any]:
+    """Collate for data parallelism: split scenes into ``num_shards`` contiguous
+    groups, collate each independently (scenes never straddle devices — sparse
+    rulebooks stay exact per device), and stack to a leading (D, ...) axis.
+
+    Budgets are GLOBAL and divided evenly per shard. ``offset``/``batch_size``
+    are dropped (per-device ``batch`` ids carry the segment structure; the
+    per-device scene count is static ctx)."""
+    assert scene_budget is not None and point_budget is not None, (
+        "sharded collate needs explicit global point/scene budgets"
+    )
+    assert scene_budget % num_shards == 0, (scene_budget, num_shards)
+    per_scene = scene_budget // num_shards
+    per_point = point_budget // num_shards
+    subs = []
+    for d in range(num_shards):
+        scenes = batch[d * per_scene : (d + 1) * per_scene]
+        if not scenes:  # short batch: pad with a copy of the first scene group
+            scenes = batch[:per_scene]
+        sub = collate_fn(scenes, point_budget=per_point, mix_prob=mix_prob,
+                         scene_budget=per_scene)
+        sub.pop("offset", None)
+        sub.pop("batch_size", None)
+        subs.append(sub)
+    out: Dict[str, Any] = {}
+    for k, v0 in subs[0].items():
+        if isinstance(v0, np.ndarray):
+            out[k] = np.stack([s[k] for s in subs], axis=0)
+        else:
+            out[k] = v0
+    out["batch_size"] = per_scene
+    out["num_shards"] = num_shards
+    return out
+
+
+def shard_collate_fn(group: List[Mapping], num_shards: int, point_budget: int,
+                     scene_budget: int, mix_prob: float = 0.0) -> Dict[str, Any]:
+    """One rank's part of a global batch: its ``group`` of scenes (the
+    contiguous ``scene_budget // num_shards`` of them that
+    ``sharded_collate_fn`` gives it) collated at the per-shard budgets, as
+    ``sharded_collate_fn`` collates each group: its arrays are that
+    function's slice for this rank, with ``batch_size`` the scenes a rank
+    and ``num_shards``; the other keys are the group's own."""
+    if point_budget is None or scene_budget is None or scene_budget % num_shards:
+        raise ValueError(f"a rank's collate needs global point and scene budgets that "
+                         f"{num_shards} ranks divide: {point_budget}, {scene_budget}")
+    out = collate_fn(group, point_budget=point_budget // num_shards, mix_prob=mix_prob,
+                     scene_budget=scene_budget // num_shards)
+    out.pop("offset", None)
+    out["num_shards"] = num_shards
+    return out

@@ -160,6 +160,7 @@ class SemSegEvaluator(HookBase):
         storage.put_scalar("val/allAcc", all_acc, smoothing_hint=False)
         for split, v in split_metrics.items():
             storage.put_scalar(f"val/mIoU_{split}", v, smoothing_hint=False)
+        losses = [x for part in comm.all_gather(losses) for x in part]  # every rank's
         if losses:
             storage.put_scalar("val/loss", float(np.mean(losses)), smoothing_hint=False)
         trainer.comm_info["current_metric_value"] = m_iou
@@ -190,7 +191,11 @@ class ClsEvaluator(HookBase):
             inter_sum += inter
             union_sum += union
             target_sum += t
-        acc = float(inter_sum.sum() / (target_sum.sum() + 1e-10))
+        # the counters over the ranks, each of which scored its share of the
+        # val objects (the JAX evaluator scores every object on every process)
+        reduced = comm.reduce_dict({"i": inter_sum.sum(), "t": target_sum.sum()},
+                                   average=False)
+        acc = float(reduced["i"] / (reduced["t"] + 1e-10))
         trainer.logger.info(f"Val result: allAcc {acc:.4f}")
         trainer.storage.put_scalar("val/allAcc", acc, smoothing_hint=False)
         trainer.comm_info["current_metric_value"] = acc

@@ -10,9 +10,20 @@ built on the device inside the step; a config's ``host_plans`` key is
 accepted and has no effect. ``MultiDatasetTrainer`` trains on the
 round-robin ``MultiDatasetDataloader``. A run keys the scenes its datasets
 cache in shared memory (``cache=True``) on a key of its own
-(``cache_run``), and unlinks them when training ends or raises. Not ported
-yet: the data-parallel mesh branch and the host plan prefetch
-(``engines/plan_prefetch.py``).
+(``cache_run``), and unlinks them when training ends or raises.
+
+Data parallelism (JAX's mesh branch, ``parallel/mesh.py``): in a world of
+more than one rank (``engines/launch.py``) each rank trains on its group of
+every global batch of ``batch_size`` scenes, the model under DDP, with the
+gradients, loss, ``metric_keys`` and BN running statistics averaged over
+the ranks, ``contract_ok`` their minimum, and with ``sync_bn`` the masked
+BNs' statistics taken over all ranks. ``cfg.data_parallel`` (default: on
+where the world has more than one rank) turns the branch on in a world of
+one too; off in a larger world it raises. Each rank evaluates every
+``world``-th val scene. Checkpoints hold the model itself, not its DDP
+wrapper; each rank caches its scenes under its own run key, so that no
+rank unlinks a scene another still reads. Not ported: the host plan
+prefetch (``engines/plan_prefetch.py``).
 """
 
 from __future__ import annotations
@@ -23,10 +34,13 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..datasets import build_dataloader, build_dataset
-from ..datasets.dataloader import MultiDatasetDataloader
+from ..datasets.dataloader import MultiDatasetDataloader, build_rank_dataloader
 from ..datasets.defaults import set_cache_run
 from ..models import build_model
-from ..utils import cache
+from ..models.norm import bn_sync
+from ..parallel.mesh import (average_bn_stats, create_mesh, data_parallel_model,
+                             reduce_metrics)
+from ..utils import cache, comm
 from ..utils.config import Config
 from ..utils.events import EventStorage
 from ..utils.logger import get_root_logger
@@ -108,10 +122,27 @@ class Trainer(TrainerBase):
     initialized from ``cfg.seed`` (``reset_parameters``); a ``weight``
     checkpoint replaces them through the ``CheckpointLoader`` hook."""
 
+    # one process, unless ``__init__`` takes the data-parallel branch
+    data_parallel, sync_bn, num_devices, rank = False, False, 1, 0
+    step_model = None  # the model's DDP wrapper under data parallelism
+
     def __init__(self, cfg: Config):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(cfg)
+        # data parallelism: one rank a process (engines/launch.py)
+        world = comm.get_world_size()
+        dp = cfg.get("data_parallel", None)
+        self.data_parallel = world > 1 if dp is None else bool(dp)
+        if world > 1 and not self.data_parallel:
+            raise ValueError(f"data_parallel=False in a world of {world} ranks: every "
+                             "rank would train a model of its own")
+        self.num_devices = create_mesh(cfg.get("num_devices")) if self.data_parallel else 1
+        self.rank = comm.get_rank()
+        if cfg.batch_size % self.num_devices:
+            raise ValueError(f"batch_size {cfg.batch_size} not divisible by "
+                             f"{self.num_devices} ranks")
+        self.sync_bn = self.data_parallel and bool(cfg.get("sync_bn", False))
         self.max_epoch = cfg.eval_epoch  # loop-rebased epochs (engines/defaults.py)
         self.best_metric_value = -float("inf")
         self.logger = get_root_logger(
@@ -124,6 +155,12 @@ class Trainer(TrainerBase):
         self.model = build_model(dict(cfg.model))
         self.model.reset_parameters(torch.Generator().manual_seed(int(cfg.get("seed") or 0)))
         self.model.to(self.device)
+        # under data parallelism the train step calls the model's DDP wrapper
+        # (checkpoints and evaluation take the model itself)
+        if self.data_parallel:
+            self.step_model = data_parallel_model(self.model)
+            self.logger.info(f"=> Data parallel over {self.num_devices} ranks"
+                             f"{' with SyncBN' if self.sync_bn else ''}")
         n_params = sum(p.numel() for p in self.model.parameters())
         self.logger.info(f"Num params: {n_params}")
         self.logger.info("=> Building train dataset & loader ...")
@@ -142,14 +179,16 @@ class Trainer(TrainerBase):
     def build_static_ctx(self) -> Dict[str, Any]:
         ctx = dict(
             spatial_shape=tuple(self.cfg.get("sparse_shape", (1024, 1024, 1024))),
-            batch_size=int(self.cfg.batch_size),
+            # under data parallelism a rank's forward sees its own scenes
+            batch_size=int(self.cfg.batch_size) // self.num_devices,
         )
         ctx.update(self.cfg.get("static_ctx", {}))
         return ctx
 
     @property
     def val_static_ctx(self) -> Dict[str, Any]:
-        """The val loader collates ``batch_size_val`` scenes per batch."""
+        """The val loader collates ``batch_size_val`` scenes per batch (not
+        split over the ranks)."""
         ctx = dict(self.static_ctx)
         ctx["batch_size"] = int(self.cfg.get("batch_size_val", 1))
         ctx.update(self.cfg.get("static_ctx_val", {}))
@@ -159,6 +198,14 @@ class Trainer(TrainerBase):
         cfg = self.cfg
         dataset = build_dataset(dict(cfg.data.train))
         set_cache_run(dataset, self.cache_run)
+        if self.num_devices > 1:
+            if not cfg.get("point_budget"):
+                raise ValueError("data_parallel requires an explicit point_budget")
+            return build_rank_dataloader(
+                dataset, cfg.batch_size, self.num_devices, self.rank,
+                num_workers=cfg.get("num_worker", 0), shuffle=True, drop_last=True,
+                point_budget=cfg.get("point_budget"), mix_prob=cfg.get("mix_prob", 0.0),
+                seed=cfg.get("seed", 0))
         return build_dataloader(
             dataset,
             batch_size=cfg.batch_size,
@@ -177,6 +224,10 @@ class Trainer(TrainerBase):
             return None
         dataset = build_dataset(dict(cfg.data.val))
         set_cache_run(dataset, self.cache_run)
+        if self.num_devices > 1:
+            # every world-th scene, as the testers split theirs
+            dataset = torch.utils.data.Subset(
+                dataset, range(self.rank, len(dataset), self.num_devices))
         return build_dataloader(
             dataset,
             batch_size=cfg.get("batch_size_val", 1),
@@ -197,9 +248,12 @@ class Trainer(TrainerBase):
 
     def step_generator(self) -> torch.Generator:
         """The generator of this step's random draws (ray picks, sampler
-        jitter, mask salt), seeded from ``cfg.seed`` and the step, as the JAX
-        step folds the step into its key. Models without draws ignore it."""
+        jitter, mask salt), seeded from ``cfg.seed``, the step and the rank,
+        as the JAX step folds the step and the device into its key. Rank 0
+        draws what one process draws. Models without draws ignore it."""
         seed = (int(self.cfg.get("seed") or 0) << 32) | self.step
+        if self.rank:
+            seed ^= (self.rank * 0x9E3779B97F4A7C15) % 2 ** 64
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def run_step(self):
@@ -207,18 +261,23 @@ class Trainer(TrainerBase):
         lr = float(self.schedule(self.step))
         set_lr(self.optimizer, lr)
         self.model.train()
-        out = self.model({**inputs, **self.static_ctx,
-                          "generator": self.step_generator()})
+        with bn_sync(self.sync_bn):
+            model = self.model if self.step_model is None else self.step_model
+            out = model({**inputs, **self.static_ctx, "generator": self.step_generator()})
         out["loss"].backward()
         fill_missing_grads(self.optimizer)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         self.step += 1
+        metric_keys = self.cfg.get("metric_keys", ())
         metrics = {"loss": out["loss"].detach(), "lr": lr,
                    "contract_ok": out["contract_ok"]}
-        for k in self.cfg.get("metric_keys", ()):
+        for k in metric_keys:
             if k in out:
                 metrics[k] = out[k].detach()
+        if self.data_parallel:
+            average_bn_stats(self.model)
+            metrics = reduce_metrics(metrics, metric_keys)
         self.comm_info["metrics"] = metrics
 
     def eval_step(self, input_dict) -> Dict[str, torch.Tensor]:
@@ -263,4 +322,6 @@ class MultiDatasetTrainer(Trainer):
             point_budget=cfg.get("point_budget"),
             mix_prob=cfg.get("mix_prob", 0.0),
             seed=cfg.get("seed", 0),
+            num_shards=self.num_devices,
+            shard=self.rank if self.num_devices > 1 else None,
         )

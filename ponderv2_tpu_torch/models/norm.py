@@ -10,6 +10,11 @@ buffer names are torch ``BatchNorm1d``'s (``weight``, ``bias``,
 ``PDBatchNorm`` is the counterpart of ``norm.py:PDBatchNorm``: the
 Prompt-Driven BatchNorm of SpUNet-v1m3, one ``MaskedBatchNorm`` per condition
 (``bns.{i}``) and an optional FiLM ``modulation`` from a context embedding.
+
+``bn_sync`` is the counterpart of ``norm.py:bn_sync_axis``: within it every
+``MaskedBatchNorm`` (those of ``PDBatchNorm`` too) sums its statistics over
+the data-parallel processes (SyncBatchNorm), through the differentiable
+``utils/comm.py:all_reduce``.
 """
 
 from __future__ import annotations
@@ -20,20 +25,46 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ..utils import comm
+
 # > 0 while a forward runs again for the backward (activation checkpointing):
 # the running statistics moved in the first run and must not move twice
 _RECOMPUTING = [0]
+# > 0 within ``bn_sync(True)``: the batch statistics are summed over the
+# data-parallel processes
+_SYNC = [0]
 
 
 @contextlib.contextmanager
-def recomputing():
-    """Within: every ``MaskedBatchNorm`` normalizes with its batch statistics
-    but leaves its running statistics as they are."""
+def bn_sync(enabled: bool = True):
+    """Within (``enabled``): every ``MaskedBatchNorm`` in training takes its
+    statistics over the valid rows of all processes."""
+    _SYNC[0] += int(enabled)
+    try:
+        yield
+    finally:
+        _SYNC[0] -= int(enabled)
+
+
+@contextlib.contextmanager
+def _recompute(sync: int):
     _RECOMPUTING[0] += 1
+    outer, _SYNC[0] = _SYNC[0], sync
     try:
         yield
     finally:
         _RECOMPUTING[0] -= 1
+        _SYNC[0] = outer
+
+
+def recomputing():
+    """A context in which every ``MaskedBatchNorm`` normalizes with its batch
+    statistics but leaves its running statistics as they are. Made when
+    the checkpointed forward runs, entered when the backward runs it
+    again: the recompute then sums the statistics over the processes
+    exactly when the forward did (``bn_sync``), whatever context the
+    backward runs in, and every process recomputes in the same order."""
+    return _recompute(_SYNC[0])
 
 
 class MaskedBatchNorm(nn.Module):
@@ -63,7 +94,12 @@ class MaskedBatchNorm(nn.Module):
         m = mask.to(x.dtype)[:, None]
         s1 = (x * m).sum(0)
         s2 = (x * x * m).sum(0)
-        count = m.sum().clamp(min=1.0)
+        count = m.sum()
+        if _SYNC[0]:
+            s1, s2, count = comm.all_reduce(
+                torch.cat([s1, s2, count[None]])).split([s1.numel(), s2.numel(), 1])
+            count = count[0]
+        count = count.clamp(min=1.0)  # after the sum, as JAX clamps
         mean = s1 / count
         var = (s2 / count - mean * mean).clamp(min=0.0)
         if _RECOMPUTING[0]:

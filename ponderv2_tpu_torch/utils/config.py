@@ -181,6 +181,10 @@ class Config:
     def to_dict(self) -> Dict[str, Any]:
         return copy.deepcopy(dict(self._cfg_dict))
 
+    def __reduce__(self):
+        # pickled by value, as ``launch`` hands a config to the processes it spawns
+        return Config, (self.to_dict(), self._filename)
+
     # ---------------------------------------------------------------- merging
     def merge_from_dict(self, options: Dict[str, Any]) -> None:
         """Apply dotted-key overrides, e.g. ``{"data.train.loop": 2}``; a

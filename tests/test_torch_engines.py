@@ -385,27 +385,34 @@ def test_runtime_profiler_writes_a_trace_and_exits(tmp_path):
 
 
 def test_launch_runs_one_process(monkeypatch):
-    """``launch`` calls ``main_func(*cfg)``, also in a one-task SLURM job; an
-    environment that asks for more processes raises, as do more machines or
-    GPUs."""
+    """``launch`` calls ``main_func(*cfg)`` in this process, with no process
+    group, where one process is asked for: no environment, one GPU, a
+    one-task SLURM job, JAX's coordinator variables (they are
+    ``jax.distributed``'s), and any environment under
+    ``PONDER_DISABLE_DISTRIBUTED``. Several machines need an address
+    (``dist_url``). More processes: ``tests/test_torch_parallel.py``."""
+    import torch.distributed as dist
+
     calls = []
-    for var in (tlaunch._COORDINATOR_VARS + tlaunch._COUNT_VARS
-                + ("PONDER_DISABLE_DISTRIBUTED",)):
+
+    def main(*args):
+        calls.append((args, dist.is_initialized()))
+
+    for var in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "SLURM_NTASKS", "SLURM_PROCID",
+                "SLURM_LOCALID", "SLURM_JOB_NUM_NODES", "PONDER_DISABLE_DISTRIBUTED",
+                "COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS"):
         monkeypatch.delenv(var, raising=False)
-    tlaunch.launch(lambda *a: calls.append(a), cfg=(1, "x"))
-    assert calls == [(1, "x")] and tlaunch.slurm_launch is tlaunch.launch
-    monkeypatch.setenv("SLURM_JOB_NUM_NODES", "1")
-    monkeypatch.setenv("SLURM_NTASKS", "1")
-    tlaunch.launch(lambda *a: calls.append(a), cfg=(2,))
-    assert calls[-1] == (2,)
-    for var, value in (("WORLD_SIZE", "2"), ("SLURM_NTASKS", "4"), ("SLURM_JOB_NUM_NODES", "2"),
-                       ("JAX_COORDINATOR_ADDRESS", "localhost:1234")):
-        with monkeypatch.context() as env, pytest.raises(NotImplementedError, match="P14"):
-            env.setenv(var, value)
-            tlaunch.launch(lambda *a: calls.append(a), cfg=())
-    monkeypatch.setenv("WORLD_SIZE", "1")
-    with pytest.raises(NotImplementedError):
-        tlaunch.launch(lambda *a: calls.append(a), num_gpus_per_machine=2)
-    with pytest.raises(NotImplementedError):
-        tlaunch.launch(lambda *a: calls.append(a), num_machines=2)
-    assert len(calls) == 2
+    tlaunch.launch(main, cfg=(1, "x"))
+    tlaunch.launch(main, num_gpus_per_machine=1, cfg=(2,))
+    assert calls == [((1, "x"), False), ((2,), False)] and tlaunch.slurm_launch is tlaunch.launch
+    for env in ({"SLURM_JOB_NUM_NODES": "1", "SLURM_NTASKS": "1"},
+                {"JAX_COORDINATOR_ADDRESS": "localhost:1234"},
+                {"PONDER_DISABLE_DISTRIBUTED": "1", "WORLD_SIZE": "2", "RANK": "1"}):
+        with monkeypatch.context() as m:
+            for var, value in env.items():
+                m.setenv(var, value)
+            tlaunch.launch(main, cfg=(3,))
+        assert calls[-1] == ((3,), False), env
+    with pytest.raises(ValueError, match="dist_url"):
+        tlaunch.launch(main, num_gpus_per_machine=2, num_machines=2)
+    assert len(calls) == 5

@@ -4,7 +4,9 @@
         --options weight=/path/to/state_dict.pth save_path=exp/scannet-test
 
 ``weight`` is a file holding the port's SpUNet ``state_dict`` (reference
-PyTorch names). Runs on one GPU, or on the CPU with ``device=cpu``.
+PyTorch names). Runs on one GPU, or on the CPU with ``device=cpu``; with
+``--num-devices N`` (or under torchrun) N processes each test every N-th
+scene and reduce their metrics (``engines/launch.py``).
 """
 
 import os
@@ -17,6 +19,7 @@ from ponderv2_tpu_torch.engines.defaults import (  # noqa: E402
     default_config_parser,
     default_setup,
 )
+from ponderv2_tpu_torch.engines.launch import launch  # noqa: E402
 from ponderv2_tpu_torch.engines.test import TESTERS  # noqa: E402
 
 
@@ -34,7 +37,8 @@ def main_worker(cfg):
 def main():
     args = default_argument_parser().parse_args()
     cfg = default_config_parser(args.config_file, args.options)
-    main_worker(cfg)
+    launch(main_worker, num_gpus_per_machine=args.num_devices or 1, backend=args.backend,
+           cfg=(cfg,))
 
 
 if __name__ == "__main__":

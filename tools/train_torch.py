@@ -6,6 +6,18 @@
 Runs on one GPU, or on the CPU with ``device=cpu``. Writes ``train.log``,
 ``config.py`` and ``model/model_last.pth`` (the model's ``state_dict``, the
 optimizer's and the step) under ``save_path``.
+
+Data parallel over two GPUs of one machine (one process each, NCCL; the
+global ``batch_size`` split between them, ``engines/launch.py``), started
+by torchrun or by the script itself:
+
+    torchrun --nproc_per_node 2 tools/train_torch.py \
+        --config-file configs/scannet/semseg-spunet-v1m1-0-base.py \
+        --options save_path=exp/scannet-train
+    python tools/train_torch.py --num-devices 2 --config-file ... --options ...
+
+Two processes on one GPU need ``--backend gloo`` and ``device=cuda:0``;
+on the CPU, ``device=cpu`` (gloo).
 """
 
 import os
@@ -18,6 +30,7 @@ from ponderv2_tpu_torch.engines.defaults import (  # noqa: E402
     default_config_parser,
     default_setup,
 )
+from ponderv2_tpu_torch.engines.launch import launch  # noqa: E402
 from ponderv2_tpu_torch.engines.train import TRAINERS  # noqa: E402
 
 
@@ -35,7 +48,8 @@ def main_worker(cfg):
 def main():
     args = default_argument_parser().parse_args()
     cfg = default_config_parser(args.config_file, args.options)
-    main_worker(cfg)
+    launch(main_worker, num_gpus_per_machine=args.num_devices or 1, backend=args.backend,
+           cfg=(cfg,))
 
 
 if __name__ == "__main__":

@@ -8,8 +8,10 @@ pretrain from RGB-D scene files, train and evaluate its instance
 segmentation recipe from scene files with instance labels, run its
 outdoor half: the nuScenes LiDAR pretrain from procedural scans and the
 nuScenes lidarseg fine-tune from that checkpoint, train, test and serve
-MinkUNet34C on ScanNet scenes, and train, test and profile the SpUNet
-classifier.
+MinkUNet34C on ScanNet scenes, train, test and profile the SpUNet
+classifier, run the modules no recipe names and data parallelism, and run
+the pretrain step on host-built plans and two training steps on the
+windowed gather route (K4 / K5).
 
     python3 chip_smoke.py [--parent-log LOG]
 
@@ -59,7 +61,8 @@ repo around it, and runs in phases; any failure exits non-zero:
    plain run);
 9. pretrain ``configs/_test_/pretrain_bench_torch.py`` (bench.py's
    workload: PonderIndoor-v2 with SpUNet-v1m1, UNet3D-v1m2 and NeuS at full
-   width, bf16, batch 2 of 100k-point RGB-D scenes) through
+   width, bf16, batch 2 of 100k-point RGB-D scenes, the conv plans built on
+   the host a batch ahead, as ``host_plans`` asks) through
    ``tools/train_torch.py:main_worker`` for 3 steps; check every step's
    loss, ``contract_ok``, lr and K1/K2/K3 launches against the routing;
 10. compare K1, K2 and K3 with their plain versions at every distinct
@@ -180,7 +183,7 @@ repo around it, and runs in phases; any failure exits non-zero:
     else, the checks of 17, the val scans served through ``SemSegTester``
     (K1's launches, every ``contract_ok``, a time per fragment), K1-K3 as
     in 7 and one step's grads from the trained state as in 14;
-19. write 36 + 2 scenes in ScanNet's layout and train MinkUNet34C on them
+19. write 36 + 1 scenes in ScanNet's layout and train MinkUNet34C on them
     (``MINK_CONFIG``, the ScanNet SpUNet recipe with its backbone
     MinkUNet34C, ``in_channels`` 6 from color + normal, as Pointcept's
     ``semseg-minkunet34c-0-base.py``; batch 12, f32, the backbone's
@@ -188,9 +191,9 @@ repo around it, and runs in phases; any failure exits non-zero:
     checks of 14, the routing traced from the model's convs and held to
     the 36 band convs its config gives (``MINK_BAND_CONVS_PER_FORWARD``:
     K1-K3), then ``PreciseEvaluator`` (its K1 launches counted apart):
-    ``SemSegTester`` with ``model_best.pth`` and ``submit`` over the 2 val
-    scenes, each ``submit/{name}.txt`` one of ScanNet's class ids a point;
-    ``PartSegTester`` once over the val scenes; K1-K3 against their plain
+    ``SemSegTester`` with ``model_best.pth`` and ``submit`` over the val
+    scene, its ``submit/{name}.txt`` one of ScanNet's class ids a point;
+    ``PartSegTester`` once over it; K1-K3 against their plain
     versions at the first batch's convs as in 7; the seeded step's grads as
     in 15;
 20. train the SpUNet classifier (``CLS_RECIPE``: DefaultClassifier over
@@ -248,7 +251,29 @@ repo around it, and runs in phases; any failure exits non-zero:
     the eikonal double backward under DDP): the ranks' ray draws differ,
     rank 0's are one process's, the replicas stay equal; per rank the
     step ms, peak memory and launches, and the phase's wall time;
-23. print times and peak memory, a JSON line of the kernels, and last
+23. the two JAX paths ported last: (a) the host plan prefetch on the
+    main path: 9's config for 3 steps through the ``Trainer`` with
+    ``host_plans`` on (each next batch's conv plans built on the CPU by
+    ``engines/plan_prefetch.py``'s thread) and off (built inside the step):
+    every leaf of each batch's host-built plans integer-equal to the
+    in-step build on the card, the loss, every grad and every parameter
+    bit-equal after each step, no plan built inside a step with it on,
+    K1-K3 at 9's routing; both runs' step and data-wait ms, the host build's
+    ms a batch, the plans' MiB and copy ms, and the in-step build's ms and
+    host syncs; (b) the windowed gather conv route on K4 / K5
+    (``PONDER_WINDOWED_GATHER`` set inside the phase): one step of 19's
+    MinkUNet34C and one of 18's nuScenes fine-tune from the seeded state
+    against the same step without the switch, relus pinned, on each
+    recipe's first 12 scenes collated without Mix3D (loss and grads within
+    1e-4 of max|ref| plus 3x the plain step's own reordered difference, as
+    in 8) and, for MinkUNet34C, on the run's own first batch (Mix3D: its
+    duplicate voxels part the windowed dW from the mirrored backward's by
+    design, so its differences are printed); every K4 / K5 call against
+    its plain version on its own inputs, K4 / K5 launched in each step; the
+    convs by route, each windowed conv's share of entries inside their
+    windows, and the windowed convs' ms against the plain gather convs' on
+    the same inputs;
+24. print times and peak memory, a JSON line of the kernels, and last
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -305,10 +330,11 @@ NUSCENES_PRETRAIN_SCANS, NUSCENES_ONE_STEP_SCANS = 12, 4
 NUSCENES_SEMSEG_SCANS, NUSCENES_VAL_SCANS = 36, 2
 # MinkUNet34C on ScanNet: the SpUNet recipe with its backbone replaced and
 # its features color + normal (in_channels 6), as Pointcept's
-# configs/scannet/semseg-minkunet34c-0-base.py has them; 36 + 2 scenes
-# written in ScanNet's layout
+# configs/scannet/semseg-minkunet34c-0-base.py has them; 36 + 1 scenes
+# written in ScanNet's layout (one val scene: its precise test serves 30
+# fragments)
 MINK_CONFIG = os.path.join(ROOT, "configs/scannet/semseg-spunet-v1m1-0-base.py")
-MINK_TRAIN_SCENES, MINK_VAL_SCENES = 36, 2
+MINK_TRAIN_SCENES, MINK_VAL_SCENES = 36, 1
 # band convs per forward of MinkUNet34C, from its config by the routing rule
 # (mink_unet.py, layers.py:subm_route): a level whose blocks are wider than
 # 64 channels carries a band plan, and every block conv on it runs band.
@@ -691,6 +717,24 @@ def reordered_dxdw(g, f, rbt, w0, wmt, kz, block, window):
     ``reordered_dw``)."""
     return (reordered_fwd(g, rbt, w0, wmt, kz, block, window),
             reordered_dw(f, g, rbt, w0, kz, block, window))
+
+
+def reordered_gather_sum(f, rulebook, w):
+    """``ops/spconv.py:_gather_conv_sum`` with its taps summed in reverse:
+    the plain gather conv's function in another f32 order, for the spread
+    of a grads check."""
+    import torch
+
+    from ponderv2_tpu_torch.ops.scatter import sum_dtype
+
+    acc = sum_dtype(f.dtype)
+    out = torch.zeros(rulebook.shape[1], w.shape[2], dtype=acc, device=f.device)
+    zero = torch.zeros((), dtype=f.dtype, device=f.device)
+    for k in reversed(range(rulebook.shape[0])):
+        idx = rulebook[k]
+        g = torch.where((idx >= 0)[:, None], f[idx.clamp(min=0).to(torch.int64)], zero)
+        out += (g @ w[k]).to(acc)
+    return out
 
 
 def band_plan_of(rb):
@@ -2454,6 +2498,10 @@ def nuscenes_semseg_phase(dev, tmp, gen, stats, weight):
     grads_kernel_vs_plain(gtag, gmodel, b_inputs, per_step, 1e-5, 1e-3, False,
                           reference="float64")
     out["grads_bound"]["trained"] = "phase 14's (float64)"
+    # the model's config and two batches for phase 23b's windowed step
+    ctx = {k: b_inputs[k] for k in ("spatial_shape", "batch_size")}
+    out["step_inputs"] = (dict(cfg.model), [
+        ("the first batch without Mix3D", unmixed_batch(cfg, dev, ctx), None)])
     del gmodel, b_inputs, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -2583,6 +2631,11 @@ def minkunet_phase(dev, tmp, gen, stats):
     gmodel.to(dev).train()
     out["grads_bound"] = grads_either_bound("MinkUNet34C step from the seeded state (f32)",
                                             gmodel, b_inputs, per_step, pin_relu=True)
+    # the model's config and two batches for phase 23b's windowed step
+    ctx = {k: b_inputs[k] for k in ("spatial_shape", "batch_size")}
+    out["step_inputs"] = (dict(cfg.model), [
+        ("the first batch without Mix3D", unmixed_batch(cfg, dev, ctx), None),
+        ("the run's first batch (Mix3D)", b_inputs, per_step)])
     del gmodel, b_inputs
     gc.collect()
     torch.cuda.empty_cache()
@@ -3839,6 +3892,523 @@ def data_parallel_phase(dev, tmp):
     return dict(a=a, ranks=ranks, spawned_s=spawned_s)
 
 
+def plan_leaves(tree, path="plans"):
+    """Every leaf of a plans tree with its path: tensors, ``None`` and the
+    band plans' per-tap counts."""
+    import torch
+
+    if tree is None or isinstance(tree, (torch.Tensor, int)):
+        return [(path, tree)]
+    names = tree._fields if hasattr(tree, "_fields") else range(len(tree))
+    return [leaf for name, v in zip(names, tree) for leaf in plan_leaves(v, f"{path}.{name}")]
+
+
+def sync_count(fn):
+    """(``fn()``, the host syncs it made, its seconds on the host clock up
+    to the device's end): ``torch.cuda.set_sync_debug_mode`` warns at each
+    synchronizing call."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t = time.perf_counter()
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+    return out, sum("synchroniz" in str(w.message) for w in caught), secs
+
+
+def host_plans_phase(dev, tmp, p_step):
+    """Phase 23a: ``configs/_test_/pretrain_bench_torch.py`` (bf16, batch 2,
+    full width) for 3 steps through the ``Trainer`` with ``host_plans`` on
+    (the next batch's plans built on the CPU by the prefetch thread,
+    ``engines/plan_prefetch.py``) and off (built inside the step on the
+    card). Holds every leaf of each batch's host-built plans integer-equal
+    to the in-step build of the same batch, the two runs' loss, grads and
+    parameters bit-equal after every step, no plan built inside a step with
+    the prefetch on, and K1-K3 at ``p_step`` a step. Prints both runs' step
+    and data-wait ms, the build's ms a batch in the thread, the plans' bytes
+    and copy ms, and the in-step build's ms and host syncs."""
+    import numpy as np
+    import torch
+
+    from ponderv2_tpu_torch.engines.common import plans_to_device
+    from ponderv2_tpu_torch.engines.defaults import default_config_parser, default_setup
+    from ponderv2_tpu_torch.engines.plan_prefetch import PlanPrefetchLoader
+    from ponderv2_tpu_torch.engines.train import Trainer
+    from ponderv2_tpu_torch.models.default import batch_to_sparse_tensor
+    from ponderv2_tpu_torch.models.sparse_unet import spunet as spunet_module
+    from ponderv2_tpu_torch.models.sparse_unet.plans import capacity_schedule
+    from ponderv2_tpu_torch.ops import band_conv as bc
+    from ponderv2_tpu_torch.ops.sparse import maybe_sort_by_key
+
+    tag = "host-plans"
+    runs = {}
+    inline = spunet_module.build_spunet_plans_auto
+    for host in (True, False):
+        cfg = default_config_parser(PRETRAIN_CONFIG, {
+            "save_path": os.path.join(tmp, f"host_plans_{int(host)}"), "host_plans": host})
+        cfg.seed = SEED
+        cfg.device = str(dev)
+        trainer = Trainer(default_setup(cfg))
+        check(isinstance(trainer.train_loader, PlanPrefetchLoader) == host,
+              f"{tag}: host_plans={host} gave a {type(trainer.train_loader).__name__}")
+        rec = dict(loss=[], grads=[], params=[], launches=[], step_ms=[], wait_ms=[],
+                   batches=[], inline_builds=0)
+        step = trainer.optimizer.step
+
+        def recording_step(*args, _rec=rec, _trainer=trainer, **kwargs):
+            _rec["grads"].append([p.grad.detach().clone()
+                                  for p in _trainer.model.parameters() if p.grad is not None])
+            return step(*args, **kwargs)
+
+        def counting_build(*args, _rec=rec, **kwargs):
+            _rec["inline_builds"] += 1
+            return inline(*args, **kwargs)
+
+        trainer.optimizer.step = recording_step
+        spunet_module.build_spunet_plans_auto = counting_build
+        try:
+            batches = iter(trainer.train_loader)
+            for _ in range(len(trainer.train_loader)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                batch = next(batches)
+                t1 = time.perf_counter()
+                before = [k.launches for k in bc.KERNELS]
+                trainer.comm_info["input_dict"] = batch
+                trainer.run_step()
+                metrics = trainer.sync_metrics()
+                torch.cuda.synchronize()
+                rec["step_ms"].append(1e3 * (time.perf_counter() - t1))
+                rec["wait_ms"].append(1e3 * (t1 - t0))
+                rec["launches"].append([k.launches - b for k, b in zip(bc.KERNELS, before)])
+                rec["loss"].append(metrics["loss"])
+                rec["params"].append([p.detach().clone() for p in trainer.model.parameters()])
+                rec["batches"].append(batch)
+                check(metrics["contract_ok"] == 1.0, f"{tag}: host_plans={host} contract_ok")
+        finally:
+            spunet_module.build_spunet_plans_auto = inline
+        rec["build_ms"] = [1e3 * s for s in getattr(trainer.train_loader, "build_seconds", [])]
+        rec["static_ctx"] = trainer.static_ctx
+        rec["spunet"] = trainer.model.backbone
+        runs[host] = rec
+        print(f"[{tag}] host_plans {'on' if host else 'off'}: {len(rec['loss'])} steps, "
+              f"losses {', '.join(f'{v:.7f}' for v in rec['loss'])}; step ms (batch "
+              f"to the card .. metrics synced) {', '.join(f'{t:.1f}' for t in rec['step_ms'])}; "
+              f"data wait ms {', '.join(f'{t:.1f}' for t in rec['wait_ms'])}; plans built "
+              f"inside the steps {rec['inline_builds']}; launches K1-K3 {rec['launches']}")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    on, off = runs[True], runs[False]
+    steps = len(off["loss"])
+    check(len(on["loss"]) == steps == 3, f"{tag}: {len(on['loss'])} / {steps} steps")
+    check(on["inline_builds"] == 0 and off["inline_builds"] == steps,
+          f"{tag}: plans built inside the steps {on['inline_builds']} / {off['inline_builds']}")
+    check(on["launches"] == off["launches"] == [p_step] * steps,
+          f"{tag}: launches {on['launches']} / {off['launches']}, routing {p_step}")
+    for i in range(steps):
+        unequal = [j for j, (a, b) in enumerate(zip(on["grads"][i], off["grads"][i]))
+                   if not torch.equal(a, b)]
+        moved = [j for j, (a, b) in enumerate(zip(on["params"][i], off["params"][i]))
+                 if not torch.equal(a, b)]
+        check(on["loss"][i] == off["loss"][i] and not unequal and not moved
+              and len(on["grads"][i]) == len(off["grads"][i]),
+              f"{tag}: step {i} differs: loss {on['loss'][i]!r} vs {off['loss'][i]!r}, "
+              f"{len(unequal)} grads, {len(moved)} parameters")
+    print(f"[{tag}] the {steps} steps bit-equal with the prefetch on and off: loss, "
+          f"{len(on['grads'][0])} grads and {len(on['params'][0])} parameters after each step")
+
+    # each batch's host-built plans against the in-step build of its rows
+    spunet, ctx = on["spunet"], on["static_ctx"]
+    nbytes, device_ms, syncs = [], [], []
+    for i, batch in enumerate(on["batches"]):
+        host_plans = batch["spunet_plans"]
+        arrays = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
+                  if isinstance(v, np.ndarray)}
+        st, _ = maybe_sort_by_key(batch_to_sparse_tensor({**arrays, **ctx}), True)
+        caps = spunet.capacities or capacity_schedule(st.capacity, spunet.num_stages)
+        dev_plans, n_sync, secs = sync_count(lambda: inline(
+            st.coords, st.spatial_shape, st.batch_size, caps, spunet.channels))
+        hl, dl = plan_leaves(host_plans), plan_leaves(dev_plans)
+        check([p for p, _ in hl] == [p for p, _ in dl], f"{tag}: batch {i} plan trees differ")
+        for (path, a), (_, b) in zip(hl, dl):
+            same = (a is None and b is None) if a is None or b is None else (
+                torch.equal(a, b.cpu()) if isinstance(a, torch.Tensor) else a == b)
+            check(same, f"{tag}: batch {i} {path} differs between the host and the card")
+        tensors = [a for _, a in hl if isinstance(a, torch.Tensor)]
+        check(all(t.is_pinned() for t in tensors if t.numel()),
+              f"{tag}: batch {i} plans not pinned")
+        nbytes.append(sum(t.numel() * t.element_size() for t in tensors))
+        device_ms.append(1e3 * secs)
+        syncs.append(n_sync)
+        print(f"[{tag}] batch {i}: {len(hl)} plan leaves ({len(tensors)} tensors, "
+              f"{nbytes[-1] / 2 ** 20:.1f} MiB) integer-equal to the in-step build on the "
+              f"card; host build {on['build_ms'][i]:.1f} ms in the thread; the in-step "
+              f"build {device_ms[-1]:.1f} ms with {n_sync} host syncs")
+    copy_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        moved = plans_to_device(on["batches"][-1]["spunet_plans"], dev)
+        torch.cuda.synchronize()
+        copy_ms.append(1e3 * (time.perf_counter() - t))
+        del moved
+    print(f"[{tag}] the plans' copy to the card from pinned memory: "
+          f"{', '.join(f'{t:.2f}' for t in copy_ms)} ms for {nbytes[-1] / 2 ** 20:.1f} MiB "
+          f"({nbytes[-1] / 1e6 / (min(copy_ms) / 1e3) / 1e3:.1f} GB/s at the fastest)")
+    out = dict(step_ms_on=on["step_ms"], step_ms_off=off["step_ms"],
+               wait_ms_on=on["wait_ms"], wait_ms_off=off["wait_ms"],
+               build_ms=on["build_ms"], plan_mib=[b / 2 ** 20 for b in nbytes],
+               copy_ms=copy_ms, device_build_ms=device_ms, device_build_syncs=syncs)
+    total = {k: [w + t for w, t in zip(r["wait_ms"], r["step_ms"])]
+             for k, r in (("on", on), ("off", off))}
+    out.update(total_ms_on=total["on"], total_ms_off=total["off"])
+    print(f"[{tag}] step ms on {np.median(on['step_ms'][1:]):.1f} / off "
+          f"{np.median(off['step_ms'][1:]):.1f} (median of the last 2); data wait + step "
+          f"ms on {', '.join(f'{t:.1f}' for t in total['on'])} / off "
+          f"{', '.join(f'{t:.1f}' for t in total['off'])}; host build "
+          f"{np.median(on['build_ms']):.1f} ms a batch; in-step build "
+          f"{np.median(device_ms):.1f} ms, {int(np.median(syncs))} syncs")
+    del runs, on, off
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+class windowed_switch:
+    """``PONDER_WINDOWED_GATHER`` set to "1" (or removed) inside the block,
+    restored after it."""
+
+    def __init__(self, on):
+        self.on = on
+
+    def __enter__(self):
+        self.saved = os.environ.get("PONDER_WINDOWED_GATHER")
+        if self.on:
+            os.environ["PONDER_WINDOWED_GATHER"] = "1"
+        else:
+            os.environ.pop("PONDER_WINDOWED_GATHER", None)
+
+    def __exit__(self, *exc):
+        if self.saved is None:
+            os.environ.pop("PONDER_WINDOWED_GATHER", None)
+        else:
+            os.environ["PONDER_WINDOWED_GATHER"] = self.saved
+
+
+def checked_windowed_kernels(errors):
+    """Swap K4's and K5's wrappers for ones that also run each call's plain
+    version on the same inputs and keep (error, max|ref|) in ``errors``
+    (kernel name: list); returns the restore function."""
+    from ponderv2_tpu_torch.ops import windowed_gather as wg
+
+    saved = (wg.windowed_conv_fwd, wg.windowed_conv_dw)
+
+    def wrap(kernel, plain, name):
+        def call(*args):
+            out = kernel(*args)
+            errors.setdefault(name, []).append(max_err(out, plain(*args)))
+            return out
+        return call
+
+    wg.windowed_conv_fwd = wrap(saved[0], wg.windowed_conv_fwd_plain, "windowed_conv_fwd")
+    wg.windowed_conv_dw = wrap(saved[1], wg.windowed_conv_dw_plain, "windowed_conv_dw")
+
+    def restore():
+        wg.windowed_conv_fwd, wg.windowed_conv_dw = saved
+    return restore
+
+
+def windowed_conv_times(gmodel, inputs):
+    """Per SubMConv that takes the windowed route in one forward of
+    ``gmodel`` (no grad, switch on): (rows, cin, cout, taps, share of
+    entries inside their windows, the windowed conv's ms forward over its
+    rulebook's route, the plain gather conv's, K4's alone, the windowed
+    forward + backward's ms and the plain one's, the route's build (the
+    first conv over each rulebook; the step builds it once a rulebook, 0.0
+    for the convs after), the residual's entries), CUDA events around each
+    call on the step's own features, rulebook and weights."""
+    import torch
+
+    from ponderv2_tpu_torch.models.sparse_unet.layers import SubMConv, subm_route
+    from ponderv2_tpu_torch.ops import windowed_gather as wg
+    from ponderv2_tpu_torch.ops.spconv import (BandedRulebook, SubmPlan, WINDOW_WB,
+                                               build_windowed_route, subm_conv_gather,
+                                               subm_conv_symmetric)
+
+    seen = []
+
+    def grab(module, args):
+        st, rb = args[0], args[1]
+        if subm_route(rb, module.in_channels, module.out_channels,
+                      module.kernel_size) == "windowed":
+            legacy = rb.legacy if isinstance(rb, (SubmPlan, BandedRulebook)) else rb
+            seen.append((module, st.features.detach(), legacy, st.mask))
+
+    hooks = [m.register_forward_pre_hook(grab) for m in gmodel.modules()
+             if isinstance(m, SubMConv)]
+    try:
+        with windowed_switch(True), torch.no_grad():
+            gmodel(inputs)
+    finally:
+        for h in hooks:
+            h.remove()
+    rows, built = [], set()
+    for module, f, legacy, mask in seen:
+        cdt = module.compute_dtype or f.dtype
+        w = module.taps().detach()
+        route = build_windowed_route(legacy, f.shape[0])
+        build_ms = 0.0
+        if id(legacy) not in built:
+            built.add(id(legacy))
+            build_ms = cuda_ms(lambda: build_windowed_route(legacy, f.shape[0]), 3)
+        fp = wg.pad_features(f, wg.padded_rows(f.shape[0], WINDOW_WB), cdt)
+        wc = w.to(cdt).contiguous()
+        g = torch.randn(f.shape[0], w.shape[2], device=f.device)
+
+        def conv(x, wt, windowed):
+            if windowed:
+                return subm_conv_symmetric(x, legacy, wt, mask, cdt, route)
+            return subm_conv_gather(x, legacy, wt, mask, cdt)
+
+        def fwd(windowed):
+            with torch.no_grad():
+                return conv(f, w, windowed)
+
+        def fwd_bwd(windowed):
+            x, wt = f.clone().requires_grad_(), w.clone().requires_grad_()
+            return torch.autograd.grad(conv(x, wt, windowed), (x, wt), g)
+
+        rows.append((f.shape[0], module.in_channels, module.out_channels,
+                     legacy.shape[0], int(route.inside) / max(int(route.live), 1),
+                     cuda_ms(lambda: fwd(True), 3), cuda_ms(lambda: fwd(False), 3),
+                     cuda_ms(lambda: wg.windowed_conv_fwd(fp, route.geom, wc, WINDOW_WB,
+                                                          route.group), 3),
+                     cuda_ms(lambda: fwd_bwd(True), 2), cuda_ms(lambda: fwd_bwd(False), 2),
+                     build_ms, sum(route.res_counts)))
+        del route, fp, wc, g
+    del seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def unmixed_batch(cfg, dev, static_ctx):
+    """The recipe's first ``batch_size`` train scenes collated as its loader
+    collates them, but without Mix3D (each voxel once in its scene), on the
+    card with ``static_ctx``. Mix3D merges two scenes' voxels into one
+    without removing the duplicates, and the subm backward's mirrored
+    gather (K2, the plain gather conv) is the gradient of the forward only
+    where no voxel is duplicated."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from ponderv2_tpu_torch.datasets import build_dataset, collate_fn
+    from ponderv2_tpu_torch.engines.common import split_batch, with_condition
+
+    np.random.seed(SEED)
+    random.seed(SEED)
+    dataset = build_dataset(dict(cfg.data.train))
+    batch = collate_fn([dataset[i] for i in range(cfg.batch_size)],
+                       point_budget=cfg.point_budget, scene_budget=cfg.batch_size)
+    arrays, static = split_batch(batch)
+    inputs = with_condition({k: torch.as_tensor(v, device=dev) for k, v in arrays.items()},
+                            static)
+    inputs.update(static_ctx)
+    return inputs
+
+
+def duplicate_voxels(inputs):
+    """The batch's valid rows whose (batch, x, y, z) repeats the row before
+    (the collate sorts rows by it)."""
+    import torch
+
+    c = torch.cat([inputs["batch"][:, None].long(), inputs["grid_coord"].long()], 1)
+    valid = inputs["batch"] >= 0
+    return int(((c[1:] == c[:-1]).all(1) & valid[1:]).sum())
+
+
+def windowed_route_phase(dev, recipes):
+    """Phase 23b: with ``PONDER_WINDOWED_GATHER`` set (restored after), one
+    training step of each recipe in ``recipes`` ((tag, model config,
+    [(label, inputs on the card, K1-K3 a step or None), ...]): phase 19's
+    MinkUNet34C and phase 18's nuScenes lidarseg fine-tune, batch 12, f32)
+    from the seeded state against the same step with the switch off, every
+    relu pinned to the switch-off step's decisions (``PinnedRelu``). The
+    first batch of each recipe is collated without Mix3D
+    (``unmixed_batch``): there the loss and each grad are held within phase
+    7's 1e-4 of max|ref| plus 3x the f32 rounding the plain step itself
+    carries, which a third run measures with every gather conv and band
+    core summing in another order (phase 8's form; ``reordered_*``). On a batch with duplicate voxels (the recipe's own
+    first batch, Mix3D) the two routes compute other dW by design (the
+    windowed dW gathers directly, JAX ``_windowed_dw``; the plain backward
+    by the mirror taps), so its differences are printed, not held. On
+    every batch: K1-K3 as without the switch, K4 / K5 launched, each K4 / K5
+    call held to its plain version on the call's own inputs (phase 12's
+    bound, 1e-4 of max(max|ref|, 1)). Prints the convs by route, each
+    windowed conv's share of entries inside their windows, K4 / K5
+    launches a step, and on the first batch the windowed convs' ms against
+    the same convs' plain gather ms. Returns per recipe its numbers."""
+    import torch
+    from collections import Counter
+
+    from ponderv2_tpu_torch.models import build_model
+    from ponderv2_tpu_torch.models.sparse_unet.layers import InverseConv, StridedConv, SubMConv
+    from ponderv2_tpu_torch.ops import spconv
+    from ponderv2_tpu_torch.ops import windowed_gather as wg
+
+    reordered_cores = {"band_fwd_core": reordered_fwd, "band_dxdw_core": reordered_dxdw,
+                       "band_dw_core": reordered_dw}
+    out = {}
+    for tag, model_cfg, batches in recipes:
+        for b, (label, inputs, per_step) in enumerate(batches):
+            gmodel = build_model(dict(model_cfg))
+            gmodel.reset_parameters(torch.Generator().manual_seed(SEED))
+            gmodel.to(dev).train()
+            dups = duplicate_voxels(inputs)
+            pin = PinnedRelu()
+            with windowed_switch(False):
+                loss_p, grads_p, launched_p, secs_p = pin.run(
+                    "record", lambda: step_grads(gmodel, inputs))
+                # the plain step with every gather conv and band core summing
+                # in another order: the f32 rounding each grad carries
+                saved_sum = spconv._gather_conv_sum
+                spconv._gather_conv_sum = reordered_gather_sum
+                try:
+                    loss_r, grads_r = pin.run("replay", lambda: step_grads(
+                        gmodel, inputs, reordered_cores))[:2]
+                finally:
+                    spconv._gather_conv_sum = saved_sum
+            errors = {}
+            restore = checked_windowed_kernels(errors)
+            before = [k.launches for k in wg.KERNELS]
+            try:
+                with windowed_switch(True):
+                    loss_w, grads_w, launched_w, secs_w = pin.run(
+                        "replay", lambda: step_grads(gmodel, inputs))
+            finally:
+                restore()
+            launches = [k.launches - b for k, b in zip(wg.KERNELS, before)]
+            convs = [m for m in gmodel.modules()
+                     if isinstance(m, (SubMConv, StridedConv, InverseConv))]
+            routes = Counter(m.last_route for m in convs)
+            shares = [(m.in_channels, m.out_channels, m.kernel_size,
+                       int(m.last_window[0]), int(m.last_window[1]))
+                      for m in convs if m.last_window is not None]
+            where = f"{tag}, {label}"
+            check(launched_w == launched_p and (per_step is None
+                                                or launched_p == list(per_step)),
+                  f"{where}: K1-K3 launches {launched_w} with the switch, {launched_p} "
+                  f"without, routing {per_step}")
+            check(min(launches) >= 1, f"{where}: K4/K5 launches {launches} in the step")
+            worst = {}
+            for name, errs in errors.items():
+                for e, scale in errs:
+                    check(e <= 1e-4 * max(scale, 1.0),
+                          f"{where}: {name} vs plain {e:.3e} at max|ref| {scale:.3e}")
+                worst[name] = max(e for e, _ in errs)
+            check(sum(len(v) for v in errors.values()) == sum(launches),
+                  f"{where}: {sum(len(v) for v in errors.values())} checked calls, "
+                  f"launches {launches}")
+            check(sorted(grads_w) == sorted(grads_p) == sorted(grads_r),
+                  f"{where}: grads of other params")
+            ratios, margins = [], []
+            for n, r in grads_p.items():
+                scale = r.abs().max().item()
+                err = (grads_w[n] - r).abs().max().item()
+                spread = (grads_r[n] - r).abs().max().item()
+                ratios.append((err / max(scale, 1e-30), n))
+                margins.append((err / max(1e-4 * scale + 3 * spread, 1e-30), n, err, scale,
+                                spread))
+            ratios.sort()
+            margins.sort()
+            if dups == 0:
+                check(abs(loss_w - loss_p) <= 1e-4 * abs(loss_p) + 3 * abs(loss_r - loss_p),
+                      f"{where}: loss {loss_w} with the switch, {loss_p} without, "
+                      f"{loss_r} reordered")
+                for m, name, err, scale, spread in margins:
+                    check(m <= 1.0, f"{where}: grad {name} {err:.3e} > 1e-4 x {scale:.3e} "
+                                    f"+ 3 x reordered {spread:.3e}")
+                m, name, err, scale, spread = margins[-1]
+                held = (f"held within 1e-4 of max|ref| plus 3x the plain step's own "
+                        f"reordered difference; tightest {name}: {err:.3e} against "
+                        f"{1e-4 * scale:.3e} + 3 x {spread:.3e}, margin {m:.3f}")
+            else:
+                held = (f"not held: {dups} duplicate voxels, where the windowed dW "
+                        f"(direct gather) and the plain backward (mirror taps) part; "
+                        f"{sum(r > 1e-4 for r, _ in ratios)} of {len(ratios)} grads over "
+                        f"1e-4, the next worst {ratios[-2][1]} at {ratios[-2][0]:.3e}")
+            print(f"[windowed-route] {where}: {dups} duplicate voxels; convs by route "
+                  f"{dict(sorted(routes.items(), key=str))}; K4 / K5 launches in the step "
+                  f"{launches} (forward, the remat recompute and the subm backward's dx run "
+                  f"K4), K1-K3 {launched_w} as without the switch; every K4 / K5 call "
+                  f"against its plain version on its own inputs: worst "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in sorted(worst.items()))
+                  + f"; loss {loss_w:.7f} vs {loss_p:.7f} without the switch; worst grad "
+                  f"{ratios[-1][1]} at {ratios[-1][0]:.3e} of max|ref| ({held}; relus "
+                  f"pinned, {pin.flips} decisions the switch's own forward would make "
+                  f"otherwise); forward + backward {1e3 * secs_w:.1f} ms with the switch, "
+                  f"{1e3 * secs_p:.1f} ms without", flush=True)
+            inside = sum(s[3] for s in shares)
+            live = sum(s[4] for s in shares)
+            print(f"[windowed-route] {where}: entries inside their windows per windowed "
+                  f"conv (cin -> cout, k): " + ", ".join(
+                      f"{ci}->{co} k{k} {a / max(n, 1):.4f} ({a}/{n})"
+                      for ci, co, k, a, n in shares)
+                  + f"; all {inside / max(live, 1):.4f}", flush=True)
+            del grads_p, grads_w, grads_r, errors
+            if b:
+                del gmodel, pin
+                continue
+            # the step's forward + backward again, without the per-call checks
+            step_s = {}
+            for on in (True, False):
+                with windowed_switch(on):
+                    step_s.setdefault(on, []).append(pin.run(
+                        "replay", lambda: step_grads(gmodel, inputs))[3])
+            print(f"[windowed-route] {tag}: the step's forward + backward (relus pinned, no "
+                  f"checks) {', '.join(f'{1e3 * t:.1f}' for t in step_s[True])} ms with the "
+                  f"switch, {', '.join(f'{1e3 * t:.1f}' for t in step_s[False])} ms "
+                  f"without", flush=True)
+            del pin
+            times = windowed_conv_times(gmodel, inputs)
+            tot = [sum(r[i] for r in times) for i in range(5, 11)]
+            for r in times:
+                print(f"[windowed-route] {tag}: conv {r[1]}->{r[2]} {r[3]} taps, {r[0]} "
+                      f"rows, inside {r[4]:.4f} ({r[11]} residual entries): forward "
+                      f"{r[5]:.3f} ms (K4 alone {r[7]:.3f}, the route's build {r[10]:.3f}) "
+                      f"vs plain {r[6]:.3f} ms; forward + backward {r[8]:.3f} vs "
+                      f"{r[9]:.3f} ms")
+            print(f"[windowed-route] {tag}: the step's {len(times)} windowed convs, one "
+                  f"forward each: {tot[0]:.3f} ms (K4 alone {tot[2]:.3f}) vs plain "
+                  f"{tot[1]:.3f} ms, plus {tot[5]:.3f} ms for the routes' builds, one a "
+                  f"rulebook ({sum(r[10] > 0 for r in times)}); forward + backward "
+                  f"{tot[3]:.3f} vs {tot[4]:.3f} ms (CUDA events)", flush=True)
+            out[tag] = dict(launches_per_step=launches, max_abs_err=worst,
+                            routes={str(k): v for k, v in routes.items()},
+                            inside_share=inside / max(live, 1), convs=len(times),
+                            fwd_ms=tot[0], plain_fwd_ms=tot[1], k4_ms=tot[2],
+                            fwd_bwd_ms=tot[3], plain_fwd_bwd_ms=tot[4], route_ms=tot[5],
+                            step_ms=[1e3 * t for t in step_s[True]],
+                            plain_step_ms=[1e3 * t for t in step_s[False]])
+            del gmodel
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4423,7 +4993,16 @@ def main() -> int:
         dp = data_parallel_phase(dev, tmp)
         phase_done("22 data parallel")
 
-        # ---- 23. output
+        # ---- 23. the two JAX paths ported last: (a) the main path's host
+        # plan prefetch, (b) the windowed gather conv route on K4/K5
+        hp = host_plans_phase(dev, tmp, p_step)
+        recipes = [(tag, *r.pop("step_inputs")) for tag, r in
+                   (("MinkUNet34C", mink), ("nuScenes semseg", nseg))]
+        wr = windowed_route_phase(dev, recipes)
+        del recipes
+        phase_done("23 host plans and the windowed route")
+
+        # ---- 24. output
         print(f"[time] per fine-tune step at batch {tcfg.batch_size} (f32): "
               + "; ".join(f"{name} {stats[name]['ms']:.3f} ms vs plain "
                           f"{stats[name]['plain_ms']:.3f} ms (bound "
@@ -4481,7 +5060,12 @@ def main() -> int:
         # serving launches ride along. K4/K5: one run of the windowed conv
         # entry point over its convs
         main_launches = dict(zip(KERNEL_SOURCES, pretrain_launches[:3] + windowed_launches))
+        print(f"[time] phase 23a: pretrain step ms with host plans "
+              f"{', '.join(f'{t:.1f}' for t in hp['step_ms_on'])}, without "
+              f"{', '.join(f'{t:.1f}' for t in hp['step_ms_off'])}; host build "
+              f"{', '.join(f'{t:.1f}' for t in hp['build_ms'])} ms a batch")
         kernels = []
+        wg_names = ["windowed_conv_fwd", "windowed_conv_dw"]
         for name in KERNEL_SOURCES:
             row = {"name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
                    "replaces": KERNEL_SOURCES[name][1]}
@@ -4515,6 +5099,17 @@ def main() -> int:
                     "pretrain_launches_per_rank_step": [
                         [step[i] for step in r["c"]["launches"]] for r in dp["ranks"]],
                     "pretrain_ms_per_rank_step": [r["c"]["core_ms"][i] for r in dp["ranks"]]}
+            else:
+                # phase 23b: the windowed route in a training step, per recipe
+                row["windowed_route"] = {
+                    tag: {"launches_per_step": r["launches_per_step"][
+                              wg_names.index(name)],
+                          "max_abs_err": r["max_abs_err"].get(name),
+                          "inside_share": r["inside_share"], "convs": r["convs"],
+                          "fwd_ms": r["fwd_ms"], "plain_fwd_ms": r["plain_fwd_ms"],
+                          "k4_ms": r["k4_ms"], "fwd_bwd_ms": r["fwd_bwd_ms"],
+                          "plain_fwd_bwd_ms": r["plain_fwd_bwd_ms"]}
+                    for tag, r in wr.items()}
             kernels.append(row)
         # the probe kernels: one row per ported probe function, its launches
         # from its own run through the entry point

@@ -25,7 +25,7 @@ epoch = 1  # 6 scenes / bs2 = 3 steps
 eval_epoch = 1
 point_budget = 204_800
 sparse_shape = (544, 544, 192)
-host_plans = True  # accepted; the port builds plans on the device
+host_plans = True  # conv plans built on the host, a batch ahead
 metric_keys = ("rgb_loss", "depth_loss", "semantic_loss", "psnr")
 
 model = dict(

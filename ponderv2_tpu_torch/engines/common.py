@@ -21,6 +21,15 @@ def split_batch(batch: Dict[str, Any]):
     return arrays, static
 
 
+def plans_to_device(plans, device: torch.device):
+    """Host-built ``spunet_plans`` (``engines/plan_prefetch.py``) on
+    ``device``: every tensor leaf copied without blocking from its pinned
+    memory, the tree's NamedTuples and ``None`` leaves kept."""
+    from ..models.sparse_unet.plans import map_tensors
+
+    return map_tensors(plans, lambda t: t.to(device, non_blocking=True))
+
+
 def with_condition(arrays: Dict[str, Any], static: Dict[str, Any]) -> Dict[str, Any]:
     """``arrays`` plus the batch's ``condition`` (the dataset name an ``Add``
     transform set) when it has one: the first scene's when collated to a

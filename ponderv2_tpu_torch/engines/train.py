@@ -5,9 +5,14 @@ Counterpart of ``ponderv2_tpu/engines/train.py`` (``TrainerBase``,
 function of its TrainState; here the state is the model (parameters and BN
 running stats), the ``torch.optim`` optimizer and the step count, and
 ``run_step`` is: batch to the device, forward, ``loss.backward()``,
-``optimizer.step()`` at ``schedule(step)``, ``zero_grad``. Conv plans are
-built on the device inside the step; a config's ``host_plans`` key is
-accepted and has no effect. ``MultiDatasetTrainer`` trains on the
+``optimizer.step()`` at ``schedule(step)``, ``zero_grad``. With
+``host_plans`` (default on, as in the JAX package) and outside the
+data-parallel branch, a model whose config ``engines/plan_prefetch.py``
+accepts (``assume_sorted`` over SpUNet-v1m1 / -v1m2) gets the next batch's
+conv plans built on the CPU by a background thread and copied to the card
+with the batch; PonderIndoor-v2 runs its backbone on them. Otherwise, and in
+evaluation and the testers, the plans are built on the device inside the
+step. ``MultiDatasetTrainer`` trains on the
 round-robin ``MultiDatasetDataloader``. A run keys the scenes its datasets
 cache in shared memory (``cache=True``) on a key of its own
 (``cache_run``), and unlinks them when training ends or raises.
@@ -22,8 +27,7 @@ where the world has more than one rank) turns the branch on in a world of
 one too; off in a larger world it raises. Each rank evaluates every
 ``world``-th val scene. Checkpoints hold the model itself, not its DDP
 wrapper; each rank caches its scenes under its own run key, so that no
-rank unlinks a scene another still reads. Not ported: the host plan
-prefetch (``engines/plan_prefetch.py``).
+rank unlinks a scene another still reads.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ from ..utils.logger import get_root_logger
 from ..utils.optimizer import build_optimizer, fill_missing_grads, set_lr
 from ..utils.registry import Registry
 from ..utils.scheduler import build_scheduler
-from .common import resolve_device, split_batch, with_condition
+from .common import plans_to_device, resolve_device, split_batch, with_condition
 
 TRAINERS = Registry("trainers")
 
@@ -166,6 +170,16 @@ class Trainer(TrainerBase):
         self.logger.info("=> Building train dataset & loader ...")
         self.train_loader = self.build_train_loader()
         self.val_loader = self.build_val_loader()
+        # host-side SpUNet plan prefetch (engines/plan_prefetch.py): the next
+        # batch's conv plans built on a background thread while the card runs
+        # the step; one process only, as the JAX trainer's num_devices == 1
+        if cfg.get("host_plans", True) and not self.data_parallel:
+            from .plan_prefetch import PlanPrefetchLoader, plan_cfg_from_model_cfg
+
+            plan_cfg = plan_cfg_from_model_cfg(dict(cfg.model), self.build_static_ctx())
+            if plan_cfg is not None:
+                self.train_loader = PlanPrefetchLoader(self.train_loader, plan_cfg)
+                self.logger.info("=> Host plan prefetch enabled")
 
         total_steps = len(self.train_loader) * self.max_epoch
         self.logger.info(f"=> Total steps: {total_steps}")
@@ -241,10 +255,14 @@ class Trainer(TrainerBase):
 
     # ------------------------------------------------------------------- step
     def _to_device(self, input_dict) -> Dict[str, Any]:
-        """The batch's arrays on the device, and its ``condition``."""
+        """The batch's arrays on the device, its host-built ``spunet_plans``
+        (when the prefetch attached them) and its ``condition``."""
         arrays, static = split_batch(input_dict)
-        return with_condition({k: torch.as_tensor(v).to(self.device, non_blocking=True)
-                               for k, v in arrays.items()}, static)
+        out = {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+               for k, v in arrays.items()}
+        if static.get("spunet_plans") is not None:
+            out["spunet_plans"] = plans_to_device(static["spunet_plans"], self.device)
+        return with_condition(out, static)
 
     def step_generator(self) -> torch.Generator:
         """The generator of this step's random draws (ray picks, sampler

@@ -311,7 +311,13 @@ class PonderIndoor(nn.Module):
             st = st.replace_features(self._apply_block_mask(
                 st.features, input_dict["grid_coord"], batch, salt))
         st_sorted, inverse = maybe_sort_by_key(st, self.assume_sorted)
-        sparse_feat, contract_ok = self.backbone(st_sorted)
+        # host-built conv plans (engines/plan_prefetch.py), valid only where
+        # the rows come sorted, so that host and device see one row order
+        plans = input_dict.get("spunet_plans") if self.assume_sorted else None
+        if plans is not None:
+            sparse_feat, contract_ok = self.backbone(st_sorted, plans=plans)
+        else:
+            sparse_feat, contract_ok = self.backbone(st_sorted)
         if inverse is not None:
             sparse_feat = sparse_feat[inverse]
 

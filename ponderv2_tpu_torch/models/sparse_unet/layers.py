@@ -14,11 +14,24 @@ is the JAX package's ``kernel``.
   lack);
 - ``slab``: where the JAX package takes its slab conv (a ``SubmPlan`` and
   ``cin <= 64``), the port computes that function with the plain gather conv,
-  zeroed when the plan's ``sorted_ok`` is False as the slab conv is;
+  zeroed when the plan's ``sorted_ok`` is False as the slab conv is; never
+  the windowed route, which the JAX slab conv does not take;
+- ``windowed``: where the route would be ``plain`` and
+  ``ops.spconv.use_windowed_gather`` holds (``PONDER_WINDOWED_GATHER`` set,
+  at least 4096 rows, at most 128 channels), the windowed gather conv (K4 /
+  K5 plus their residual, ``ops.spconv.apply_sparse_conv_windowed``);
 - ``plain``: the plain gather conv over the rulebook.
 
-Both gather routes run ``subm_conv_symmetric`` (mirrored-gather backward);
-the band routes run the differentiable ``band_subm_conv``.
+The gather routes run the mirrored-gather backward: ``subm_conv_symmetric``
+on the windowed route, ``subm_conv_gather`` on the others; the band routes
+run the differentiable ``band_subm_conv``. ``StridedConv`` and
+``InverseConv`` run their packed parent / tap forms where the plan has them,
+else the gather conv over a rulebook (``_apply_conv``: windowed where
+``use_windowed_gather`` holds, as JAX ``layers.py:45-51``). A rulebook's
+windowed route is built once and shared by the convs over it
+(``ops.spconv.windowed_route``). Each gather conv on the windowed route
+keeps its last call's count of entries inside their windows and of all
+entries (``last_window``; None off the route).
 """
 
 from __future__ import annotations
@@ -41,13 +54,29 @@ from ...ops.spconv import (
     StridedPlan,
     SubmPlan,
     apply_sparse_conv,
+    apply_sparse_conv_windowed,
     build_inverse_rulebook,
     build_strided_plan,
     build_subm_rulebook,
     inverse_conv_packed,
     strided_conv_packed,
+    subm_conv_gather,
     subm_conv_symmetric,
+    use_windowed_gather,
+    windowed_route,
 )
+
+
+def _apply_conv(features, rulebook, w, mask, compute_dtype):
+    """The strided / inverse conv over a rulebook: the windowed route where
+    ``use_windowed_gather`` holds (JAX ``layers.py:45-51``), else the plain
+    gather conv. Returns the output and the route's counts (or None)."""
+    if use_windowed_gather(rulebook.shape[1], w.shape[1], w.shape[2]):
+        route = windowed_route(rulebook, features.shape[0])
+        out = apply_sparse_conv_windowed(features, rulebook, w, mask, compute_dtype,
+                                         route)
+        return out, (route.inside, route.live)
+    return apply_sparse_conv(features, rulebook, w, mask, compute_dtype), None
 
 
 def subm_route(rulebook, cin: int, cout: int, kernel_size: int) -> str:
@@ -63,6 +92,8 @@ def subm_route(rulebook, cin: int, cout: int, kernel_size: int) -> str:
             return "band-inline"
     if isinstance(rulebook, SubmPlan) and cin <= 64:
         return "slab"
+    if use_windowed_gather(legacy.shape[1], cin, cout):
+        return "windowed"
     return "plain"
 
 
@@ -98,6 +129,7 @@ class SubMConv(_SparseConvBase):
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__(in_channels, out_channels, kernel_size, compute_dtype)
         self.last_route: Optional[str] = None
+        self.last_window = None
 
     def forward(self, st: SparseTensor, rulebook=None,
                 flags: Optional[List[torch.Tensor]] = None) -> SparseTensor:
@@ -109,7 +141,7 @@ class SubMConv(_SparseConvBase):
                                            st.batch_size, self.kernel_size)
         route = subm_route(rulebook, self.in_channels, self.out_channels,
                            self.kernel_size)
-        self.last_route = route
+        self.last_route, self.last_window = route, None
         w = self.taps()
         legacy = (rulebook.legacy if isinstance(rulebook, (SubmPlan, BandedRulebook))
                   else rulebook)
@@ -121,8 +153,14 @@ class SubMConv(_SparseConvBase):
             out = band_subm_conv((3, BAND_BLOCK, BAND_WINDOW), st.features, plan,
                                  w, st.mask, self.compute_dtype)
         else:
-            out = subm_conv_symmetric(st.features, legacy, w, st.mask,
-                                      self.compute_dtype)
+            if route == "windowed":
+                windowed = windowed_route(legacy, st.features.shape[0])
+                self.last_window = (windowed.inside, windowed.live)
+                out = subm_conv_symmetric(st.features, legacy, w, st.mask,
+                                          self.compute_dtype, windowed)
+            else:
+                out = subm_conv_gather(st.features, legacy, w, st.mask,
+                                       self.compute_dtype)
             if route == "slab":
                 out = out * rulebook.sorted_ok.to(out.dtype)
         return st.replace(features=out)
@@ -137,6 +175,8 @@ class StridedConv(_SparseConvBase):
         super().__init__(in_channels, out_channels, kernel_size, compute_dtype)
         self.stride = stride
         self.padding = padding
+        self.last_route: Optional[str] = None
+        self.last_window = None
 
     def forward(self, st: SparseTensor, plan: Optional[StridedPlan] = None,
                 out_capacity: Optional[int] = None) -> SparseTensor:
@@ -145,13 +185,16 @@ class StridedConv(_SparseConvBase):
                                       self.kernel_size, self.stride, self.padding,
                                       out_capacity or st.capacity)
         mask = plan.out_coords[:, 0] >= 0
+        self.last_window = None
         if plan.parent is not None:
+            self.last_route = "packed"
             out = strided_conv_packed(st.features, plan.parent, plan.tap,
                                       self.taps(), plan.out_coords.shape[0],
                                       mask, self.compute_dtype)
         else:
-            out = apply_sparse_conv(st.features, plan.rulebook, self.taps(),
-                                    mask, self.compute_dtype)
+            out, self.last_window = _apply_conv(st.features, plan.rulebook, self.taps(),
+                                                mask, self.compute_dtype)
+            self.last_route = "plain" if self.last_window is None else "windowed"
         return make_sparse_tensor(out, plan.out_coords, plan.spatial_shape,
                                   st.batch_size)
 
@@ -165,14 +208,18 @@ class InverseConv(_SparseConvBase):
         super().__init__(in_channels, out_channels, kernel_size, compute_dtype)
         self.stride = stride
         self.padding = padding
+        self.last_route: Optional[str] = None
+        self.last_window = None
 
     def forward(self, st: SparseTensor, fine_coords: torch.Tensor,
                 fine_spatial_shape, rulebook: Optional[torch.Tensor] = None,
                 parent: Optional[torch.Tensor] = None,
                 tap: Optional[torch.Tensor] = None) -> SparseTensor:
         mask = fine_coords[:, 0] >= 0
+        self.last_window = None
         if parent is not None:
             # indice_key reuse: the down plan's parent/tap pair the rows
+            self.last_route = "packed"
             out = inverse_conv_packed(st.features, parent, tap, self.taps(),
                                       mask, self.compute_dtype)
         else:
@@ -180,7 +227,8 @@ class InverseConv(_SparseConvBase):
                 rulebook = build_inverse_rulebook(
                     st.coords, st.spatial_shape, st.batch_size, fine_coords,
                     self.kernel_size, self.stride, self.padding)
-            out = apply_sparse_conv(st.features, rulebook, self.taps(), mask,
-                                    self.compute_dtype)
+            out, self.last_window = _apply_conv(st.features, rulebook, self.taps(), mask,
+                                                self.compute_dtype)
+            self.last_route = "plain" if self.last_window is None else "windowed"
         return make_sparse_tensor(out, fine_coords, fine_spatial_shape,
                                   st.batch_size)

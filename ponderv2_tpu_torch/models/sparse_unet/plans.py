@@ -8,12 +8,19 @@ Which plans exist follows the JAX package exactly: a level whose
 ``dense_table_fits`` holds gets a ``SubmPlan`` (with a band plan attached when
 a conv at that level is band-eligible); a level that does not gets a plain
 ``(K^3, N)`` rulebook, and its wide convs build band plans inline.
+
+``host_build_spunet_plans`` is the input pipeline's entry point (JAX
+``plans.py:173-215``): the same build on the CPU from a collated batch's
+numpy arrays, returned in pinned memory, so that the trainer's prefetch
+thread (``engines/plan_prefetch.py``) builds the next batch's plans while
+the card runs the current step.
 """
 
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ...ops import hashing as _hashing
@@ -51,10 +58,10 @@ def capacity_schedule(base_capacity: int, num_stages: int, decay: float = 2.0,
     return tuple(caps)
 
 
-def _build_subm(coords, spatial_shape, batch_size, kernel_size):
-    """SubmPlan when the JAX package's dense-grid regime applies, else a
-    plain rulebook."""
-    if _hashing.dense_table_fits(spatial_shape, batch_size):
+def _build_subm(coords, spatial_shape, batch_size, kernel_size, slab_conv=True):
+    """SubmPlan when the JAX package's dense-grid regime applies (and its
+    ``slab_conv`` is on), else a plain rulebook."""
+    if slab_conv and _hashing.dense_table_fits(spatial_shape, batch_size):
         return build_subm_plan(coords, spatial_shape, batch_size, kernel_size)
     return build_subm_rulebook(coords, spatial_shape, batch_size, kernel_size)
 
@@ -66,23 +73,26 @@ def build_spunet_plans(
     capacities: Sequence[int],
     channels: Sequence[int],
     band_budgets: Optional[Tuple[int, int]] = None,
+    slab_conv: bool = True,
 ) -> SpUNetPlans:
     """Build every plan the SpUNet forward consumes, in model order.
 
     ``coords`` must be the sorted (batch, x, y, z) voxel coords the backbone
-    runs on. ``channels`` is the full 2 * num_stages channel tuple."""
+    runs on. ``channels`` is the full 2 * num_stages channel tuple.
+    ``slab_conv`` False gives every level a plain rulebook, as the JAX
+    SpUNet's ``slab_conv`` does."""
     num_stages = len(channels) // 2
     caps = tuple(capacities)
     pair_budget, entry_budget = band_budgets or (None, None)
 
-    stem = _build_subm(coords, tuple(spatial_shape), batch_size, 5)
+    stem = _build_subm(coords, tuple(spatial_shape), batch_size, 5, slab_conv)
     c, shape = coords, tuple(spatial_shape)
     strided, subm = [], []
     for s in range(num_stages):
         plan = build_strided_plan(c, shape, batch_size, 2, 2, 0, caps[s + 1])
         strided.append((plan.out_coords, plan.rulebook, plan.parent, plan.tap))
         c, shape = plan.out_coords, plan.spatial_shape
-        rb = _build_subm(c, shape, batch_size, 3)
+        rb = _build_subm(c, shape, batch_size, 3, slab_conv)
         # a band plan if the encoder OR the decoder blocks at this level take
         # the band path (decoder stage s runs at level num_stages - 1 - s)
         dec_ch = channels[num_stages + (num_stages - 1 - (s + 1))] if (
@@ -135,18 +145,59 @@ def band_ok_flags(plans: SpUNetPlans):
 
 
 def build_spunet_plans_auto(coords, spatial_shape, batch_size, capacities,
-                            channels):
+                            channels, band_budgets=None, slab_conv=True):
     """``build_spunet_plans`` with the JAX input pipeline's budget retry
     (``host_build_spunet_plans``): when an attached band plan's budgets
     overflow (``ok`` False), rebuild with both budgets doubled, up to
     ``MAX_DOUBLINGS`` times, so a dense scene gets a bigger overflow
-    residual instead of zeroed convs. Runs on the coords' device; reading
-    the flags is one host sync per attempt."""
-    pair, entry = PAIR_BUDGET, ENTRY_BUDGET
+    residual instead of zeroed convs. Starts from ``band_budgets`` (default
+    ``ops/band_conv.py``'s). Runs on the coords' device; reading the flags
+    is one host sync per attempt."""
+    pair, entry = band_budgets or (PAIR_BUDGET, ENTRY_BUDGET)
     for attempt in range(MAX_DOUBLINGS + 1):
         plans = build_spunet_plans(coords, spatial_shape, batch_size,
-                                   capacities, channels, (pair, entry))
+                                   capacities, channels, (pair, entry), slab_conv)
         flags = band_ok_flags(plans)
         if not flags or bool(torch.stack(flags).all()) or attempt == MAX_DOUBLINGS:
             return plans
         pair, entry = pair * 2, entry * 2
+
+
+def map_tensors(tree, fn):
+    """``tree`` with ``fn`` applied to every tensor leaf; tuples,
+    NamedTuples and lists keep their types, other leaves (None, the band
+    plans' per-tap counts) stay as they are."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_tensors(v, fn) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_tensors(v, fn) for v in tree)
+    return tree
+
+
+def _pinned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in pinned memory, for an asynchronous copy to the card (as it
+    is without one)."""
+    return t.pin_memory() if torch.cuda.is_available() else t
+
+
+def host_build_spunet_plans(grid_coord, batch, spatial_shape, batch_size,
+                            capacities, channels, slab_conv=True,
+                            band_budgets=None):
+    """Input-pipeline entry point (JAX ``plans.py:173-215``): build the plans
+    on the CPU from a collated batch's numpy ``grid_coord`` (N, 3) and
+    ``batch`` (N,), padding rows (``batch < 0``) made all -1 as
+    ``make_sparse_tensor`` makes them. The band budgets start from
+    ``band_budgets``, else from ``ops/band_conv.py``'s ``PAIR_BUDGET`` /
+    ``ENTRY_BUDGET``, and double while a band plan overflows (up to
+    ``MAX_DOUBLINGS`` times), as the model's inline build does, so that
+    both builds make the same plans. Returns an
+    ``SpUNetPlans`` of CPU tensors, pinned where there is a card."""
+    batch = np.asarray(batch).astype(np.int32)
+    coords = np.concatenate([batch[:, None], np.asarray(grid_coord)],
+                            axis=1).astype(np.int32)
+    coords = np.where((batch >= 0)[:, None], coords, -1)
+    plans = build_spunet_plans_auto(torch.from_numpy(coords), spatial_shape, batch_size,
+                                    capacities, channels, band_budgets, slab_conv)
+    return map_tensors(plans, _pinned)

@@ -19,7 +19,9 @@ voxels per scene, then ``final``; with ``num_classes == 0`` there is no
 ``final`` and the backbone returns the pooled ``(B, channels[3])``
 features, as the reference's classifier recipe wants them (the JAX model
 always builds its ``final`` Dense here and fails at ``num_classes == 0``,
-ROADMAP Queue 3 F12). ``SpUNet-v1m2`` is v1m1 under another name (its BN
+ROADMAP Queue 3 F12). ``plans`` (the trainer's host-built plans,
+``engines/plan_prefetch.py``) replaces the build inside the forward.
+``SpUNet-v1m2`` is v1m1 under another name (its BN
 momentum is v1m1's ``bn_momentum``). ``SpUNetNoSkipBase`` is the U-Net
 without skip concatenation, over plain rulebooks built per level, so its
 convs wider than 64 channels build their band plans inline.

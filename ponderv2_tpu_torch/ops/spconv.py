@@ -13,12 +13,17 @@ level's rulebook, its ``sorted_ok`` contract flag and its band plan, and
 computes the slab conv's function with the plain gather conv
 (``subm_conv_symmetric``, with the mirrored-gather backward). The packed
 strided/inverse convs differentiate through plain autograd, as the JAX
-package leaves them to XLA's autodiff.
+package leaves them to XLA's autodiff. With ``PONDER_WINDOWED_GATHER`` set,
+a gather conv of at least 4096 output rows and at most 128 channels takes
+the windowed route (``apply_sparse_conv_windowed``: K4 / K5 plus their
+residual), as the JAX package's does.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
+import weakref
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -43,18 +48,24 @@ def kernel_offsets(kernel_size) -> list:
 def _tap_keys(coords, offsets, stride, padding, spatial_shape) -> torch.Tensor:
     """Ravel keys of the input cell each output row queries through each
     kernel tap: ``(T, N)`` int64, ``INVALID_KEY`` for padding rows and for
-    queries outside the spatial shape."""
-    X, Y, Z = (int(s) for s in spatial_shape)
+    queries outside the spatial shape. The key is linear in the query, so
+    it is the row's base key plus the tap's offset key; each axis is
+    checked against the shape by comparing the tap's offset with the row's
+    bounds, so no (T, N, 3) array is made."""
+    dims = tuple(int(v) for v in spatial_shape)
     dev = coords.device
     c = coords.to(torch.int64)
-    b = c[:, 0]
-    s = torch.tensor(_triple(stride), dtype=torch.int64, device=dev)
-    p = torch.tensor(_triple(padding), dtype=torch.int64, device=dev)
+    s, p = _triple(stride), _triple(padding)
     off = torch.tensor(offsets, dtype=torch.int64, device=dev).reshape(-1, 3)
-    q = c[None, :, 1:4] * s - p + off[:, None, :]  # (T, N, 3)
-    dims = torch.tensor([X, Y, Z], dtype=torch.int64, device=dev)
-    valid = (b >= 0)[None] & (q >= 0).all(-1) & (q < dims).all(-1)
-    key = ((b[None] * X + q[..., 0]) * Y + q[..., 1]) * Z + q[..., 2]
+    valid = (c[:, 0] >= 0)[None]
+    base = c[:, 0]
+    for a in range(3):
+        q0 = c[:, 1 + a] * s[a] - p[a]
+        o = off[:, a, None]
+        valid = valid & (o >= -q0) & (o < dims[a] - q0)
+        base = base * dims[a] + q0
+    off_key = (off[:, 0] * dims[1] + off[:, 1]) * dims[2] + off[:, 2]
+    key = base[None] + off_key[:, None]
     return torch.where(valid, key, torch.full_like(key, hashing.INVALID_KEY))
 
 
@@ -325,6 +336,23 @@ def invert_strided_rulebook(rulebook: torch.Tensor, num_fine: int) -> torch.Tens
     return torch.stack(rows, 0)
 
 
+def _gather_conv_sum(f: torch.Tensor, rulebook: torch.Tensor,
+                     w: torch.Tensor) -> torch.Tensor:
+    """sum_k f[rulebook[k]] @ w[k] over the live entries, (N_out, Cout) in
+    ``sum_dtype`` of the compute-dtype operands ``f`` and ``w``, one tap at a
+    time, so the (K^3, N, Cin) gather is never materialized."""
+    k3, n_out = rulebook.shape
+    acc = sum_dtype(f.dtype)
+    out = torch.zeros(n_out, w.shape[2], dtype=acc, device=f.device)
+    for k in range(k3):
+        idx = rulebook[k]
+        live = (idx >= 0)[:, None]
+        g = f[idx.clamp(min=0).to(torch.int64)]
+        g = torch.where(live, g, torch.zeros((), dtype=f.dtype, device=g.device))
+        out += (g @ w[k]).to(acc)
+    return out
+
+
 def apply_sparse_conv(
     features: torch.Tensor,
     rulebook: torch.Tensor,
@@ -336,22 +364,246 @@ def apply_sparse_conv(
 
     features: (N_in, Cin); rulebook: (K^3, N_out) int32 (-1 = inactive);
     weights: (K^3, Cin, Cout); out_mask: (N_out,) bool. Accumulates in f32
-    (f64 for f64 operands: ``sum_dtype``).
-    The per-tap loop never materializes the (K^3, N, Cin) gather."""
-    k3, n_out = rulebook.shape
+    (f64 for f64 operands: ``sum_dtype``)."""
     cdt = precision_dtype or features.dtype
-    f = features.to(cdt)
-    w = weights.to(cdt)
-    acc = sum_dtype(cdt)
-    out = torch.zeros(n_out, weights.shape[2], dtype=acc, device=features.device)
-    for k in range(k3):
-        idx = rulebook[k]
-        live = (idx >= 0)[:, None]
-        g = f[idx.clamp(min=0).to(torch.int64)]
-        g = torch.where(live, g, torch.zeros((), dtype=cdt, device=g.device))
-        out += (g @ w[k]).to(acc)
+    out = _gather_conv_sum(features.to(cdt), rulebook, weights.to(cdt))
     out = torch.where(out_mask[:, None], out, torch.zeros((), device=out.device))
     return out.to(features.dtype)
+
+
+# ------------------------------------------------ windowed gather-GEMM route
+#
+# Rulebooks are per-tap monotone over their valid entries (rows sorted by
+# ravel key, a tap adding a constant to the key), so a block of output rows
+# reads its inputs from a narrow window. The JAX package's XLA form
+# (``ponderv2_tpu/ops/spconv.py:930-1121``) is the substrate of its Pallas
+# kernels K4/K5; here the route runs their Hopper ports
+# (``ops/windowed_gather.py``). K4 and K5 drop an entry outside its window,
+# as the TPU kernels do; the route adds those entries back as a residual, so
+# the result is exact, as the JAX form's per-block fallback makes its own.
+# The residual is a compacted list, in the style of the band conv's overflow
+# residual: the entries outside their windows grouped by tap, one matmul a
+# tap, summed into their rows in a fixed order with no atomics. Building it
+# reads the count of such entries on the host (and, where there are any,
+# their count per tap); with none, nothing else runs. A residual over the
+# whole rulebook with its in-window entries set to -1 needs no host read,
+# but costs a plain gather conv: on the card it took the windowed forward
+# from K4's 1.3 ms to 22.1 ms, against 21.0 ms for the plain conv, with
+# every entry inside its window (PERF.md, the windowed route's findings).
+
+WINDOW_BLOCK = 512  # output rows of one K4 / K5 block
+WINDOW_WB = 1024  # rows of a window block; a window is two of them
+
+
+def use_windowed_gather(n_out: int, cin: int, cout: int) -> bool:
+    """The JAX package's switch (``spconv.py:948-958``), read at call time:
+    with ``PONDER_WINDOWED_GATHER`` unset or "0" no conv takes the route;
+    otherwise a conv of at least 4096 output rows and at most 128 channels
+    either side does."""
+    flag = os.environ.get("PONDER_WINDOWED_GATHER", "0")
+    if flag == "0":
+        return False
+    return n_out >= 4096 and max(cin, cout) <= 128
+
+
+def _window_geometry(rulebook: torch.Tensor, n_in: int, window: int, block: int):
+    """The JAX form's per-(tap, block) windows: ``(rbb (K3, nb, block),
+    starts (K3, nb), covered (nb,))``, ``covered[j]`` True iff every tap's
+    valid entries of block j lie in ``[start, start + window)``.
+    Integer-equal to JAX ``_window_geometry``."""
+    k3, n_out = rulebook.shape
+    nb = -(-n_out // block)
+    rbb = torch.full((k3, nb * block), -1, dtype=rulebook.dtype, device=rulebook.device)
+    rbb[:, :n_out] = rulebook
+    rbb = rbb.reshape(k3, nb, block)
+    valid = rbb >= 0
+    big = torch.iinfo(torch.int32).max
+    mn = torch.where(valid, rbb, big).amin(dim=2)
+    mx = torch.where(valid, rbb, -1).amax(dim=2)
+    starts = torch.where(mn == big, 0, mn).clamp(0, max(n_in - window, 0))
+    covered = ((mx - starts) < window).all(dim=0)
+    return rbb, starts, covered
+
+
+def windowed_coverage(rulebook: torch.Tensor, n_in: int, window: int = 1024,
+                      block: int = WINDOW_BLOCK) -> torch.Tensor:
+    """Diagnostic: the share of output blocks whose entries all fit the JAX
+    form's per-tap windows (JAX ``windowed_coverage``)."""
+    _, _, covered = _window_geometry(rulebook, n_in, window, block)
+    return covered.to(torch.float32).mean()
+
+
+def tap_group(k3: int) -> int:
+    """K4's tap group: the taps that share a leading (x) offset, whose y / z
+    shifts move the ravel key by a few rows (9 of a k3 kernel's 27, 25 of
+    the k5 stem's 125, 4 of a k2 kernel's 8), as phase 12 of
+    ``chip_smoke.py`` and ``tools/experiments/probe_windowed_torch.py``
+    group them. A kernel that is not a cube takes one tap a group."""
+    k = round(k3 ** (1 / 3))
+    return k3 // k if k ** 3 == k3 else 1
+
+
+class WindowedRoute(NamedTuple):
+    """One rulebook's windowed route: K4 / K5's geometry (tap group
+    ``group``, blocks of ``WINDOW_BLOCK`` rows, windows of two
+    ``WINDOW_WB``-row blocks), and the residual: the entries outside their
+    window (what K4 / K5 drop) by tap, ``res_rows`` / ``res_cols`` (E,)
+    int64 output and input rows, ``res_counts`` their count per tap;
+    ``inside`` / ``live`` () int64 device tensors, the valid entries inside
+    their windows and all the valid entries."""
+
+    geom: tuple
+    group: int
+    res_rows: torch.Tensor
+    res_cols: torch.Tensor
+    res_counts: Tuple[int, ...]
+    inside: torch.Tensor
+    live: torch.Tensor
+
+
+def build_windowed_route(rulebook: torch.Tensor, n_in: int) -> WindowedRoute:
+    """K4 / K5's geometry of a (K3, N_out) rulebook over ``n_in`` input
+    rows, with its residual and its counts. Reads the number of entries
+    outside their windows on the host (a sync), and their count per tap
+    where there are any."""
+    from .windowed_gather import prepare_geometry
+
+    k3 = rulebook.shape[0]
+    group = tap_group(k3)
+    geom = prepare_geometry(rulebook.to(torch.int32), n_in, WINDOW_BLOCK, WINDOW_WB,
+                            group)
+    nb = geom.rbb.shape[1]
+    rbb = geom.rbb.reshape(k3, nb, WINDOW_BLOCK)
+    lo = (geom.w0 * WINDOW_WB).repeat_interleave(group, 0)[:, :, None]
+    inside = ((rbb >= lo) & (rbb < lo + 2 * WINDOW_WB)).reshape(k3, -1)
+    rbb = rbb.reshape(k3, -1)
+    taps, rows = ((rbb >= 0) & ~inside).nonzero(as_tuple=True)
+    counts = (0,) * k3
+    if rows.numel():
+        counts = tuple(torch.bincount(taps, minlength=k3).tolist())
+    return WindowedRoute(geom, group, rows, rbb[taps, rows].to(torch.int64), counts,
+                         inside.sum(), (rbb >= 0).sum())
+
+
+# routes by (id(rulebook), n_in): (weak reference to the rulebook, its
+# version counter, the route); an entry leaves when its rulebook is freed
+_ROUTES: dict = {}
+
+
+def windowed_route(rulebook: torch.Tensor, n_in: int) -> WindowedRoute:
+    """``build_windowed_route``, built once per rulebook: the convs that
+    share a rulebook (a level's blocks, the remat recompute, a subm conv's
+    backward) take the route built for the first of them while the
+    rulebook lives and is not modified in place."""
+    key = (id(rulebook), int(n_in))
+    hit = _ROUTES.get(key)
+    if hit is not None and hit[0]() is rulebook and hit[1] == rulebook._version:
+        return hit[2]
+    route = build_windowed_route(rulebook, n_in)
+    ref = weakref.ref(rulebook, lambda _, key=key: _ROUTES.pop(key, None))
+    _ROUTES[key] = (ref, rulebook._version, route)
+    return route
+
+
+def _residual_sum(out: torch.Tensor, f: torch.Tensor, route: WindowedRoute,
+                  w: torch.Tensor) -> torch.Tensor:
+    """``out`` plus the residual's products, f[col] @ w[tap] added into
+    row ``row`` for each entry outside its window, each row's in entry
+    order (``ordered_scatter_add``)."""
+    if not route.res_rows.numel():
+        return out
+    cols = route.res_cols.split(route.res_counts)
+    vals = torch.cat([(f[c] @ w[t]).to(out.dtype) for t, c in enumerate(cols)])
+    return ordered_scatter_add(out, route.res_rows, vals)
+
+
+def _windowed_conv_sum(features: torch.Tensor, route: WindowedRoute,
+                       weights: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    """K4 plus its residual: (nb * block, Cout) f32 of the compute-dtype
+    features and weights."""
+    from . import windowed_gather as wg
+
+    n_pad = wg.padded_rows(features.shape[0], WINDOW_WB)
+    f = wg.pad_features(features, n_pad, cdt)
+    w = weights.to(cdt).contiguous()
+    out = wg.windowed_conv_fwd(f, route.geom, w, WINDOW_WB, route.group)
+    return _residual_sum(out, f, route, w)
+
+
+def _windowed_apply(features, route, weights, out_mask, cdt):
+    """The windowed conv's masked output in ``features.dtype``."""
+    out = _windowed_conv_sum(features, route, weights, cdt)[:out_mask.shape[0]]
+    out = torch.where(out_mask[:, None], out, torch.zeros((), device=out.device))
+    return out.to(features.dtype)
+
+
+def _windowed_dw(features: torch.Tensor, route: WindowedRoute, g: torch.Tensor,
+                 cdt: torch.dtype) -> torch.Tensor:
+    """dW[t] = gather_t(x)^T @ g: K5 plus the residual's dW (one matmul a
+    tap over its entries), (K3, Cin, Cout) f32 (JAX ``_windowed_dw``)."""
+    from . import windowed_gather as wg
+
+    n_pad = wg.padded_rows(features.shape[0], WINDOW_WB)
+    f = wg.pad_features(features, n_pad, cdt)
+    gp = torch.zeros((route.geom.rbb.shape[1] * WINDOW_BLOCK, g.shape[1]), dtype=cdt,
+                     device=g.device)
+    gp[:g.shape[0]] = g.to(cdt)
+    dw = wg.windowed_conv_dw(f, route.geom, gp, WINDOW_WB, route.group)
+    if route.res_rows.numel():
+        cols = route.res_cols.split(route.res_counts)
+        rows = route.res_rows.split(route.res_counts)
+        for t, (c, r) in enumerate(zip(cols, rows)):
+            if c.numel():
+                dw[t] += (f[c].T @ gp[r]).to(dw.dtype)
+    return dw
+
+
+class _WindowedConv(torch.autograd.Function):
+    """``apply_sparse_conv`` on the windowed route: K4 (+ residual) forward;
+    dx by the rulebook backward (what autograd gives ``apply_sparse_conv``,
+    and JAX's autodiff the windowed form: each tap's rows of g @ W[t]^T
+    added back into the rows they were gathered from), dW by K5 (+
+    residual)."""
+
+    @staticmethod
+    def forward(ctx, features, weights, rulebook, out_mask, compute_dtype, route):
+        ctx.save_for_backward(features, weights)
+        ctx.rulebook, ctx.out_mask, ctx.cdt, ctx.route = (rulebook, out_mask,
+                                                          compute_dtype, route)
+        return _windowed_apply(features, route, weights, out_mask, compute_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        features, weights = ctx.saved_tensors
+        rulebook, cdt = ctx.rulebook, ctx.cdt
+        zero = torch.zeros((), dtype=cdt, device=g.device)
+        gc = torch.where(ctx.out_mask[:, None], g, torch.zeros((), dtype=g.dtype,
+                                                               device=g.device)).to(cdt)
+        dx = torch.zeros(features.shape, dtype=cdt, device=g.device)
+        for t in range(rulebook.shape[0]):
+            idx = rulebook[t]
+            rows = torch.where((idx >= 0)[:, None], gc @ weights[t].to(cdt).T, zero)
+            dx.index_put_((idx.clamp(min=0).to(torch.int64),), rows, accumulate=True)
+        dw = _windowed_dw(features, ctx.route, gc, cdt)
+        return dx.to(features.dtype), dw.to(weights.dtype), None, None, None, None
+
+
+def apply_sparse_conv_windowed(
+    features: torch.Tensor,
+    rulebook: torch.Tensor,
+    weights: torch.Tensor,
+    out_mask: torch.Tensor,
+    precision_dtype: Optional[torch.dtype] = None,
+    route: Optional[WindowedRoute] = None,
+) -> torch.Tensor:
+    """Windowed form of :func:`apply_sparse_conv` (same contract: the
+    masked output in ``features.dtype``), differentiable in ``features``
+    and ``weights``. On CUDA tensors it launches K4 (and K5 in the
+    backward) or raises; on CPU tensors it runs their plain versions.
+    ``route`` is the rulebook's ``windowed_route`` when the caller has it."""
+    route = route or windowed_route(rulebook, features.shape[0])
+    return _WindowedConv.apply(features, weights, rulebook, out_mask,
+                               precision_dtype or features.dtype, route)
 
 
 class _SubmConvSymmetric(torch.autograd.Function):
@@ -366,9 +618,12 @@ class _SubmConvSymmetric(torch.autograd.Function):
     and autograd saves only the inputs, not every tap's gathered rows."""
 
     @staticmethod
-    def forward(ctx, features, weights, rulebook, out_mask, compute_dtype):
+    def forward(ctx, features, weights, rulebook, out_mask, compute_dtype, route):
         ctx.save_for_backward(features, weights)
-        ctx.rulebook, ctx.out_mask, ctx.cdt = rulebook, out_mask, compute_dtype
+        ctx.rulebook, ctx.out_mask, ctx.cdt, ctx.route = (rulebook, out_mask,
+                                                          compute_dtype, route)
+        if route is not None:
+            return _windowed_apply(features, route, weights, out_mask, compute_dtype)
         return apply_sparse_conv(features, rulebook, weights, out_mask,
                                  compute_dtype)
 
@@ -379,6 +634,15 @@ class _SubmConvSymmetric(torch.autograd.Function):
         k3 = rulebook.shape[0]
         g = torch.where(ctx.out_mask[:, None], g,
                         torch.zeros((), dtype=g.dtype, device=g.device))
+        if ctx.route is not None:
+            # dx = sum_k gather_{rb[K3-1-k]}(g) @ W[k]^T: with t = K3-1-k the
+            # forward conv of g with the mirrored, transposed weights (JAX
+            # ``spconv.py:1159-1171``)
+            w_bwd = weights.flip(0).transpose(1, 2)
+            dx = _windowed_apply(g, ctx.route, w_bwd, ctx.out_mask, cdt)
+            dw = _windowed_dw(features, ctx.route, g, cdt)
+            return (dx.to(features.dtype), dw.to(weights.dtype), None, None, None,
+                    None)
         gc = g.to(cdt)
         fc = features.to(cdt)
         zero = torch.zeros((), dtype=cdt, device=g.device)
@@ -391,18 +655,34 @@ class _SubmConvSymmetric(torch.autograd.Function):
                              gc[midx.clamp(min=0).to(torch.int64)], zero)
             dw[k] = (fc.T @ gg).to(acc)
             dx += (gg @ weights[k].to(cdt).T).to(acc)
-        return dx.to(features.dtype), dw.to(weights.dtype), None, None, None
+        return dx.to(features.dtype), dw.to(weights.dtype), None, None, None, None
 
 
 def subm_conv_symmetric(features: torch.Tensor, rulebook: torch.Tensor,
                         weights: torch.Tensor, out_mask: torch.Tensor,
-                        precision_dtype: Optional[torch.dtype] = None
-                        ) -> torch.Tensor:
+                        precision_dtype: Optional[torch.dtype] = None,
+                        route: Optional[WindowedRoute] = None) -> torch.Tensor:
     """``apply_sparse_conv`` over a submanifold (mirror-symmetric) rulebook,
     differentiable in ``features`` and ``weights`` with the mirrored-gather
-    backward."""
+    backward. On the windowed route where ``use_windowed_gather`` holds, as
+    the JAX function is, over ``route`` (default the rulebook's
+    ``windowed_route``); a ``route`` given takes the windowed route
+    whatever the switch."""
+    if route is None and use_windowed_gather(rulebook.shape[1], weights.shape[1],
+                                             weights.shape[2]):
+        route = windowed_route(rulebook, features.shape[0])
     return _SubmConvSymmetric.apply(features, weights, rulebook, out_mask,
-                                    precision_dtype or features.dtype)
+                                    precision_dtype or features.dtype, route)
+
+
+def subm_conv_gather(features: torch.Tensor, rulebook: torch.Tensor,
+                     weights: torch.Tensor, out_mask: torch.Tensor,
+                     precision_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``subm_conv_symmetric`` on the plain gather conv whatever the switch:
+    the function of the JAX slab conv, which never takes the windowed
+    route."""
+    return _SubmConvSymmetric.apply(features, weights, rulebook, out_mask,
+                                    precision_dtype or features.dtype, None)
 
 
 def _packed_tap_matmul(features, tap, weights, compute_dtype):

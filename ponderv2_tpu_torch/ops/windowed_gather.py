@@ -13,10 +13,15 @@ drops it, so a caller checks ``covered`` before it trusts the result.
 ``csrc/windowed_gather.cu`` on CUDA tensors, or raise; on CPU tensors they
 run their ``*_plain`` versions. Both run the band conv's tensor-core tiles
 (``csrc/mma_tile.cuh``), planned by ``windowed_fwd_plan`` and
-``windowed_dw_plan``. No path of the pretrain step routes a conv
-here (the JAX package keeps its windowed conv off by default, too): the
-probe ``tools/experiments/probe_windowed_torch.py`` and ``chip_smoke.py``
-run them. ``windowed_slab_fwd`` is K4's forward (its kernel, tile and
+``windowed_dw_plan``. With ``PONDER_WINDOWED_GATHER`` set (off by default,
+as in the JAX package) the gather convs of at most 128 channels and at
+least 4096 rows run them: ``ops/spconv.py:apply_sparse_conv_windowed`` and
+the windowed ``subm_conv_symmetric`` (K4 forward, K5 dW, plus a residual
+for the entries outside their windows), through SubMConv's ``windowed``
+route and the strided / inverse convs over a rulebook
+(``models/sparse_unet/layers.py``); the probe
+``tools/experiments/probe_windowed_torch.py`` and ``chip_smoke.py`` (phases
+12 and 23b) run them too. ``windowed_slab_fwd`` is K4's forward (its kernel, tile and
 plan) over the entries of ``probe_pallas_profile.py``'s ablations (P7
 V2-V4), which read the head row of each entry's 8-row slab; the same probe
 entry point runs it.

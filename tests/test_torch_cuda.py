@@ -563,6 +563,63 @@ def test_k4_k5_reject_bad_input(cuda):
     assert (wg.WINDOWED_FWD.launches, wg.WINDOWED_DW.launches) == before
 
 
+@pytest.mark.parametrize("kind", ["subm k3", "subm k5", "strided k2"])
+@pytest.mark.parametrize("order", ["covered", "shuffled"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_route_on_cuda(cuda, monkeypatch, kind, order, dtype):
+    """The windowed route (``PONDER_WINDOWED_GATHER`` set) on the card: the
+    subm conv (K4 forward, dx as K4 over g, dW by K5) and the strided k2s2
+    conv over its rulebook (8 taps in groups of 4; dx by the rulebook
+    backward, dW by K5), each plus its residual, against the plain gather
+    conv on the same inputs: output, dx and dW within 1e-5 of max|ref| in
+    f32 and 3e-2 in bf16, with the rows in order and shuffled (most entries
+    then outside their windows); K4 and K5 launch."""
+    from ponderv2_tpu_torch.ops import spconv as sc
+
+    monkeypatch.setenv("PONDER_WINDOWED_GATHER", "1")
+    shape = (96, 96, 32)
+    coords = _scene(12000, shape).to(cuda)
+    n = coords.shape[0]
+    mask = coords[:, 0] >= 0
+    if kind == "strided k2":
+        plan = sc.build_strided_plan(coords, shape, 2, 2, 2, 0, n)
+        rb, out_mask = plan.rulebook, plan.out_coords[:, 0] >= 0
+    else:
+        rb = sc.build_subm_rulebook(coords, shape, 2, 3 if kind == "subm k3" else 5)
+        out_mask = mask
+    if order == "shuffled":
+        # the rows relabelled by a permutation, outputs with inputs, so that
+        # a subm rulebook stays mirror-symmetric
+        perm = torch.randperm(n, generator=torch.Generator().manual_seed(1)).to(cuda)
+        rb = torch.where(rb >= 0, perm[rb.clamp(min=0).long()].int(), rb)
+        if kind != "strided k2":
+            rb = rb[:, torch.argsort(perm)]
+            mask = out_mask = mask[torch.argsort(perm)]
+    assert rb.shape[1] >= 4096
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    cin, cout = (6, 32) if kind == "subm k5" else (32, 48)
+    x = (torch.randn(n, cin, device=cuda, generator=gen) * mask[:, None]).requires_grad_()
+    w = (torch.randn(rb.shape[0], cin, cout, device=cuda, generator=gen)
+         / (rb.shape[0] * cin) ** 0.5).requires_grad_()
+    route = sc.windowed_route(rb, n)
+    inside, live = int(route.inside), int(route.live)
+    assert (inside == live) if order == "covered" else inside < live
+    before = (wg.WINDOWED_FWD.launches, wg.WINDOWED_DW.launches)
+    if kind == "strided k2":
+        out = sc.apply_sparse_conv_windowed(x, rb, w, out_mask, dtype, route)
+    else:
+        out = sc.subm_conv_symmetric(x, rb, w, out_mask, dtype, route)
+    g = torch.randn(out.shape, device=cuda, generator=gen)
+    dx, dw = torch.autograd.grad(out, (x, w), g)
+    launches = (wg.WINDOWED_FWD.launches - before[0], wg.WINDOWED_DW.launches - before[1])
+    assert launches == ((1, 1) if kind == "strided k2" else (2, 1))
+    ref = apply_sparse_conv(x, rb, w, out_mask, dtype)
+    rdx, rdw = torch.autograd.grad(ref, (x, w), g)
+    bound = 1e-5 if dtype == torch.float32 else 3e-2
+    for got, r in ((out, ref), (dx, rdx), (dw, rdw)):
+        assert _rel_err(got.detach(), r.detach()) <= bound
+
+
 # ------------------------------------------------------------------ probe kernels
 # (csrc/row_gather.cu, csrc/probe_kernels.cu, the P7 forward of
 # csrc/windowed_gather.cu). Their plain versions add the same values in the

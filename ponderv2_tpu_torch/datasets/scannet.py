@@ -1,9 +1,11 @@
 """ScanNet / ScanNet200 datasets (+ RGB-D pretraining variant).
 
-Copies of ``VALID_CLASS_IDS_20``, ``CLASS_NAMES_20``, ``ScanNetDataset``,
-``ScanNet200Dataset`` and ``ScanNetRGBDDataset`` from
-``ponderv2_tpu/datasets/scannet.py`` with only the import lines changed (see
-``transform.py`` for why they are copies). Scenes are preprocessed ``.pth``
+Copies of ``VALID_CLASS_IDS_20``, ``CLASS_NAMES_20``, ``ScanNet200Dataset``
+and ``ScanNetRGBDDataset`` from ``ponderv2_tpu/datasets/scannet.py`` with
+only the import lines changed (see ``transform.py`` for why they are copies).
+``ScanNetDataset`` differs where the JAX one fails: a one-scene ``lr_file``
+(``np.loadtxt`` gives a 0-d array) and an ``la_file`` of numpy index arrays
+(which ``torch.load``'s default ``weights_only`` refuses). Scenes are preprocessed ``.pth``
 dicts under ``{data_root}/{split}/``: ``coord``/``color``/``normal`` and
 ``semantic_gt20`` / ``semantic_gt200`` / ``instance_gt``; the RGB-D
 pretraining variant adds ``num_cameras`` frames per scene from
@@ -34,6 +36,19 @@ CLASS_NAMES_20 = (
 )
 
 
+def _load_la_file(path: str) -> Dict[str, Any]:
+    """The limited-annotation file: scene name -> indices of its labelled
+    points, as plain lists or numpy arrays. ``torch.load``'s default
+    ``weights_only`` refuses numpy arrays, so the types a pickled integer
+    array names are allowed, and nothing else."""
+    import torch
+
+    reconstruct = np.zeros(0).__reduce__()[0]  # numpy's module path differs by version
+    dtypes = [type(np.dtype(c)) for c in np.typecodes["AllInteger"]]
+    with torch.serialization.safe_globals([reconstruct, np.ndarray, np.dtype, *dtypes]):
+        return torch.load(path)
+
+
 @DATASETS.register_module()
 class ScanNetDataset(DefaultDataset):
     class2id = np.array(VALID_CLASS_IDS_20)
@@ -44,10 +59,9 @@ class ScanNetDataset(DefaultDataset):
         la_file: Optional[str] = None,
         **kwargs,
     ):
-        self.lr = np.loadtxt(lr_file, dtype=str) if lr_file is not None else None
-        self.la = (
-            __import__("torch").load(la_file) if la_file is not None else None
-        )
+        self.lr = (np.atleast_1d(np.loadtxt(lr_file, dtype=str))
+                   if lr_file is not None else None)
+        self.la = _load_la_file(la_file) if la_file is not None else None
         super().__init__(**kwargs)
 
     def get_data_list(self) -> List[str]:

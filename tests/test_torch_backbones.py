@@ -12,6 +12,14 @@ and every gradient within 1e-5 of max|ref|, the moved running statistics
 too, ``contract_ok`` equal, and the integer plans (each level's rulebook and
 band plan) equal. The widths are the smallest that put one level over 64
 channels, so that level's blocks take the band conv.
+
+The JAX runs (``jax_run``) and the checks against them
+(``check_backbone_matches_jax``) live here; ``test_backbone_matches_jax``
+runs them in ``test_torch_backbones_mink.py`` (MinkUNet14A),
+``test_torch_backbones_mink50.py`` (MinkUNet50),
+``test_torch_backbones_spunet.py`` (SpUNetNoSkipBase) and
+``test_torch_backbones_cls.py`` (the two classifiers), one module fixture
+per model.
 """
 
 import numpy as np
@@ -33,6 +41,8 @@ from ponderv2_tpu_torch.utils.convert import (
     state_dict_from_jax_backbone,
     state_dict_from_jax_classifier,
 )
+from jax_compile import jit  # noqa: E402
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 SHAPE = (32, 32, 16)
 CAP = 512
@@ -147,45 +157,43 @@ def weights_of(name, out_shape, seed=1):
     return np.random.RandomState(seed).randn(*out_shape).astype(np.float32)
 
 
-@pytest.fixture(scope="module")
-def jax_runs():
-    """Per case: the JAX model's variables, eval output, contract flag,
-    training loss, grads and moved BN statistics (computed once)."""
+def jax_run(name):
+    """One case's JAX model variables, eval output, contract flag,
+    training loss, grads and moved BN statistics (one jitted function), and
+    the inputs they came from."""
     coords, feat, category = voxels()
-    runs = {}
-    for name, cfg in CASES.items():
-        jmodel = jbuild(jax_cfg(cfg))
-        args = jax_inputs(is_classifier(name), coords, feat, category)
-        variables = random_variables(jmodel, args)
-        classifier = is_classifier(name)
+    cfg = CASES[name]
+    jmodel = jbuild(jax_cfg(cfg))
+    args = jax_inputs(is_classifier(name), coords, feat, category)
+    variables = random_variables(jmodel, args)
+    classifier = is_classifier(name)
 
-        def head(out):
-            return out["cls_logits"] if classifier else out
+    def head(out):
+        return out["cls_logits"] if classifier else out
 
-        @jax.jit
-        def run(variables, args):
-            if classifier:  # the batch's static ints, as the trainer adds them
-                args = ({**args[0], "spatial_shape": SHAPE, "batch_size": 2},)
-            ev, diag = jmodel.apply(variables, *args, train=False, mutable=["diagnostics"])
+    @jit
+    def run(variables, args):
+        if classifier:  # the batch's static ints, as the trainer adds them
+            args = ({**args[0], "spatial_shape": SHAPE, "batch_size": 2},)
+        ev, diag = jmodel.apply(variables, *args, train=False, mutable=["diagnostics"])
 
-            def loss_fn(params):
-                out, upd = jmodel.apply({"params": params,
-                                         "batch_stats": variables["batch_stats"]},
-                                        *args, train=True, mutable=["batch_stats"])
-                if classifier:
-                    return out["loss"], upd
-                r = jnp.asarray(weights_of(name, out.shape))
-                return jnp.sum(out * r) / out.shape[0], upd
+        def loss_fn(params):
+            out, upd = jmodel.apply({"params": params,
+                                     "batch_stats": variables["batch_stats"]},
+                                    *args, train=True, mutable=["batch_stats"])
+            if classifier:
+                return out["loss"], upd
+            r = jnp.asarray(weights_of(name, out.shape))
+            return jnp.sum(out * r) / out.shape[0], upd
 
-            (loss, upd), grads = jax.value_and_grad(loss_fn, has_aux=True)(
-                variables["params"])
-            ok = jax.tree.leaves(diag.get("diagnostics", {}))
-            return head(ev), (ok[0] if ok else jnp.asarray(True)), loss, grads, upd
-        ev, ok, loss, grads, upd = jax.device_get(run(variables, args))
-        runs[name] = dict(variables=jax.device_get(variables), out=np.asarray(ev),
-                          ok=bool(ok), loss=float(loss), grads=grads,
-                          stats=upd["batch_stats"])
-    return dict(runs=runs, coords=coords, feat=feat, category=category)
+        (loss, upd), grads = jax.value_and_grad(loss_fn, has_aux=True)(
+            variables["params"])
+        ok = jax.tree.leaves(diag.get("diagnostics", {}))
+        return head(ev), (ok[0] if ok else jnp.asarray(True)), loss, grads, upd
+    ev, ok, loss, grads, upd = jax.device_get(run(variables, args))
+    return dict(name=name, variables=jax.device_get(variables), out=np.asarray(ev),
+                ok=bool(ok), loss=float(loss), grads=grads, stats=upd["batch_stats"],
+                coords=coords, feat=feat, category=category)
 
 
 def to_port(name, params, stats):
@@ -216,12 +224,14 @@ def port_forward(model, coords, feat, category):
     return out, ok, None
 
 
-@pytest.mark.parametrize("name", list(CASES))
-def test_backbone_matches_jax(jax_runs, name):
+def check_backbone_matches_jax(run):
     """Eval forward and a training loss with its grads and moved running
-    statistics, within 1e-5 of max|ref|; ``contract_ok`` equal (and True)."""
-    run = jax_runs["runs"][name]
-    coords, feat, category = jax_runs["coords"], jax_runs["feat"], jax_runs["category"]
+    statistics, within 1e-5 of max|ref|; ``contract_ok`` equal (and True).
+    The body of ``test_backbone_matches_jax`` in
+    ``test_torch_backbones_{mink,mink50,spunet,cls}.py``, one JAX model a
+    module fixture there."""
+    name = run["name"]
+    coords, feat, category = run["coords"], run["feat"], run["category"]
     model = port_model(name, run).eval()
     with torch.no_grad():
         out, ok, _ = port_forward(model, coords, feat, category)

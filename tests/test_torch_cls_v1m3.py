@@ -21,6 +21,8 @@ from ponderv2_tpu_torch.datasets import build_dataset, collate_fn
 from ponderv2_tpu_torch.models import build_model as tbuild
 from ponderv2_tpu_torch.models.default import batch_to_sparse_tensor
 from ponderv2_tpu_torch.utils.convert import state_dict_from_jax_spunet_v1m3
+from jax_compile import jit  # noqa: E402
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 SHAPE = (160, 160, 64)
 CONDITIONS = ("ScanNet", "S3DIS", "Structured3D")
@@ -89,7 +91,7 @@ def jax_pooled():
     params = jax.tree_util.tree_map_with_path(draw, shapes["params"])
     stats = jax.tree_util.tree_map_with_path(draw, shapes["batch_stats"])
 
-    @jax.jit
+    @jit
     def fwd(p, s, sparse, ctx):
         return jmodel.apply({"params": p, "batch_stats": s}, sparse, train=False,
                             condition="S3DIS", context=ctx)

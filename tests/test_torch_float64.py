@@ -27,6 +27,7 @@ from ponderv2_tpu_torch.ops import band_conv as bc
 from ponderv2_tpu_torch.ops import spconv as sp
 from ponderv2_tpu_torch.ops.scatter import sum_dtype
 from test_torch_ppt import PPT, SHAPE, arrays_of, randomize, scene_batch
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "tools")]

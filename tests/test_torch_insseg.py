@@ -39,6 +39,7 @@ from ponderv2_tpu_torch.models.point_group import cluster as tcluster
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "tools")]
 import chip_smoke  # noqa: E402
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 PG_KW = dict(segment_ignore_index=(-1, 0, 1), cluster_thresh=1.5, voxel_size=0.02,
              cluster_min_points=5, cluster_propose_points=8, semantic_num_classes=6)

@@ -49,6 +49,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "tools")]
 import chip_smoke  # noqa: E402
 from convert_torch_checkpoint import convert_ppt_v1m1, convert_spunet_v1m1  # noqa: E402
+from jax_compile import background_compile  # noqa: E402
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 SHAPE = (1024, 1024, 512)
 CE = [dict(type="CrossEntropyLoss", loss_weight=1.0, ignore_index=-1)]
@@ -200,12 +202,13 @@ def jax_forward(jmodel, condition=None):
 
 
 @pytest.fixture(scope="module")
-def v1m1_grads():
-    """PG-v1m1 over SpUNet-v1m1: the JAX training forward's outputs and the
-    grads of its loss, as a function of the port model's weights (one jit
-    compile for the module)."""
-    cfg = dict(PG, backbone=V1M1)
-    fwd = jax_forward(jbuild(without_remat(cfg)))
+def jax_compiled(batch):
+    """The module's two JAX graphs, lowered in turn and compiled side by
+    side: PG-v1m1 over SpUNet-v1m1's training forward with the grads of
+    its loss (``v1m1``), and PG-v1m1 over PPT-v1m1's training forward at
+    "ScanNet" (``ppt``); futures of the compiled functions."""
+    v1m1 = dict(PG, backbone=V1M1)
+    fwd = jax_forward(jbuild(without_remat(v1m1)))
 
     @jax.jit
     def value_and_grad(variables, b):
@@ -215,8 +218,24 @@ def v1m1_grads():
 
         return jax.value_and_grad(loss_fn, has_aux=True)(variables["params"])
 
+    ppt = dict(PG, backbone=PPT)
+    ppt_forward = jax.jit(jax_forward(jbuild(without_remat(ppt)), "ScanNet"))
+    b = jax_inputs(batch)
+    return {"v1m1": background_compile(value_and_grad,
+                                       jax_variables(seeded_model(v1m1), v1m1), b),
+            "ppt": background_compile(ppt_forward, jax_variables(seeded_model(ppt), ppt), b)}
+
+
+@pytest.fixture(scope="module")
+def v1m1_grads(jax_compiled):
+    """PG-v1m1 over SpUNet-v1m1: the JAX training forward's outputs and the
+    grads of its loss, as a function of the port model's weights (one jit
+    compile for the module)."""
+    cfg = dict(PG, backbone=V1M1)
+
     def run(model, batch):
         variables = jax_variables(model, cfg)
+        value_and_grad = jax_compiled["v1m1"].result()
         (_, ref), grads = jax.device_get(value_and_grad(variables, jax_inputs(batch)))
         return ref, state_dict_from_jax_point_group(
             {"params": grads, "batch_stats": jax.device_get(variables["batch_stats"])}, V1M1)
@@ -270,14 +289,13 @@ def test_zero_offset_rows_give_finite_grads_port_only(batch, v1m1_grads):
             assert err <= REL * top, f"grad {name}: err {err:.3e} vs {REL} x {top:.3e}"
 
 
-def test_pg_over_ppt_backbone_mode_matches_jax(batch):
+def test_pg_over_ppt_backbone_mode_matches_jax(batch, jax_compiled):
     """PG-v1m1 over PPT-v1m1 (backbone_mode) over SpUNet-v1m3, condition
     "ScanNet" given to both: outputs and losses."""
     cfg = dict(PG, backbone=PPT)
     model = seeded_model(cfg)
     variables = jax_variables(model, cfg)
-    jmodel = jbuild(without_remat(cfg))
-    ref = jax.device_get(jax.jit(jax_forward(jmodel, "ScanNet"))(variables, jax_inputs(batch)))
+    ref = jax.device_get(jax_compiled["ppt"].result()(variables, jax_inputs(batch)))
 
     with torch.no_grad():
         out = model(port_inputs(batch, "ScanNet"))

@@ -31,6 +31,7 @@ from ponderv2_tpu_torch.ops import windowed_gather as wg
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools", "experiments"))
 import probe_windowed_torch as probe  # noqa: E402
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 # (cin, cout) of every band conv the fine-tune and pretrain steps route to K2
 ROUTED = [(32, 32), (64, 64), (96, 96), (128, 96), (128, 128), (192, 128)]

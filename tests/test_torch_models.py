@@ -21,6 +21,7 @@ from ponderv2_tpu_torch.models.norm import MaskedBatchNorm as TBN  # noqa: E402
 from ponderv2_tpu_torch.ops import band_conv as tbc  # noqa: E402
 from ponderv2_tpu_torch.ops.sparse import make_sparse_tensor  # noqa: E402
 from ponderv2_tpu_torch.utils.convert import state_dict_from_jax_spunet  # noqa: E402
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 
 @pytest.fixture(autouse=True)

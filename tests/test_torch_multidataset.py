@@ -38,6 +38,7 @@ from test_torch_data import assert_same_tree
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "tools")]
 import chip_smoke  # noqa: E402
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 MULTI_CFG = TConfig.fromfile(chip_smoke.MULTI_CONFIG)
 # the preprocessors' distance filter (preprocess_s3dis.py:unproject_filtering_depths)

@@ -8,9 +8,6 @@ its PPT loss weight 1.0, on ``test_torch_pretrain_step.py``'s batch and
 seeded weights (carried to JAX by ``convert_ponder_indoor`` and back by
 ``state_dict_from_jax_ponder_indoor``):
 
-- per condition, the loss and its terms of one training forward against
-  JAX ``model.apply`` with ``condition`` in the input (Structured3D,
-  ScanNet), or against the step's metrics (S3DIS), 1e-3 relative;
 - one SGD step at "S3DIS" against ``make_train_step`` with ``condition`` in
   its ``static_ctx``: every grad within 1e-2 of its max|ref| and every
   parameter's and running statistic's update within 1e-2 of its max|ref
@@ -21,7 +18,9 @@ seeded weights (carried to JAX by ``convert_ponder_indoor`` and back by
   in JAX, the step the one compiled above; from the state each step started
   from, the port's eikonal term within 1e-3 relative (``LOSS_REL``).
 
-The optimizer and schedule are the multi-dataset config's throughout.
+``test_torch_multidataset_terms.py`` holds the loss and its terms of one
+training forward per condition. The optimizer and schedule are the
+multi-dataset config's throughout.
 
 The JAX backbone runs with ``remat=False`` (ROADMAP Queue 3).
 """
@@ -53,6 +52,8 @@ from test_torch_pretrain_step import (CFG, GRAD_REL, LOSS_REL, SEED, assert_rel,
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 from convert_torch_checkpoint import convert_ponder_indoor  # noqa: E402
+from jax_compile import compile_now  # noqa: E402
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 CONDITIONS = ("Structured3D", "ScanNet", "S3DIS")
 MODEL = dict(CFG.model, conditions=CONDITIONS, class_name=PPT_CLASS_NAMES,
@@ -75,30 +76,33 @@ def _torch_state():
     torch.set_num_threads(threads)
 
 
-@pytest.fixture(scope="module")
-def jax_run():
-    """The seeded weights, the JAX forward's loss terms at Structured3D and
-    ScanNet, and one JAX train step at S3DIS: its metrics, grads and the
-    state after it, in the port's names."""
+def seeded_setup():
+    """The batch, its static context, the port's seeded weights, the JAX
+    model (without ``nn.remat``) and its variables made from those weights,
+    and the JAX key of the train step at step 0."""
     arrays = pretrain_batch()
     ctx = dict(spatial_shape=tuple(CFG.sparse_shape), batch_size=2)
     channels, layers = CFG.model.backbone.channels, CFG.model.backbone.layers
     levels = CFG.model.projection.num_levels
-    model = tbuild(dict(MODEL))
-    init = seeded_state_dict(model)
+    init = seeded_state_dict(tbuild(dict(MODEL)))
     params, stats, constants = convert_ponder_indoor(init, channels, layers, levels)
     jmodel = jbuild(dict(MODEL, backbone=dict(MODEL["backbone"], remat=False)))
-    variables = jax.tree.map(jnp.asarray, {"params": params, "batch_stats": stats,
-                                           "constants": constants})
-    jarr = {k: jnp.asarray(v) for k, v in arrays.items()}
     key = jax.random.fold_in(jax.random.PRNGKey(SEED), 0)  # the train step's at step 0
-    terms = {}
-    for cond in CONDITIONS[:2]:
-        fwd = jax.jit(lambda v, a, rng, cond=cond: jmodel.apply(
-            v, {**a, **ctx, "condition": cond, "rng": rng}, train=True,
-            mutable=["batch_stats", "diagnostics"])[0])
-        out = fwd(variables, jarr, key)
-        terms[cond] = {k: float(out[k]) for k in TERMS}
+    return SimpleNamespace(arrays=arrays, ctx=ctx, init=init, params=params, stats=stats,
+                           constants=constants, jmodel=jmodel, key=key)
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    """The seeded weights and one JAX train step at S3DIS: its metrics,
+    grads and the state after it, in the port's names; then the rest of the
+    OneCycle round."""
+    setup = seeded_setup()
+    arrays, ctx, init, key = setup.arrays, setup.ctx, setup.init, setup.key
+    params, stats, constants = setup.params, setup.stats, setup.constants
+    channels, layers = CFG.model.backbone.channels, CFG.model.backbone.layers
+    levels = CFG.model.projection.num_levels
+    jarr = {k: jnp.asarray(v) for k, v in arrays.items()}
 
     capture = optax.GradientTransformation(
         lambda p: jax.tree.map(jnp.zeros_like, p), lambda g, s, p=None: (g, g))
@@ -109,10 +113,11 @@ def jax_run():
                        batch_stats=jax.tree.map(jnp.asarray, stats),
                        opt_state=tx.init(jparams),
                        constants=jax.tree.map(jnp.asarray, constants))
-    step = make_train_step(jmodel, tx, schedule, {**ctx, "condition": "S3DIS"},
-                           metric_keys=TERMS[1:] + ("eikonal_loss",), rng_seed=SEED)
+    step = compile_now(make_train_step(setup.jmodel, tx, schedule,
+                                       {**ctx, "condition": "S3DIS"},
+                                       metric_keys=TERMS[1:] + ("eikonal_loss",),
+                                       rng_seed=SEED), state, jarr)
     state, metrics = step(state, jarr)
-    terms["S3DIS"] = {k: float(metrics[k]) for k in TERMS}
 
     def to_port(p, s):
         return state_dict_from_jax_ponder_indoor(
@@ -129,7 +134,7 @@ def jax_run():
         start = to_port(state.params, state.batch_stats)
         state, metrics = step(state, jarr)
         schedule_run.append((float(metrics["lr"]), float(metrics["eikonal_loss"]), start))
-    return SimpleNamespace(arrays=arrays, ctx=ctx, init=init, key=key, terms=terms,
+    return SimpleNamespace(arrays=arrays, ctx=ctx, init=init, key=key,
                            schedule_run=schedule_run, **vars(first))
 
 
@@ -138,25 +143,6 @@ def port_forward(model, run, condition):
     inputs = {k: torch.from_numpy(v) for k, v in run.arrays.items()}
     return model({**inputs, **run.ctx, "condition": condition,
                   "draws": port_draws(model, run.key, B, V, H * W)})
-
-
-@pytest.mark.parametrize("condition", CONDITIONS)
-def test_loss_terms_per_condition_match_jax(jax_run, condition):
-    """Each condition's loss and terms (its ``valid_index`` rows of the 36
-    class embeddings in the semantic and PPT losses) against JAX; the
-    conditions' PPT losses differ, so the subset is taken."""
-    model = tbuild(dict(MODEL))
-    model.load_state_dict({k: torch.from_numpy(v) for k, v in jax_run.init.items()})
-    model.train()
-    ci = CONDITIONS.index(condition)
-    assert model.class_embedding.shape[0] == 36
-    assert len(model.valid_index[ci]) == (25, 20, 13)[ci]
-    with torch.no_grad():
-        out = port_forward(model, jax_run, condition)
-    for k in TERMS:
-        assert_rel(float(out[k]), jax_run.terms[condition][k], LOSS_REL, f"{condition} {k}")
-    ppt = [jax_run.terms[c]["ppt_loss"] for c in CONDITIONS]
-    assert len(set(ppt)) == 3
 
 
 def test_sgd_step_at_s3dis_matches_jax_train_step(jax_run):

@@ -23,6 +23,7 @@ from ponderv2_tpu_torch.ops import spconv as tsp
 from ponderv2_tpu_torch.ops.sparse import make_sparse_tensor as tmake
 from ponderv2_tpu_torch.ops.sparse import sort_by_key as tsort
 from ponderv2_tpu_torch.ops.sparse import unique_voxels as tunique
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 
 class jsp:

@@ -43,6 +43,7 @@ from ponderv2_tpu_torch.utils import cache
 from ponderv2_tpu_torch.utils.config import Config as TConfig
 from ponderv2_tpu_torch.utils.events import EventStorage as TStorage
 from ponderv2_tpu_torch.utils.logger import get_root_logger
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -22,9 +22,8 @@ semantic head of ``-base-semantic`` (its temperature, ``semantic_min_label``
   1e-5 of max|ref|; the port's AdamW fed the JAX step's grads gives the JAX
   step's parameters within 1e-6 of the update's max|ref| (or f32's
   resolution of the value);
-- the plan kind at each level, the rulebooks and the band plans, equal to
-  JAX's at nuScenes' ``sparse_shape`` (1440, 1440, 108) at the pretrain's
-  batch 4 and the fine-tune's batch 12, on coordinates that span the grid.
+- the plan kind at each level, the rulebooks and the band plans at
+  nuScenes' ``sparse_shape``: ``test_torch_outdoor_plans.py``.
 
 Why a grad's bound holds its f32 rounding beside 1e-5: on this batch the
 JAX step in f32 is up to 3.2e-5 of a grad's max|ref| from the same step in
@@ -46,18 +45,16 @@ import torch
 from ponderv2_tpu.engines.train import TrainState, make_train_step
 from ponderv2_tpu.models import build_model as jbuild
 from ponderv2_tpu.models.ponder.ponder_outdoor import block_mask_keep as jax_keep
-from ponderv2_tpu.models.sparse_unet import plans as jplans
-from ponderv2_tpu.ops.spconv import SubmPlan as JSubmPlan
 from ponderv2_tpu.utils.optimizer import build_optimizer as jbuild_optimizer
 from ponderv2_tpu.utils.scheduler import build_scheduler as jbuild_scheduler
 from ponderv2_tpu_torch.models import build_model as tbuild
 from ponderv2_tpu_torch.models.ponder.ponder_outdoor import block_mask_keep
-from ponderv2_tpu_torch.models.sparse_unet import plans as tplans
-from ponderv2_tpu_torch.ops.spconv import SubmPlan
 from ponderv2_tpu_torch.utils.config import Config
 from ponderv2_tpu_torch.utils.convert import state_dict_from_jax_ponder_outdoor
 from ponderv2_tpu_torch.utils.optimizer import build_optimizer, set_lr
 from ponderv2_tpu_torch.utils.scheduler import build_scheduler
+from jax_compile import compile_now  # noqa: E402
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NUSCENES = Config.fromfile(os.path.join(
@@ -200,7 +197,8 @@ def jax_step():
                        batch_stats=jax.tree.map(jnp.asarray, variables["batch_stats"]),
                        opt_state=tx.init(params),
                        constants=jax.tree.map(jnp.asarray, variables["constants"]))
-    step = make_train_step(jmodel, tx, schedule, CTX, metric_keys=TERMS, rng_seed=SEED)
+    step = compile_now(make_train_step(jmodel, tx, schedule, CTX, metric_keys=TERMS,
+                                       rng_seed=SEED), state, jarr)
     state, metrics = step(state, jarr)
     grads = to_port({"params": state.opt_state[0], "batch_stats": variables["batch_stats"]})
     after = to_port({"params": state.params, "batch_stats": state.batch_stats})
@@ -388,50 +386,3 @@ def test_adamw_step_matches_jax_train_step(jax_step):
         update = ref - jax_step.init[name]
         bound = max(1e-6 * np.abs(update).max(), 1.2e-7 * np.abs(ref).max())
         assert_within(p.detach().numpy(), ref, bound, name)
-
-
-def lidar_coords(batch_size, rng, n=600):
-    """Unique voxel coords of ``batch_size`` scans spread over nuScenes'
-    whole grid: rings 20-720 cells from the centre, every height."""
-    rows = []
-    for b in range(batch_size):
-        r, a = rng.uniform(20, 720, n), rng.uniform(0, 2 * np.pi, n)
-        x = np.clip(720 + r * np.cos(a), 0, NUSCENES_SHAPE[0] - 1).astype(int)
-        y = np.clip(720 + r * np.sin(a), 0, NUSCENES_SHAPE[1] - 1).astype(int)
-        z = rng.randint(0, NUSCENES_SHAPE[2], n)
-        rows.append(np.unique(np.stack([np.full(n, b), x, y, z], 1), axis=0))
-    return np.concatenate(rows).astype(np.int32)
-
-
-@pytest.mark.parametrize("batch_size,rulebook_levels", [(4, [0]), (12, [0, 1])])
-def test_plans_at_nuscenes_shape_match_jax(batch_size, rulebook_levels):
-    """At (1440, 1440, 108): the pretrain's batch 4 takes plain rulebooks at
-    L0 (8.96e8 cells), the fine-tune's batch 12 at L0 and L1 (2.69e9,
-    3.36e8), both above the 192 Mi dense-grid limit; every other level a
-    SubmPlan with a band plan. Per level the plan kind, the rulebook and
-    the band plan (windows, tap rows, overflow entries, ok) equal JAX's,
-    and the k5 stem's rulebook too."""
-    coords = lidar_coords(batch_size, np.random.RandomState(batch_size))
-    cap = 8192
-    coords = np.concatenate([coords, np.full((cap - len(coords), 4), -1, np.int32)])
-    ch = tuple(NUSCENES.model.backbone.channels)
-    caps = tplans.capacity_schedule(cap, len(ch) // 2)
-    build = jax.jit(jplans.build_spunet_plans, static_argnums=(1, 2, 3, 4))
-    jp = build(jnp.asarray(coords), NUSCENES_SHAPE, batch_size, caps, ch)
-    tp = tplans.build_spunet_plans(torch.from_numpy(coords), NUSCENES_SHAPE, batch_size,
-                                   caps, ch)
-    assert np.array_equal(np.asarray(jp.stem), tp.stem.numpy())
-    got_rulebook = []
-    for level, (a, b) in enumerate(zip([jp.l0, *jp.subm], [tp.l0, *tp.subm])):
-        assert isinstance(a, JSubmPlan) == isinstance(b, SubmPlan), level
-        if not isinstance(b, SubmPlan):
-            got_rulebook.append(level)
-            assert np.array_equal(np.asarray(a), b.numpy()), level
-            continue
-        assert np.array_equal(np.asarray(a.legacy), b.legacy.numpy()), level
-        assert bool(a.sorted_ok) and bool(b.sorted_ok)
-        assert a.band is not None and b.band is not None, level
-        for field in ("rbt", "w0", "ok", "ov_i", "ov_j", "ov_t"):
-            assert np.array_equal(np.asarray(getattr(a.band, field)),
-                                  getattr(b.band, field).numpy()), (level, field)
-    assert got_rulebook == rulebook_levels

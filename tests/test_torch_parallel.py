@@ -48,6 +48,7 @@ from ponderv2_tpu_torch.engines.train import TRAINERS
 from ponderv2_tpu_torch.models import build_model
 from ponderv2_tpu_torch.models.norm import MaskedBatchNorm, PDBatchNorm
 from ponderv2_tpu_torch.parallel import mesh
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SYNTHETIC = os.path.join(ROOT, "configs/_test_/semseg_synthetic.py")

@@ -40,6 +40,8 @@ from ponderv2_tpu_torch.models import build_model as tbuild
 from ponderv2_tpu_torch.utils.convert import state_dict_from_jax_spunet
 from test_torch_train import OPTIMIZER, SCHEDULER, SEGMENTOR as TRAIN_SEGMENTOR, assert_rel
 from convert_torch_checkpoint import convert_spunet_v1m1  # noqa: E402  (tools/, on the path)
+from jax_compile import background_compile  # noqa: E402
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPATIAL = (160, 160, 64)
@@ -121,15 +123,10 @@ def steps(tmp_path_factory):
         step=jnp.zeros((), jnp.int32), params=variables["params"],
         batch_stats=variables["batch_stats"], opt_state=tx.init(variables["params"]),
         constants={}), mesh)
-    step = make_sharded_train_step(jbuild(dict(JSEGMENTOR)), tx, schedule,
-                                   dict(spatial_shape=SPATIAL, batch_size=1), mesh,
-                                   sync_bn=True)
-    jmetrics, jgrads = [], []
-    for _ in range(2):
-        state, m = step(state, shard_batch(arrays, mesh))
-        jmetrics.append({k: float(v) for k, v in m.items()})
-        jgrads.append(to_port_names(state.opt_state[0], variables["batch_stats"]))
-    jafter = to_port_names(state.params, state.batch_stats)
+    # compiled in the background while the port's ranks run
+    step = background_compile(make_sharded_train_step(
+        jbuild(dict(JSEGMENTOR)), tx, schedule, dict(spatial_shape=SPATIAL, batch_size=1),
+        mesh, sync_bn=True), state, shard_batch(arrays, mesh))
 
     # --- port: the Trainer's data-parallel branch on two gloo ranks
     cfg = default_config_parser(os.path.join(ROOT, "configs/_test_/semseg_synthetic.py"), {
@@ -145,6 +142,15 @@ def steps(tmp_path_factory):
     got = ranks.spawn(ranks.dp_step_rank, dict(
         cfg=cfg, state={k: torch.from_numpy(v) for k, v in init.items()},
         batches=[shards, shards], total_steps=TOTAL_STEPS), tmp)
+
+    # --- JAX: the two mesh steps
+    step = step.result()
+    jmetrics, jgrads = [], []
+    for _ in range(2):
+        state, m = step(state, shard_batch(arrays, mesh))
+        jmetrics.append({k: float(v) for k, v in m.items()})
+        jgrads.append(to_port_names(state.opt_state[0], variables["batch_stats"]))
+    jafter = to_port_names(state.params, state.batch_stats)
     return dict(jmetrics=jmetrics, jgrads=jgrads, jafter=jafter, ranks=got)
 
 

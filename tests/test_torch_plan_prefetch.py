@@ -38,6 +38,8 @@ sys.path.insert(0, os.path.join(ROOT, "tools"))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from convert_torch_checkpoint import convert_ponder_indoor  # noqa: E402
 from test_torch_pretrain_step import CFG, pretrain_batch, seeded_state_dict  # noqa: E402
+from jax_compile import jit  # noqa: E402
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 # pretrain_synthetic.py's grid, batch and budget, its backbone cut to two
 # stages (short JAX compiles; the plans' tests and the forward's share one)
@@ -331,7 +333,7 @@ def test_ponder_forward_on_host_plans_matches_jax():
                  "constants": jax.tree.map(jnp.asarray, constants)}
     jst, _ = jsort(jto_sparse({**{k: jnp.asarray(v) for k, v in batch.items()}, **ctx}),
                    True)
-    backbone = jax.jit(lambda v, f, c, p: jmodel.apply(
+    backbone = jit(lambda v, f, c, p: jmodel.apply(
         v, make_sparse_tensor(f, c, ctx["spatial_shape"], ctx["batch_size"]), p,
         method=lambda m, st, p: m.backbone_net(st, train=False, plans=p)))
     ref = np.asarray(backbone(variables, jst.features, jst.coords,

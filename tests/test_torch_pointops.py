@@ -21,6 +21,7 @@ from ponderv2_tpu.ops import pointops as jpo
 from ponderv2_tpu.ops import sparse as jsp
 from ponderv2_tpu_torch.ops import pointops as tpo
 from ponderv2_tpu_torch.ops import sparse as tsp
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 
 @pytest.fixture(autouse=True)

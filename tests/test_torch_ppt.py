@@ -40,6 +40,8 @@ from ponderv2_tpu_torch.utils.convert import (
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 from convert_torch_checkpoint import convert_ppt_v1m1, convert_spunet_v1m3  # noqa: E402
+from jax_compile import jit  # noqa: E402
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 SHAPE = (160, 160, 64)
 # the backbone's order and the head's differ, as in
@@ -224,7 +226,7 @@ def test_spunet_v1m3_forward_matches_jax():
     st_sorted, inverse = sort_by_key(st)
     variables = {"params": params, "batch_stats": stats}
 
-    @jax.jit
+    @jit
     def fwd(v, s, ctx):
         return jmodel.apply(v, s, train=False, condition="S3DIS", context=ctx,
                             mutable=["diagnostics"])
@@ -334,7 +336,7 @@ def test_segmentor_around_ppt_backbone_mode_matches_jax():
     jmodel = jbuild(dict(SEGMENTOR_PPT, backbone=jax_cfg(SEGMENTOR_PPT["backbone"])))
     batch = arrays_of(scene_batch())
     ctx = {"spatial_shape": SHAPE, "batch_size": 2, "condition": "S3DIS"}
-    ref = jax.jit(lambda v, b: jmodel.apply(v, {**b, **ctx}, train=False))(
+    ref = jit(lambda v, b: jmodel.apply(v, {**b, **ctx}, train=False))(
         variables, {k: jnp.asarray(v) for k, v in batch.items()})
     with torch.inference_mode():
         out = model({**{k: torch.from_numpy(v) for k, v in batch.items()}, **ctx})

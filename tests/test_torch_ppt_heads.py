@@ -17,6 +17,7 @@ import torch
 
 from ponderv2_tpu.models import build_model as jbuild
 from ponderv2_tpu_torch.models import build_model as tbuild
+from jax_compile import background_compile
 from test_torch_ppt import (
     PPT_V1M2,
     SHAPE,
@@ -28,6 +29,7 @@ from test_torch_ppt import (
     randomize,
     scene_batch,
 )
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 
 @pytest.mark.parametrize("cfg", [PPT_V1M2], ids=["v1m2"])
@@ -42,10 +44,12 @@ def test_ppt_logits_and_loss_match_jax(cfg):
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     ctx = {"spatial_shape": SHAPE, "batch_size": 2}
     variables = ppt_variables(model, cfg)
+    compiled = {cond: background_compile(jax.jit(lambda v, b, cond=cond: jmodel.apply(
+        v, {**b, **ctx, "condition": cond}, train=False)), variables, jbatch)
+        for cond in ("ScanNet", "S3DIS")}  # lowered in turn, compiled side by side
     logits = {}
     for cond in ("ScanNet", "S3DIS"):
-        ref = jax.jit(lambda v, b: jmodel.apply(
-            v, {**b, **ctx, "condition": cond}, train=False))(variables, jbatch)
+        ref = compiled[cond].result()(variables, jbatch)
         with torch.inference_mode():
             out = model({**{k: torch.from_numpy(v) for k, v in batch.items()},
                          "spatial_shape": SHAPE, "batch_size": 2,

@@ -42,6 +42,8 @@ from test_torch_ppt import (
     randomize,
     scene_batch,
 )
+from jax_compile import background_compile  # noqa: E402
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 TRAIN_PPT = dict(PPT, backbone=backbone_cfg((8, 16, 32, 72, 72, 32, 16, 16), (1,) * 8, 8),
                  backbone_out_channels=16)
@@ -60,17 +62,9 @@ def to_port_names(params, stats, constants):
 def two_steps():
     """Two SGD-Nesterov steps (OneCycle lr) of PPT-v1m1 with CE + Lovász on
     condition "ScanNet", passed explicitly to both (the JAX step through its
-    static context): each side's losses, first-step grads and state after.
-    On 2 threads, as ``_torch_state`` sets them for each test."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    try:
-        return run_two_steps()
-    finally:
-        torch.set_num_threads(threads)
-
-
-def run_two_steps():
+    static context): each side's losses, first-step grads and state after,
+    and the JAX eval forward on condition "S3DIS", compiled beside the step
+    (``torch_threads`` holds the port at 2 threads)."""
     batch = arrays_of(scene_batch())
     ctx = dict(spatial_shape=SHAPE, batch_size=2)
     total_steps = 10
@@ -89,14 +83,12 @@ def run_two_steps():
                        batch_stats=variables["batch_stats"],
                        opt_state=tx.init(variables["params"]),
                        constants=variables["constants"])
-    step = make_train_step(jmodel, tx, schedule, {**ctx, "condition": "ScanNet"})
-    jmetrics = []
-    for k in range(2):
-        state, m = step(state, jbatch)
-        jmetrics.append({key: float(v) for key, v in m.items()})
-        if k == 0:
-            jgrads = to_port_names(state.opt_state[0], variables["batch_stats"],
-                                   variables["constants"])
+    step = background_compile(make_train_step(jmodel, tx, schedule,
+                                              {**ctx, "condition": "ScanNet"}), state, jbatch)
+    # the trained model's eval forward on another condition, for
+    # test_ppt_logits_and_loss_after_two_steps_match_jax
+    jeval = background_compile(jax.jit(lambda v, b: jmodel.apply(
+        v, {**b, **ctx, "condition": "S3DIS"}, train=False)), variables, jbatch)
 
     opt = build_optimizer(dict(OPTIMIZER), model)
     tsched = build_scheduler(dict(SCHEDULER), total_steps)
@@ -115,9 +107,18 @@ def run_two_steps():
         fill_missing_grads(opt)  # as the Trainer does: optax updates every leaf
         opt.step()
         opt.zero_grad(set_to_none=True)
+
+    step = step.result()
+    jmetrics = []
+    for k in range(2):
+        state, m = step(state, jbatch)
+        jmetrics.append({key: float(v) for key, v in m.items()})
+        if k == 0:
+            jgrads = to_port_names(state.opt_state[0], variables["batch_stats"],
+                                   variables["constants"])
     return SimpleNamespace(model=model, inputs=inputs, init_state=init_state,
-                           jmodel=jmodel, jbatch=jbatch, jstate=state, jmetrics=jmetrics,
-                           jgrads=jgrads, metrics=metrics, grads=grads)
+                           jeval=jeval.result(), jbatch=jbatch, jstate=state,
+                           jmetrics=jmetrics, jgrads=jgrads, metrics=metrics, grads=grads)
 
 
 def test_two_sgd_steps_of_ppt_match_jax_train_step(two_steps):
@@ -151,9 +152,7 @@ def test_ppt_logits_and_loss_after_two_steps_match_jax(two_steps):
     model = r.model.eval()
     js = r.jstate
     jvars = {"params": js.params, "batch_stats": js.batch_stats, "constants": js.constants}
-    ctx = {"spatial_shape": SHAPE, "batch_size": 2, "condition": "S3DIS"}
-    ref = jax.jit(lambda v, b: r.jmodel.apply(v, {**b, **ctx}, train=False))(jvars,
-                                                                              r.jbatch)
+    ref = r.jeval(jvars, r.jbatch)
     logits = {}
     with torch.inference_mode():
         for cond in ("S3DIS", "ScanNet"):

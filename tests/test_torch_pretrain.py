@@ -40,6 +40,8 @@ sys.path.insert(0, os.path.join(ROOT, "tools", "experiments"))
 from convert_torch_checkpoint import convert_spunet_v1m1  # noqa: E402
 import probe_windowed_torch as probe  # noqa: E402
 from test_torch_pretrain_step import CFG, pretrain_batch  # noqa: E402
+from jax_compile import jit  # noqa: E402
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 BF16_BOUND = 3e-2
 
@@ -81,9 +83,15 @@ def test_backbone_bf16_matches_jax_bf16(train):
     sd = {k: v.numpy() for k, v in model.state_dict().items()}
     params, stats = convert_spunet_v1m1(sd, channels, layers)
     jmodel = jbuild(dict(bcfg, compute_dtype=jnp.bfloat16, remat=False))
-    jst, _ = jsort(jto_sparse({**{k: jnp.asarray(v) for k, v in arrays.items()}, **ctx}))
-    jout, _ = jmodel.apply({"params": params, "batch_stats": stats}, jst, train=train,
-                           mutable=["batch_stats", "diagnostics"])
+
+    @jit  # one compile is cheaper here than the eager per-op compiles
+    def jforward(variables, arrays):
+        jst, _ = jsort(jto_sparse({**arrays, **ctx}))
+        return jmodel.apply(variables, jst, train=train,
+                            mutable=["batch_stats", "diagnostics"])[0]
+
+    jout = jforward({"params": params, "batch_stats": stats},
+                    {k: jnp.asarray(v) for k, v in arrays.items()})
 
     model.train(train)
     st, _ = maybe_sort_by_key(batch_to_sparse_tensor(

@@ -33,6 +33,7 @@ from ponderv2_tpu_torch.ops import interp as tinterp
 from ponderv2_tpu_torch.ops import scatter as tscatter
 from ponderv2_tpu_torch.ops import windowed_gather as twg
 from ponderv2_tpu_torch.utils.config import Config
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 
 @pytest.fixture(autouse=True)

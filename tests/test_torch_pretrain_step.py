@@ -59,6 +59,8 @@ from ponderv2_tpu_torch.utils.scheduler import build_scheduler
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 from convert_torch_checkpoint import convert_ponder_indoor  # noqa: E402
+from jax_compile import compile_now  # noqa: E402
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 CFG = Config.fromfile(os.path.join(ROOT, "configs/_test_/pretrain_synthetic.py"))
 SEED = 0
@@ -158,9 +160,9 @@ def test_two_sgd_steps_match_jax_train_step():
                        batch_stats=jax.tree.map(jnp.asarray, stats),
                        opt_state=tx.init(params),
                        constants=jax.tree.map(jnp.asarray, constants))
-    step = make_train_step(jmodel, tx, schedule, ctx, metric_keys=CFG.metric_keys,
-                           rng_seed=SEED)
     jarr = {k: jnp.asarray(v) for k, v in arrays.items()}
+    step = compile_now(make_train_step(jmodel, tx, schedule, ctx, metric_keys=CFG.metric_keys,
+                                       rng_seed=SEED), state, jarr)
     failures = []
 
     def check(fn, *args, **kw):

@@ -56,6 +56,7 @@ import probe_pallas_bisect3  # noqa: E402
 import probe_pallas_gather  # noqa: E402
 import probe_pallas_profile  # noqa: E402
 import probe_windowed_torch as pw  # noqa: E402
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 CPU = torch.device("cpu")
 EXPECTED = {

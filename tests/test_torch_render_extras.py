@@ -25,6 +25,7 @@ from ponderv2_tpu_torch.models.ponder.render import rays as trays
 from ponderv2_tpu_torch.models.ponder.render import samplers as tsamplers
 from ponderv2_tpu_torch.models.ponder.render.surface_models import RENDERERS, VolSDFModel
 from ponderv2_tpu_torch.utils.convert import _render_model
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 
 @pytest.fixture(autouse=True)

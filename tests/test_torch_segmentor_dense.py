@@ -26,6 +26,8 @@ from ponderv2_tpu.models import build_model as jbuild  # noqa: E402
 from ponderv2_tpu_torch.datasets import build_dataset, collate_fn  # noqa: E402
 from ponderv2_tpu_torch.models import build_model as tbuild  # noqa: E402
 from ponderv2_tpu_torch.models.sparse_unet.layers import SubMConv  # noqa: E402
+from jax_compile import background_compile  # noqa: E402
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 BACKBONE = dict(type="SpUNet-v1m1", in_channels=9, num_classes=20,
                 base_channels=16, channels=(16, 32, 64, 96, 96, 64, 48, 72),
@@ -97,11 +99,13 @@ def run_case(spatial_shape):
     def fwd(v, a):
         return jmodel.apply(v, {**a, **ctx}, train=False, mutable=["diagnostics"])
 
-    out, diag = fwd(variables, {k: jnp.asarray(v) for k, v in arrays.items()})
-    j_ok = bool(jax.tree.leaves(diag["diagnostics"])[0])
+    jarrays = {k: jnp.asarray(v) for k, v in arrays.items()}
+    fwd = background_compile(fwd, variables, jarrays)  # compiles while the port runs
     with torch.inference_mode():
         tout = model({**{k: torch.from_numpy(v) for k, v in arrays.items()},
                       **ctx})
+    out, diag = fwd.result()(variables, jarrays)
+    j_ok = bool(jax.tree.leaves(diag["diagnostics"])[0])
     routes = [m.last_route for m in model.modules() if isinstance(m, SubMConv)]
     return (np.asarray(out["seg_logits"]), j_ok, tout["seg_logits"].numpy(),
             bool(tout["contract_ok"]), routes)

@@ -7,6 +7,7 @@ model and tolerance are those of ``test_torch_segmentor_dense.py``."""
 import numpy as np
 
 from test_torch_segmentor_dense import _torch_state, run_case  # noqa: F401
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 
 def test_segmentor_forward_legacy_l0():

@@ -9,7 +9,9 @@ small ``DefaultSegmentor`` against ``engines.train.make_train_step``.
 Tolerances: 1e-5 relative for a single op (f32, sums in another order);
 grads of the whole segmentor 1e-4 of each tensor's max|ref| (17 convs with
 BN, each summed in another order than XLA's); parameters and BN running
-stats after the steps 1e-5 of each tensor's max|ref|.
+stats after the steps 1e-5 of each tensor's max|ref|. The two steps run
+(``run_two_steps``) in ``test_torch_train_dense.py`` (every level dense)
+and ``test_torch_train_scannet.py`` (ScanNet's sparse_shape).
 """
 
 import os
@@ -43,6 +45,8 @@ from ponderv2_tpu_torch.ops import spconv as tsp
 from ponderv2_tpu_torch.utils.convert import state_dict_from_jax_spunet
 from ponderv2_tpu_torch.utils.optimizer import build_optimizer, set_lr
 from ponderv2_tpu_torch.utils.scheduler import build_scheduler
+from jax_compile import background_compile, jit  # noqa: E402
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -129,7 +133,7 @@ def test_band_conv_grads_match_jax(rng, monkeypatch, case, fused):
                                             token), f, wt)
         return (out,) + pull(jnp.asarray(cot))
 
-    jout, jdx, jdw = (np.asarray(a) for a in jax.jit(jvjp)(
+    jout, jdx, jdw = (np.asarray(a) for a in jit(jvjp)(
         jnp.asarray(feats), jnp.asarray(w)))
 
     spies = {name: _Spy(getattr(tbc, name))
@@ -189,7 +193,7 @@ def test_subm_conv_symmetric_grads_match_jax(rng, kernel):
     mask = coords[:, 0] >= 0
     token = jnp.zeros((0,), jnp.float32)
 
-    @jax.jit
+    @jit
     def jvjp(f, wt):
         out, pull = jax.vjp(lambda a, b: jsp.subm_conv_symmetric(
             a, jnp.asarray(rb), b, jnp.asarray(mask), token), f, wt)
@@ -369,15 +373,17 @@ def run_two_steps(spatial_shape):
     """Loss, grads, and params + BN running stats after two SGD-Nesterov
     steps (OneCycle lr) of a small DefaultSegmentor, against the JAX
     package's jitted ``make_train_step``, on one batch of 2 scenes at
-    ``spatial_shape``. Asserts, and returns the port's conv routes."""
+    ``spatial_shape``. The JAX step compiles while the port takes its
+    steps. Asserts, and returns the port's conv routes."""
     arrays = train_batch()
     ctx = dict(spatial_shape=spatial_shape, batch_size=2)
     total_steps = 10
     variables = seeded_weights()
     jarr = {k: jnp.asarray(v) for k, v in arrays.items()}
 
-    # --- JAX: two steps of the jitted train step. An identity transform in
-    # front of the optimizer keeps each step's incoming grads in opt_state.
+    # --- JAX: the jitted train step, compiled in the background. An
+    # identity transform in front of the optimizer keeps each step's
+    # incoming grads in opt_state.
     jmodel = jbuild(dict(JSEGMENTOR))
     capture = optax.GradientTransformation(
         lambda p: jax.tree.map(jnp.zeros_like, p), lambda g, s, p=None: (g, g))
@@ -388,7 +394,30 @@ def run_two_steps(spatial_shape):
     state = TrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
                        batch_stats=variables["batch_stats"],
                        opt_state=tx.init(variables["params"]), constants={})
-    step = make_train_step(jmodel, tx, schedule, ctx)
+    # at XLA's default optimization level (tests/jax_compile.py says why)
+    step = background_compile(make_train_step(jmodel, tx, schedule, ctx), state, jarr,
+                              compiler_options=None)
+
+    # --- port: the same weights, the Trainer's step
+    model = tbuild(dict(SEGMENTOR)).train()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in init.items()})
+    opt = build_optimizer(dict(OPTIMIZER), model)
+    tsched = build_scheduler(dict(SCHEDULER), total_steps)
+    inputs = {**{k: torch.from_numpy(v) for k, v in arrays.items()}, **ctx}
+    outs = []
+    for k in range(2):
+        set_lr(opt, tsched(k))
+        out = model(inputs)
+        out["loss"].backward()
+        outs.append(dict(contract_ok=bool(out["contract_ok"]),
+                         loss=float(out["loss"].detach()),
+                         grads={name: p.grad.numpy().copy()
+                                for name, p in model.named_parameters()}))
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+
+    # --- JAX: two steps
+    step = step.result()
     jmetrics = []
     for k in range(2):
         state, m = step(state, jarr)
@@ -397,36 +426,16 @@ def run_two_steps(spatial_shape):
             jgrads = to_port_names(state.opt_state[0], variables["batch_stats"])
     jafter = to_port_names(state.params, state.batch_stats)
 
-    # --- port: the same weights, the Trainer's step
-    model = tbuild(dict(SEGMENTOR)).train()
-    model.load_state_dict({k: torch.from_numpy(v) for k, v in init.items()})
-    opt = build_optimizer(dict(OPTIMIZER), model)
-    tsched = build_scheduler(dict(SCHEDULER), total_steps)
-    inputs = {**{k: torch.from_numpy(v) for k, v in arrays.items()}, **ctx}
-    for k in range(2):
-        set_lr(opt, tsched(k))
-        out = model(inputs)
-        out["loss"].backward()
-        assert bool(out["contract_ok"]) and jmetrics[k]["contract_ok"] == 1.0
-        loss = float(out["loss"].detach())
-        assert abs(loss - jmetrics[k]["loss"]) <= 1e-5 * jmetrics[k]["loss"]
+    for k, out in enumerate(outs):
+        assert out["contract_ok"] and jmetrics[k]["contract_ok"] == 1.0
+        assert abs(out["loss"] - jmetrics[k]["loss"]) <= 1e-5 * jmetrics[k]["loss"]
         assert tsched(k) == pytest.approx(jmetrics[k]["lr"], rel=1e-6)
         if k == 0:
-            for name, p in model.named_parameters():
-                assert_rel(p.grad.numpy(), jgrads[name], 1e-4, f"grad {name}")
-        opt.step()
-        opt.zero_grad(set_to_none=True)
+            for name, g in out["grads"].items():
+                assert_rel(g, jgrads[name], 1e-4, f"grad {name}")
     for name, v in model.state_dict().items():
         assert_rel(v.numpy(), jafter[name], 1e-5, f"after {name}")
     return [m.last_route for m in model.modules() if isinstance(m, SubMConv)]
-
-
-def test_two_sgd_steps_match_jax_train_step_dense_levels():
-    """Every level has a slab plan with an attached band plan (the scenes
-    fit the JAX dense grid); ``test_torch_train_scannet.py`` runs ScanNet's
-    sparse_shape."""
-    routes = run_two_steps((160, 160, 64))
-    assert routes[0] == "slab" and routes[1:] == ["band-attached"] * 16
 
 
 def test_train_torch_cli_two_steps_on_cpu(tmp_path):

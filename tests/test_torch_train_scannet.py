@@ -6,6 +6,7 @@ plans inline. The case, model and tolerances are those of
 ``test_torch_train.py``."""
 
 from test_torch_train import _torch_state, run_two_steps  # noqa: F401
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 
 def test_two_sgd_steps_match_jax_train_step_scannet_shape():

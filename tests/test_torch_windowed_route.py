@@ -27,6 +27,7 @@ from ponderv2_tpu_torch.models.sparse_unet import layers as tlayers
 from ponderv2_tpu_torch.models.sparse_unet.layers import SubMConv
 from ponderv2_tpu_torch.ops import spconv as tsp
 from ponderv2_tpu_torch.ops.sparse import make_sparse_tensor
+from torch_threads import _torch_threads  # noqa: F401, E402  (autouse fixture)
 
 SHAPE = (48, 48, 16)
 F32, BF16 = 1e-5, 3e-2

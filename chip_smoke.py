@@ -11,7 +11,8 @@ nuScenes lidarseg fine-tune from that checkpoint, train, test and serve
 MinkUNet34C on ScanNet scenes, train, test and profile the SpUNet
 classifier, run the modules no recipe names and data parallelism, and run
 the pretrain step on host-built plans and two training steps on the
-windowed gather route (K4 / K5).
+windowed gather route (K4 / K5), and take raw dataset files through the
+port's preprocessors to a training step.
 
     python3 chip_smoke.py [--parent-log LOG]
 
@@ -103,7 +104,7 @@ repo around it, and runs in phases; any failure exits non-zero:
     P7 V2-V4 (K4's slab
     tile) print the rows multiplied against the live entries; with
     ``--parent-log`` each kernel's time beside that tree's;
-14. write 36 + 1 of SyntheticDataset's 100k-point scenes into a
+14. write 36 of SyntheticDataset's 100k-point scenes and a 50k-point one into a
     temporary data root in ScanNet's processed layout and run the paper's
     fine-tune recipe (``configs/scannet/semseg-ppt-v1m1-0-sc-s3-st-spunet-
     lovasz-ft.py``: PPT-v1m1 over SpUNet-v1m3 with PDNorm, ScanNetDataset,
@@ -142,7 +143,7 @@ repo around it, and runs in phases; any failure exits non-zero:
     in 7, hold every K1-K3 call of a step against float64 as in 14, and
     one step's grads from the seeded state as in 8 (if that bound fails,
     as in 14);
-16. write 36 + 4 of SyntheticDataset's 100k-point scenes in ScanNet's
+16. write 36 + 2 of SyntheticDataset's 100k-point scenes in ScanNet's
     layout, each box an instance (``scene_instance_ids``), and run the
     paper's instance-segmentation recipe (``configs/scannet/insseg-ppt-v1m1-
     0-pointgroup-spunet-ft.py``: PG-v1m1 over PPT-v1m1 in backbone_mode over
@@ -150,13 +151,14 @@ repo around it, and runs in phases; any failure exits non-zero:
     epochs (3 steps and one evaluation), weight and save path: train through
     ``tools/train_torch.py:main_worker`` with the checks of 14 and each
     step's time, data wait, peak memory, live rows and loss terms; the
-    recipe's ``InsSegEvaluator`` over the 4 val scenes (each scene's
+    recipe's ``InsSegEvaluator`` over the 2 val scenes (each scene's
     forward, host clustering, proposals and AP times; its mAP re-scored from
     its own proposals; the native clustering's calls); the ground truth as
     predictions (the neighbour cap with the full offset, mAP50 1.0 with half
     of it); the native clustering against its plain version; K1-K3 against
     their plain versions at the first batch's convs as in 7, and the seeded
-    first batch's grads as in 15;
+    first batch's grads in 14's float64 form (8's bound does not hold on
+    this step);
 17. write 12 + 4 procedural nuScenes LiDAR scans (32 beams, six 1600 x
     900 PNG cameras each, ``datasets/preprocessing/synthetic_nuscenes.py``)
     and run the paper's outdoor pretrain
@@ -183,7 +185,8 @@ repo around it, and runs in phases; any failure exits non-zero:
     else, the checks of 17, the val scans served through ``SemSegTester``
     (K1's launches, every ``contract_ok``, a time per fragment), K1-K3 as
     in 7 and one step's grads from the trained state as in 14;
-19. write 36 + 1 scenes in ScanNet's layout and train MinkUNet34C on them
+19. write 36 + 1 scenes in ScanNet's layout (the val scene of 50k points)
+    and train MinkUNet34C on them
     (``MINK_CONFIG``, the ScanNet SpUNet recipe with its backbone
     MinkUNet34C, ``in_channels`` 6 from color + normal, as Pointcept's
     ``semseg-minkunet34c-0-base.py``; batch 12, f32, the backbone's
@@ -206,7 +209,7 @@ repo around it, and runs in phases; any failure exits non-zero:
     against their plain versions as in 7 and the seeded step's grads as in
     15;
 21. the modules no recipe names, on the card: (a) the ScanNet SpUNet
-    recipe (``ORIGIN_CONFIG``) on 12 + 2 scene files in phase 14's layout
+    recipe (``ORIGIN_CONFIG``) on 12 + 1 scene files in phase 14's layout
     with ``cache=True`` and ``DataCacheOperator``, its val pipeline with
     ``Copy`` (coord -> origin_coord, segment -> origin_segment) before
     ``GridSample`` and ``Collect`` keeping both: one step at batch 12 with
@@ -273,7 +276,25 @@ repo around it, and runs in phases; any failure exits non-zero:
     convs by route, each windowed conv's share of entries inside their
     windows, and the windowed convs' ms against the plain gather convs' on
     the same inputs;
-24. print times and peak memory, a JSON line of the kernels, and last
+24. raw dataset files through the port's preprocessors
+    (``datasets/preprocessing/``, in this process; no JAX, PIL or plyfile):
+    one ScanNet scan written as its download holds it (a 150k-vertex PLY mesh
+    and its labels, segments and aggregation, a ``.sens`` of 5 frames of
+    1296 x 968 JPEG color and 640 x 480 depth, a label zip and the label
+    tsv; ``synthetic_raw.py``) through ``parse_scene`` and ``extract_sens``,
+    the scene file checked (``semantic_gt20`` / ``semantic_gt200`` /
+    instances labelled, unit normals) and the frames read back through
+    ``ScanNetRGBDDataset`` (5 cameras resized to the depth's 480 x 640);
+    an S3DIS room of 150k points with a 2D-3D-S view of 1080 x 1080
+    through ``parse_room`` with its view and point normals, the train split
+    listing the room and not its view's folder; then one step of the S3DIS
+    SpUNet recipe (``configs/s3dis/semseg-spunet-v1m1-0-base.py``, batch
+    12 of the room's crops, changing only data roots, epochs, weight and
+    save path) with its evaluation (on a copy of the room as ``Area_5``)
+    and the checks of 14,
+    and the seeded step's grads kernel vs plain with the relus pinned, as
+    in 19; the host ms of each stage and a JPEG decode;
+25. print times and peak memory, a JSON line of the kernels, and last
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -298,6 +319,9 @@ PRETRAIN_CONFIG = os.path.join(ROOT, "configs/_test_/pretrain_bench_torch.py")
 PPT_CONFIG = os.path.join(ROOT, "configs/scannet/semseg-ppt-v1m1-0-sc-s3-st-spunet-lovasz-ft.py")
 PPT_TRAIN_SCENES = 36
 PPT_CONDITION = "ScanNet"
+# the val scene that phases 14 and 19 serve: 50k points give 16 fragments
+# over the 4 rotations, 100k 28-30
+SERVED_VAL_POINTS = 50_000
 # the paper's multi-dataset pretrain (PonderIndoor-v2 over SpUNet-v1m1 with
 # three conditions, MultiDatasetTrainer), run on scenes written in the
 # Structured3D, ScanNet and S3DIS RGB-D layouts: Structured3D's 16 rooms give
@@ -310,10 +334,10 @@ MULTI_VIEWS = 6  # per room; the config picks 5
 MULTI_VIEW_HW = (480, 640)
 S3DIS_TRAIN_AREAS = ("Area_1", "Area_2", "Area_3", "Area_4", "Area_6")
 # the paper's ScanNet instance-segmentation recipe (PG-v1m1 over PPT-v1m1 in
-# backbone_mode over SpUNet-v1m3), run on 36 + 4 scenes written in ScanNet's
+# backbone_mode over SpUNet-v1m3), run on 36 + 2 scenes written in ScanNet's
 # layout with one instance per box
 INSSEG_CONFIG = os.path.join(ROOT, "configs/scannet/insseg-ppt-v1m1-0-pointgroup-spunet-ft.py")
-INSSEG_TRAIN_SCENES, INSSEG_VAL_SCENES = 36, 4
+INSSEG_TRAIN_SCENES, INSSEG_VAL_SCENES = 36, 2
 INSSEG_TERMS = ("seg_loss", "bias_l1_loss", "bias_cosine_loss")
 # the plain (numpy) clustering runs on the trained model's val scene only
 # below this many neighbour pairs (its Python BFS visits each)
@@ -392,11 +416,11 @@ hooks = [dict(type="CheckpointLoader"), dict(type="IterationTimer", warmup_iter=
 test = dict(type="ClsTester")
 """
 # phase 21: segmentation evaluated on the original points (the ScanNet
-# SpUNet recipe, one step at batch 12, two val scenes), and pointops at the
+# SpUNet recipe, one step at batch 12, one val scene), and pointops at the
 # size of one of those scenes
 ORIGIN_CONFIG = os.path.join(ROOT, "configs/scannet/semseg-spunet-v1m1-0-base.py")
 ORIGIN_TRAIN_SCENES = 12
-ORIGIN_VAL_SCENES = 2
+ORIGIN_VAL_SCENES = 1
 # a near-tie of two squared distances: they differ by no more than this
 # share of |q|^2 + |r|^2 (16 f32 ulps of the terms the expanded form
 # |q|^2 + |r|^2 - 2 q.r cancels), or, for the direct form sum (q - r)^2 of
@@ -409,6 +433,16 @@ NEAR_TIE = 16 * 2.0 ** -24
 DP_CONFIG = os.path.join(ROOT, "configs/scannet/semseg-spunet-v1m1-0-base.py")
 DP_WORKERS = 3
 DP_MEMORY_FRACTION = 0.45
+# phase 24: raw dataset files through the port's preprocessors: one ScanNet
+# scan (150k vertices, RAW_SCANNET_FRAMES frames of its .sens), and for the
+# S3DIS SpUNet recipe one room of RAW_S3DIS_POINTS points with RAW_S3DIS_VIEWS
+# 2D-3D-S frames (datasets/preprocessing/synthetic_raw.py; the recipe's 12
+# crops of it are collated by one loader worker, so the room's size sets the
+# first batch's wait)
+RAW_S3DIS_CONFIG = os.path.join(ROOT, "configs/s3dis/semseg-spunet-v1m1-0-base.py")
+RAW_SCANNET_FRAMES = 5
+RAW_S3DIS_POINTS = 150_000
+RAW_S3DIS_VIEWS = 1
 SEED = 0
 # band convs per forward of SpUNet-v1m1 at ScanNet's sparse_shape, from the
 # routing (models/sparse_unet/layers.py:subm_route): L0 runs the last decoder
@@ -667,7 +701,7 @@ def compare_band_kernels(convs, fused, level_rb, level_coords, gen, dtype, stats
             timing = ""
             if runs:
                 t_k = cuda_ms(lambda: kern(*timed), 5)
-                t_p = cuda_ms(lambda: plain(*timed), 3)
+                t_p = cuda_ms(lambda: plain(*timed), 1)
                 b, b_bytes, b_ops = band_op_bound(op, plan, n, cin, cout, dtype)
                 runs_per_step = count * (fwd_runs if op == "fwd" else 1)
                 for key, v in (("ms", t_k), ("plain_ms", t_p), ("bound_ms", b),
@@ -1314,7 +1348,7 @@ def spunet_of(model):
 
 def train_and_check(tag, cfg, dev, records=None, val_metric="val/mIoU", steps_expected=3,
                     band_convs_per_fwd=None):
-    """Train ``cfg`` (3 steps and its evaluations) through
+    """Train ``cfg`` (``steps_expected`` steps and its evaluations) through
     ``tools/train_torch.py:main_worker`` with a ``step_probe`` hook, the
     K1-K5 counts set to 0 first, and check what each such run must show:
     every step's loss finite, ``contract_ok``, the lr the schedule gives
@@ -1529,23 +1563,27 @@ def scene_instance_ids(segment, points):
     return np.concatenate([np.full(shell, -1, np.int64), ids.astype(np.int64)])
 
 
-def write_scannet_scenes(root, n_train, n_val, points=100_000, instances=False):
+def write_scannet_scenes(root, n_train, n_val, points=100_000, instances=False,
+                         val_points=None):
     """ScanNet's processed layout, the one ``ScanNetDataset`` reads:
     ``{root}/{train,val}/sceneXXXX_00.pth``, each a dict of ``coord``,
     ``color``, ``normal``, ``semantic_gt20`` and ``instance_gt``, filled with
-    the ``points``-point scenes ``SyntheticDataset`` makes from the seed;
-    ``instance_gt`` is theirs (-1 everywhere), or with ``instances`` one id
-    per box (``scene_instance_ids``)."""
+    the ``points``-point scenes (``val_points`` for the val scenes, where
+    given) ``SyntheticDataset`` makes from the seed; ``instance_gt`` is
+    theirs (-1 everywhere), or with ``instances`` one id per box
+    (``scene_instance_ids``)."""
     import torch
 
     from ponderv2_tpu_torch.datasets.defaults import SyntheticDataset
 
-    synth = SyntheticDataset(num_scenes=n_train + n_val, points_per_scene=points, seed=SEED)
+    synths = {n: SyntheticDataset(num_scenes=n_train + n_val, points_per_scene=n, seed=SEED)
+              for n in {points, val_points or points}}
     for i in range(n_train + n_val):
-        scene = synth.make_scene(i)
         split = "train" if i < n_train else "val"
+        n = points if split == "train" else (val_points or points)
+        scene = synths[n].make_scene(i)
         os.makedirs(os.path.join(root, split), exist_ok=True)
-        instance = (scene_instance_ids(scene["segment"], points) if instances
+        instance = (scene_instance_ids(scene["segment"], n) if instances
                     else scene["instance"])
         torch.save(dict(coord=scene["coord"], color=scene["color"], normal=scene["normal"],
                         semantic_gt20=scene["segment"], instance_gt=instance),
@@ -1580,16 +1618,16 @@ def ppt_recipe_phase(dev, tmp, gen, stats):
 
     data_root = os.path.join(tmp, "ppt_scannet")
     t0 = time.perf_counter()
-    write_scannet_scenes(data_root, PPT_TRAIN_SCENES, 1)
-    print(f"[ppt] wrote {PPT_TRAIN_SCENES} train + 1 val scenes of 100,000 points in "
-          f"ScanNet's layout in {time.perf_counter() - t0:.1f} s")
+    write_scannet_scenes(data_root, PPT_TRAIN_SCENES, 1, val_points=SERVED_VAL_POINTS)
+    print(f"[ppt] wrote {PPT_TRAIN_SCENES} train scenes of 100,000 points + 1 val scene of "
+          f"{SERVED_VAL_POINTS:,} in ScanNet's layout in {time.perf_counter() - t0:.1f} s")
 
     # ---- train 3 steps + one evaluation
     cfg = default_config_parser(PPT_CONFIG, ppt_recipe_options(
         data_root, os.path.join(tmp, "ppt_train")))
     cfg.seed = SEED
     cfg.device = str(dev)
-    run = train_and_check("ppt", cfg, dev)
+    run = train_and_check("ppt", cfg, dev, steps_expected=PPT_TRAIN_SCENES // cfg.batch_size)
     out = {"train_launches": run.launches, "train_peak_gib": run.peak_gib,
            "step_ms": run.step_ms, "data_ms": run.data_ms}
 
@@ -1597,7 +1635,7 @@ def ppt_recipe_phase(dev, tmp, gen, stats):
     # trainer hands the model the first scene's; the head and the backbone
     # both take index 1 of their conditions, so only bns.1 moves
     model, records = run.model, run.records
-    n_forwards = 3 + run.n_val
+    n_forwards = len(records["steps"]) + run.n_val
     ci = model.conditions.index(PPT_CONDITION)
     check(records["conditions"] == [PPT_CONDITION] * n_forwards
           and ci == 1 and model.backbone.conditions.index(PPT_CONDITION) == 1,
@@ -1920,7 +1958,7 @@ def multi_pretrain_phase(dev, tmp, gen, stats):
 def insseg_recipe_options(data_root, save_path):
     """What a run of ``INSSEG_CONFIG`` on scenes under ``data_root``
     changes: the data roots, one epoch with one evaluation (3 steps of the 36
-    train scenes, then the 4 val scenes), no pretrained weight (the recipe's
+    train scenes, then the 2 val scenes), no pretrained weight (the recipe's
     checkpoint is not in the repo) and the save path. Model, criteria,
     optimizer, scheduler, transforms, batch, point budgets and
     ``num_worker`` stay the recipe's."""
@@ -2034,14 +2072,15 @@ def insseg_recipe_phase(dev, tmp, gen, stats):
     cfg.device = str(dev)
     cluster.NATIVE.launches = 0
     records = {"steps": [], "conditions": [], "batches": [], "peaks": [], "val": []}
-    run = train_and_check("insseg", cfg, dev, records, val_metric="val/mAP50")
+    run = train_and_check("insseg", cfg, dev, records, val_metric="val/mAP50",
+                          steps_expected=INSSEG_TRAIN_SCENES // cfg.batch_size)
     native_launches = cluster.NATIVE.launches
     model = run.model
     model.__dict__.pop("propose_instances", None)  # the probe's timing wrapper
     check(type(model).__name__ == "PointGroup" and model.backbone.backbone_mode
           and type(model.backbone).__name__ == "PointPromptTraining",
           f"insseg model {type(model).__name__} over {type(model.backbone).__name__}")
-    n_forwards = 3 + run.n_val
+    n_forwards = len(records["steps"]) + run.n_val
     check(records["conditions"] == [PPT_CONDITION] * n_forwards,
           f"insseg: conditions that reached the model {records['conditions']}")
     for i, (m, batch) in enumerate(zip(records["steps"], records["batches"])):
@@ -2083,7 +2122,8 @@ def insseg_recipe_phase(dev, tmp, gen, stats):
     scores = {k: run.val_scalars[f"val/{k}"] for k in ("mAP", "mAP50", "mAP25")}
     print(f"[insseg] InsSegEvaluator over {len(gts)} val scenes: mAP / mAP50 / mAP25 "
           f"{scores['mAP']:.4f} / {scores['mAP50']:.4f} / {scores['mAP25']:.4f} (random-init "
-          f"weights after 3 steps); native clustering calls {native_launches}")
+          f"weights after {len(records['steps'])} steps); native clustering calls "
+          f"{native_launches}")
     check(all(np.isfinite(v) for v in scores.values())
           and all(res[k] == v for k, v in scores.items()),
           f"insseg: evaluator {scores}, its proposals re-scored {res}")
@@ -2129,15 +2169,20 @@ def insseg_recipe_phase(dev, tmp, gen, stats):
     compare_band_kernels(run.convs, run.fused, run.level_rb, run.level_coords, gen,
                          torch.float32, stats)
 
-    # ---- the seeded first batch's grads, kernel path against plain (phase
-    # 8's bound; if it fails, phase 14's float64 form), the heads' included
+    # ---- the seeded first batch's grads, kernel path against plain, the
+    # heads' included, in phase 14's float64 form: phase 8's bound (the
+    # reordered plain path) does not hold on this step (an enc.3 BN weight's
+    # grad parts from plain by more than it allows), and trying it first
+    # cost a whole check
     gmodel = build_model(dict(cfg.model))
     gmodel.reset_parameters(torch.Generator().manual_seed(SEED))
     gmodel.to(dev).train()
     check({"bias_head.0.weight", "bias_head.2.weight", "seg_head.weight"}
           <= {n for n, _ in gmodel.named_parameters()}, "insseg: the heads' parameters")
     tag = "insseg step from the seeded state (f32)"
-    holds = grads_either_bound(tag, gmodel, run.b_inputs, run.per_step)
+    grads_kernel_vs_plain(tag, gmodel, run.b_inputs, run.per_step, 1e-5, 1e-3, False,
+                          reference="float64")
+    holds = "phase 14's (float64)"
     out = {"train_launches": run.launches, "peak_gib": run.peak_gib,
            "step_ms": run.step_times_ms, "data_ms": run.data_ms, "eval_ms": eval_ms,
            "scores": scores, "oracle_mAP50": {k: r["mAP50"] for k, r in oracle.items()},
@@ -2555,14 +2600,17 @@ def minkunet_phase(dev, tmp, gen, stats):
     tag = "minkunet"
     data_root = os.path.join(tmp, "mink_scannet")
     t0 = time.perf_counter()
-    write_scannet_scenes(data_root, MINK_TRAIN_SCENES, MINK_VAL_SCENES)
-    print(f"[{tag}] wrote {MINK_TRAIN_SCENES} train + {MINK_VAL_SCENES} val scenes of "
+    write_scannet_scenes(data_root, MINK_TRAIN_SCENES, MINK_VAL_SCENES,
+                         val_points=SERVED_VAL_POINTS)
+    print(f"[{tag}] wrote {MINK_TRAIN_SCENES} train + {MINK_VAL_SCENES} val scenes "
+          f"({SERVED_VAL_POINTS:,} points a val scene) of "
           f"100,000 points in ScanNet's layout in {time.perf_counter() - t0:.1f} s")
     cfg = minkunet_recipe(data_root, os.path.join(tmp, "mink_train"))
     cfg.seed = SEED
     cfg.device = str(dev)
     records = {"steps": [], "conditions": [], "batches": [], "peaks": []}
     run = train_and_check(tag, cfg, dev, records,
+                          steps_expected=MINK_TRAIN_SCENES // cfg.batch_size,
                           band_convs_per_fwd=MINK_BAND_CONVS_PER_FORWARD)
     remat = run.model.backbone.remat
     for i, (m, batch) in enumerate(zip(records["steps"], records["batches"])):
@@ -4409,6 +4457,158 @@ def windowed_route_phase(dev, recipes):
     return out
 
 
+def raw_s3dis_options(data_root, save_path):
+    """What a run of ``RAW_S3DIS_CONFIG`` on phase 24's preprocessed room
+    changes: the data roots, the epochs (``epoch`` 12, ``eval_epoch`` 1:
+    the one train room 12 times over, one batch of the recipe's 12, then
+    one evaluation on its copy in the val split), no weight and the save
+    path."""
+    return {"data.train.data_root": data_root, "data.val.data_root": data_root,
+            "data.test.data_root": data_root, "epoch": 12, "eval_epoch": 1,
+            "weight": None, "save_path": save_path}
+
+
+def raw_data_phase(dev, tmp):
+    """Phase 24: raw dataset files through the port's preprocessors, in this
+    process, to a training step. Writes one ScanNet scan and one S3DIS room
+    as their downloads hold them (``synthetic_raw.py``), runs
+    ``preprocess_scannet.parse_scene`` (the PLY reader, ``semantic_gt200``),
+    ``sensor_data.extract_sens`` (the JPEG decode and encode, 16-bit PNG) and
+    ``preprocess_s3dis.parse_room`` (2D-3D-S views, ``point_normals``) and
+    checks what they wrote; reads the extracted folders through
+    ``ScanNetRGBDDataset`` (bicubic and nearest resizes to the depth's 640 x
+    480); trains one step of the S3DIS SpUNet recipe on the preprocessed
+    rooms with its evaluation (``train_and_check``), and holds the seeded
+    step's grads, kernel path against plain, with every relu pinned.
+    Returns the run's launches and times and the host ms of each stage."""
+    import numpy as np
+    import torch
+
+    from ponderv2_tpu_torch.datasets import build_dataset
+    from ponderv2_tpu_torch.datasets.image_io import decode_jpeg
+    from ponderv2_tpu_torch.datasets.preprocessing import preprocess_s3dis as ps3
+    from ponderv2_tpu_torch.datasets.preprocessing import preprocess_scannet as psc
+    from ponderv2_tpu_torch.datasets.preprocessing import sensor_data as sens
+    from ponderv2_tpu_torch.datasets.preprocessing import synthetic_raw as sr
+    from ponderv2_tpu_torch.engines.defaults import default_config_parser
+    from ponderv2_tpu_torch.models import build_model
+
+    tag = "raw"
+    raw, out = os.path.join(tmp, "raw24"), os.path.join(tmp, "raw24_out")
+    ms = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        result = fn()
+        ms[name] = 1e3 * (time.perf_counter() - t)
+        return result
+
+    # ---- ScanNet: a scan to its scene file and its frames' folders
+    scene = "scene0000_00"
+    scans = os.path.join(raw, "scannet", "scans")
+    scan = os.path.join(scans, scene)
+    counts = timed("scannet_write", lambda: sr.write_scannet_scene(
+        scans, scene, SEED, frames=RAW_SCANNET_FRAMES))
+    sr.write_scannet_meta(os.path.join(raw, "scannet"), {"train": [scene]})
+    tsv = os.path.join(raw, "scannet", "scannetv2-labels.combined.tsv")
+    ids = psc.read_category_ids(tsv)
+    timed("scannet_parse_scene", lambda: psc.parse_scene(
+        scan, os.path.join(out, "scannet"), "train", category_ids=ids))
+    frames = timed("scannet_extract_sens", lambda: sens.extract_sens(
+        os.path.join(scan, f"{scene}.sens"), os.path.join(out, "scannet_rgbd", scene),
+        label_zip=os.path.join(scan, f"{scene}_2d-label-filt.zip"), label_map_tsv=tsv,
+        scene_meta_txt=os.path.join(scan, f"{scene}.txt")))
+    data = dict(np.load(os.path.join(out, "scannet", "train", f"{scene}.npz")))
+    norms = np.linalg.norm(data["normal"], axis=1)
+    labelled = {k: float((data[k] >= 0).mean()) for k in ("semantic_gt20", "semantic_gt200",
+                                                          "instance_gt")}
+    check(sorted(data) == ["color", "coord", "instance_gt", "normal", "semantic_gt20",
+                           "semantic_gt200"] and data["coord"].shape == (counts["vertices"], 3)
+          and bool(np.isfinite(data["coord"]).all()) and bool((abs(norms - 1) < 1e-3).all())
+          and min(labelled.values()) > 0.5 and frames == RAW_SCANNET_FRAMES,
+          f"{tag}: ScanNet scene file {sorted(data)}, labelled {labelled}, {frames} frames")
+    jpg = sens.SensStream.read(os.path.join(scan, f"{scene}.sens")).frames[0].color_bytes
+    decode_ms = []
+    for _ in range(5):
+        t = time.perf_counter()
+        decode_jpeg(jpg)
+        decode_ms.append(1e3 * (time.perf_counter() - t))
+    ms["jpeg_decode_1296x968"] = float(np.median(decode_ms))
+    ds = build_dataset(dict(type="ScanNetRGBDDataset", split="train",
+                            data_root=os.path.join(out, "scannet"),
+                            rgbd_root=os.path.join(out, "scannet_rgbd"), num_cameras=5,
+                            transform=[]))
+    item = timed("scannet_rgbd_item", lambda: ds.get_data(0))
+    sem_share = float((item["semantic2d"] >= 0).mean())
+    check(item["rgb"].shape == (5, 480, 640, 3) and item["depth"].shape == (5, 480, 640)
+          and item["extrinsic"].shape == (5, 4, 4) and bool(np.isfinite(item["rgb"]).all())
+          and bool((item["depth"] > 0).all()) and sem_share > 0.5
+          and float(item["rgb"].max()) <= 255.0,
+          f"{tag}: ScanNetRGBDDataset item rgb {item['rgb'].shape}, depth "
+          f"{item['depth'].shape}, labelled pixels {sem_share}")
+    print(f"[{tag}] ScanNet: a scan of {counts['vertices']} vertices / {counts['faces']} faces "
+          f"and {frames} frames (1296 x 968 JPEG, 640 x 480 depth) -> scene file "
+          f"(labelled: " + ", ".join(f"{k} {v:.3f}" for k, v in labelled.items())
+          + f") and frame folders; ScanNetRGBDDataset's 5 cameras resized to 480 x 640, "
+          f"{sem_share:.3f} of the pixels labelled", flush=True)
+
+    # ---- S3DIS: a room with a 2D-3D-S view; the recipe's val split
+    # (Area_5) holds a copy of the preprocessed room
+    s3, s3raw = os.path.join(raw, "s3dis"), os.path.join(raw, "s3dis_2d3ds")
+    points = timed("s3dis_write", lambda: sr.write_s3dis_room(
+        s3, s3raw, 1, "office_1", SEED, points=RAW_S3DIS_POINTS, views=RAW_S3DIS_VIEWS))
+    rooms, angles = ps3.load_alignment(s3)
+    check(rooms == [os.path.join("Area_1", "office_1")], f"{tag}: S3DIS rooms {rooms}")
+    timed("s3dis_parse_room", lambda: ps3.parse_room(
+        rooms[0], angles[0], s3, s3raw, os.path.join(out, "s3dis"), align_angle=True,
+        parse_rgbd=True, point_normals=True))
+    os.makedirs(os.path.join(out, "s3dis", "Area_5"))
+    shutil.copy(os.path.join(out, "s3dis", "Area_1", "office_1.pth"),
+                os.path.join(out, "s3dis", "Area_5", "office_1.pth"))
+    view_dir = os.path.join(out, "s3dis", "Area_1", "office_1_rgbd")
+    views = sorted(os.listdir(view_dir))
+    view = torch.load(os.path.join(view_dir, views[0]), weights_only=False)
+    masked = float(np.asarray(view["depth_mask"]).mean())
+    room = torch.load(os.path.join(out, "s3dis", "Area_1", "office_1.pth"), weights_only=False)
+    listed = [os.path.basename(p) for p in build_dataset(dict(
+        type="S3DISDataset", split="Area_1", data_root=os.path.join(out, "s3dis"),
+        transform=[])).data_list]
+    check(len(views) == RAW_S3DIS_VIEWS and view["rgb"].shape == (1080, 1080, 3)
+          and masked > 0.5 and room["coord"].shape == (points, 3)
+          and room["normal"].shape == (points, 3) and listed == ["office_1.pth"],
+          f"{tag}: S3DIS {len(views)} views, {masked} of a view's depth kept, the train "
+          f"split lists {listed}")
+    print(f"[{tag}] S3DIS: a room of {points} points -> room file with point normals; "
+          f"{len(views)} view(s) of 1080 x 1080, {masked:.3f} of a view's pixels on the room's "
+          f"points; the train split lists {listed} (no {{room}}_rgbd folder)", flush=True)
+
+    # ---- one step of the S3DIS SpUNet recipe on the preprocessed rooms
+    cfg = default_config_parser(RAW_S3DIS_CONFIG, raw_s3dis_options(
+        os.path.join(out, "s3dis"), os.path.join(tmp, "raw24_train")))
+    cfg.seed = SEED
+    cfg.device = str(dev)
+    records = {"steps": [], "conditions": [], "batches": [], "peaks": []}
+    run = train_and_check(tag, cfg, dev, records, steps_expected=1)
+    result = {"train_launches": run.launches, "step_ms": run.step_times_ms,
+              "data_ms": run.data_ms, "peak_gib": run.peak_gib, "host_ms": ms}
+    b_inputs, per_step = run.b_inputs, run.per_step
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    gmodel = build_model(dict(cfg.model))
+    gmodel.reset_parameters(torch.Generator().manual_seed(SEED))
+    gmodel.to(dev).train()
+    result["grads_bound"] = grads_either_bound(
+        "S3DIS SpUNet step on preprocessed raw rooms, seeded state (f32)", gmodel, b_inputs,
+        per_step, pin_relu=True)
+    del gmodel, b_inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[time] phase 24 host ms: " + "; ".join(f"{k} {v:.1f}" for k, v in ms.items()),
+          flush=True)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -5002,7 +5202,12 @@ def main() -> int:
         del recipes
         phase_done("23 host plans and the windowed route")
 
-        # ---- 24. output
+        # ---- 24. raw dataset files through the port's preprocessors, in
+        # this process, to a step of the S3DIS SpUNet recipe
+        raw = raw_data_phase(dev, tmp)
+        phase_done("24 raw files through the preprocessors")
+
+        # ---- 25. output
         print(f"[time] per fine-tune step at batch {tcfg.batch_size} (f32): "
               + "; ".join(f"{name} {stats[name]['ms']:.3f} ms vs plain "
                           f"{stats[name]['plain_ms']:.3f} ms (bound "
@@ -5091,6 +5296,7 @@ def main() -> int:
                 row["minkunet34c_serving_launches"] = mink["serve_launches"][i]
                 row["classifier"] = entry(name, clf["train_launches"][i], cls_stats[name])
                 row["classifier"]["launches_per_step"] = clf["per_step"][i]
+                row["raw_s3dis_launches"] = raw["train_launches"][i]
                 # phase 22 (b) / (c): each rank's launches a step
                 row["data_parallel"] = {
                     "fine_tune_launches_per_rank_step": [

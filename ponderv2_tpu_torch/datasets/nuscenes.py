@@ -2,8 +2,8 @@
 
 A copy with only the import lines changed (see ``transform.py`` for why it
 is a copy), but for two repairs that ``tests/test_torch_nuscenes.py``
-names: camera images are read by ``image_io.read_image`` (PNG with the
-standard library; the JAX dataset needs ``imageio``), and a test scan's
+names: camera images are read by ``image_io.read_image`` (PNG and JPEG
+with the port's codec; the JAX dataset needs ``imageio``), and a test scan's
 ``segment`` is taken after its transform, so that ``PointRangeFilter``
 drops the labels of the points it drops (the JAX ``DefaultDataset`` takes
 it before, and scores predictions against labels of other points; ROADMAP

@@ -3,7 +3,9 @@
 Copies of ``S3DIS_CLASS_NAMES`` and ``S3DISDataset`` from
 ``ponderv2_tpu/datasets/s3dis.py`` with only the import lines changed (see
 ``transform.py`` for why they are copies): area-split rooms stored as
-``.pth`` dicts under ``{data_root}/{split}/``. ``S3DISRGBDDataset`` (the
+``.pth`` dicts under ``{data_root}/{split}/``; but ``S3DISDataset``'s list
+skips the ``{room}_rgbd/`` folders beside the rooms, which the JAX list
+takes for rooms (ROADMAP Queue 3, F7). ``S3DISRGBDDataset`` (the
 RGB-D pretraining variant) keeps the JAX package's room list, view picks and
 items, and reads the views ``preprocess_s3dis.py`` writes as well
 (``read_rgbd_views``).
@@ -29,6 +31,14 @@ S3DIS_CLASS_NAMES = (
 @DATASETS.register_module()
 class S3DISDataset(DefaultDataset):
     """Area-split rooms stored as .pth dicts (coord/color/normal/segment/instance)."""
+
+    def get_data_list(self) -> List[str]:
+        """The rooms under each split: ``DefaultDataset``'s list without the
+        ``{room}_rgbd/`` view folders that ``preprocess_s3dis.py
+        --parse_rgbd`` writes beside each ``{room}.pth`` (the JAX list takes
+        them for rooms)."""
+        return [p for p in super().get_data_list()
+                if not (p.endswith("_rgbd") and os.path.isfile(p[:-len("_rgbd")] + ".pth"))]
 
     def get_data(self, idx: int) -> Dict[str, Any]:
         data = super().get_data(idx)

@@ -2,7 +2,10 @@
 
 Copies of ``VALID_CLASS_IDS_20``, ``CLASS_NAMES_20``, ``ScanNet200Dataset``
 and ``ScanNetRGBDDataset`` from ``ponderv2_tpu/datasets/scannet.py`` with
-only the import lines changed (see ``transform.py`` for why they are copies).
+only the import lines changed (see ``transform.py`` for why they are copies),
+but for ``ScanNetRGBDDataset._load_dir_frame``, which reads the extractor's
+JPEG and PNG frames and resizes them through ``image_io.py`` (PIL's pixels
+and resamples) in place of PIL.
 ``ScanNetDataset`` differs where the JAX one fails: a one-scene ``lr_file``
 (``np.loadtxt`` gives a 0-d array) and an ``la_file`` of numpy index arrays
 (which ``torch.load``'s default ``weights_only`` refuses). Scenes are preprocessed ``.pth``
@@ -23,6 +26,7 @@ import numpy as np
 
 from .builder import DATASETS
 from .defaults import DefaultDataset, load_scene
+from .image_io import read_image, resize_bicubic, resize_nearest
 
 VALID_CLASS_IDS_20 = (
     1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 16, 24, 28, 33, 34, 36, 39,
@@ -179,21 +183,17 @@ class ScanNetRGBDDataset(ScanNetDataset):
 
     def _load_dir_frame(self, scene_dir: str, name: str, frame: str):
         """Read one frame from the extractor layout -> frame dict."""
-        from PIL import Image
-
         fid = frame.split(".")[0]
         rgb = np.asarray(
-            Image.open(os.path.join(scene_dir, "color", f"{fid}.jpg")).convert("RGB"),
+            read_image(os.path.join(scene_dir, "color", f"{fid}.jpg"), rgb=True),
             np.float32,
         )
         depth = np.asarray(
-            Image.open(os.path.join(scene_dir, "depth", f"{fid}.png")), np.float32
+            read_image(os.path.join(scene_dir, "depth", f"{fid}.png")), np.float32
         ) * self.depth_scale
         if rgb.shape[:2] != depth.shape:
             rgb = np.asarray(
-                Image.fromarray(rgb.astype(np.uint8)).resize(
-                    (depth.shape[1], depth.shape[0])
-                ),
+                resize_bicubic(rgb.astype(np.uint8), (depth.shape[1], depth.shape[0])),
                 np.float32,
             )
         pose = np.loadtxt(
@@ -207,14 +207,9 @@ class ScanNetRGBDDataset(ScanNetDataset):
         out = dict(color=rgb, depth=depth, pose=pose, intrinsic=intr)
         label_path = os.path.join(scene_dir, "label", f"{fid}.png")
         if self.render_semantic and os.path.isfile(label_path):
-            nyu40 = np.asarray(Image.open(label_path), np.int16)
+            nyu40 = np.asarray(read_image(label_path), np.int16)
             if nyu40.shape != depth.shape:
-                nyu40 = np.asarray(
-                    Image.fromarray(nyu40).resize(
-                        (depth.shape[1], depth.shape[0]), Image.NEAREST
-                    ),
-                    np.int16,
-                )
+                nyu40 = resize_nearest(nyu40, (depth.shape[1], depth.shape[0]))
             # nyu40 -> 0..19 over VALID_CLASS_IDS_20 (reference :503-511)
             label = np.full_like(nyu40, -1, dtype=np.int64)
             for i, vid in enumerate(VALID_CLASS_IDS_20):

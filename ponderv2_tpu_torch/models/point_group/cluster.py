@@ -19,24 +19,20 @@ the native one is held against.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import tempfile
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+from ...utils.host_build import CXX_FLAGS, build_library, library_path
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "_build")
 CPP = os.path.join(CSRC, "cluster.cpp")
-# No -march=native: the library is built on whatever host first loads it,
-# and a compiler may reject the flag. -ffp-contract=off keeps each squared
-# distance rounded as the numpy plain version rounds it (no fused
-# multiply-add), so the two agree on points at the radius.
-CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off"]
+# (utils/host_build.py's CXX_FLAGS: -ffp-contract=off keeps each squared
+# distance rounded as the numpy plain version rounds it, so the two agree on
+# points at the radius)
 
 NEIGHBOR_CAP = 1000  # reference kernel idx_temp[1000]
 
@@ -53,19 +49,8 @@ class _Calls:
 NATIVE = _Calls()
 
 
-def _compiler() -> str:
-    cxx = os.environ.get("CXX") or shutil.which("g++")
-    if not cxx:
-        raise RuntimeError("no C++ compiler for csrc/cluster.cpp: put g++ on PATH or set CXX")
-    return cxx
-
-
 def _lib_path() -> str:
-    digest = hashlib.sha256()
-    with open(CPP, "rb") as f:
-        digest.update(f.read())
-    digest.update(" ".join(CXX_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libcluster-{digest.hexdigest()[:16]}.so")
+    return library_path(CPP, BUILD_DIR, CXX_FLAGS)
 
 
 def load_native() -> ctypes.CDLL:
@@ -74,20 +59,7 @@ def load_native() -> ctypes.CDLL:
     global _NATIVE
     if _NATIVE is not None:
         return _NATIVE
-    out = _lib_path()
-    if not os.path.isfile(out):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run([_compiler(), *CXX_FLAGS, "-o", tmp, CPP],
-                                  capture_output=True, text=True, timeout=300)
-            if proc.returncode != 0:
-                raise RuntimeError(f"g++ failed on csrc/cluster.cpp:\n{proc.stdout}{proc.stderr}")
-            os.replace(tmp, out)  # atomic: a reader never sees a partial file
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
+    out = build_library(CPP, BUILD_DIR, CXX_FLAGS)
     lib = ctypes.CDLL(out)
     lib.ponder_bfs_cluster.restype = ctypes.c_int32
     lib.ponder_bfs_cluster.argtypes = [

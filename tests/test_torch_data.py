@@ -167,6 +167,11 @@ class TestTrainDataPath:
         import ponderv2_tpu.engines.hooks.evaluator as jhev
         import ponderv2_tpu.models.point_group.cluster as jcl
         import ponderv2_tpu.models.point_group.point_group as jpg
+        import ponderv2_tpu.datasets.preprocessing.sensor_data as jsens
+        import ponderv2_tpu.datasets.preprocessing.preprocess_scannet as jpsc
+        import ponderv2_tpu.datasets.preprocessing.preprocess_s3dis as jps3
+        import ponderv2_tpu.datasets.preprocessing.preprocess_s3dis_voxelized as jvox
+        import ponderv2_tpu.datasets.preprocessing.preprocess_structured3d as js3d
         import ponderv2_tpu_torch.datasets.dataloader as tdl
         import ponderv2_tpu_torch.datasets.defaults as tdef
         import ponderv2_tpu_torch.datasets.s3dis as ts3
@@ -181,6 +186,11 @@ class TestTrainDataPath:
         import ponderv2_tpu_torch.engines.hooks.evaluator as thev
         import ponderv2_tpu_torch.models.point_group.cluster as tcl
         import ponderv2_tpu_torch.models.point_group.point_group as tpg
+        import ponderv2_tpu_torch.datasets.preprocessing.sensor_data as tsens
+        import ponderv2_tpu_torch.datasets.preprocessing.preprocess_scannet as tpsc
+        import ponderv2_tpu_torch.datasets.preprocessing.preprocess_s3dis as tps3
+        import ponderv2_tpu_torch.datasets.preprocessing.preprocess_s3dis_voxelized as tvox
+        import ponderv2_tpu_torch.datasets.preprocessing.preprocess_structured3d as ts3d
 
         copies = [
             (jtr, ttr, ["RandomScale", "RandomFlip", "RandomJitter", "RandomDropout",
@@ -205,11 +215,16 @@ class TestTrainDataPath:
             # one-scene lr_file and an la_file of numpy arrays, ROADMAP
             # Queue 3; test_scannet_lr_la_files_port_only holds the port's)
             (jsc, tsc, ["ScanNet200Dataset"]),
-            (js3, ts3, ["S3DISDataset"]),
+            # S3DISDataset's get_data_list skips the {room}_rgbd folders (F7,
+            # tests/test_torch_preprocessing.py)
+            (js3.S3DISDataset, ts3.S3DISDataset, ["get_data"]),
             # the multi-dataset pretrain's; S3DISRGBDDataset, Structured3DDataset
             # and Structured3DRGBDDataset differ from the JAX ones where those
             # fail (tests/test_torch_multidataset.py)
-            (jsc, tsc, ["ScanNetRGBDDataset"]),
+            # (but _load_dir_frame, which reads through the port's codec,
+            # tests/test_torch_preprocessing.py)
+            (jsc.ScanNetRGBDDataset, tsc.ScanNetRGBDDataset,
+             ["__init__", "_get_axis_align_matrix", "get_data"]),
             # instance segmentation's (tests/test_torch_insseg.py holds
             # csrc/cluster.cpp and the native BFS against the JAX ones)
             (jtr, ttr, ["InstanceParser"]),
@@ -221,6 +236,20 @@ class TestTrainDataPath:
                         "PointClip", "RandomColorGrayScale", "RandomColorJitter",
                         "RandomColorDrop", "HueSaturationTranslation", "CropBoundary",
                         "ContrastiveViewsGenerator"]),
+            # the preprocessors: the JAX ones but where they read or write
+            # images (the port's codec) or meshes (its PLY reader), and
+            # ScanNet's F16 / F17 (tests/test_torch_preprocessing.py)
+            (jsens, tsens, ["_read_mat4", "SensStream", "read_label_mapping",
+                            "map_label_image", "main"]),
+            (jsens.SensFrame, tsens.SensFrame, ["decode_depth"]),
+            (jpsc, tpsc, ["face_normals"]),
+            (jps3, tps3, ["load_alignment", "_align_rotation", "parse_room_points",
+                          "_mesh_normals", "undistort_image", "unproject_filtering_depths"]),
+            (jvox, tvox, ["_load", "_save", "voxelize_room", "main_process"]),
+            (js3d, ts3d, ["normal_from_cross_product", "_remap25", "scene_split",
+                          "parse_scene", "parse_scene_zip", "main"]),
+            (js3d.Structured3DReader, ts3d.Structured3DReader,
+             ["__init__", "filelist", "listdir", "read", "read_camera"]),
         ]
         for jmod, tmod, names in copies:
             for name in names:
@@ -229,7 +258,11 @@ class TestTrainDataPath:
         assert inspect.getsource(tpg.PointGroup.propose_instances) == inspect.getsource(
             jpg.PointGroup.propose_instances)
         for jmod, tmod, names in [(jsc, tsc, ["VALID_CLASS_IDS_20", "CLASS_NAMES_20"]),
-                                  (js3, ts3, ["S3DIS_CLASS_NAMES"])]:
+                                  (js3, ts3, ["S3DIS_CLASS_NAMES"]),
+                                  (jsens, tsens, ["COLOR_COMPRESSION", "DEPTH_COMPRESSION"]),
+                                  (jpsc, tpsc, ["VALID_CLASS_IDS_20"]),
+                                  (jps3, tps3, ["CLASS_NAMES", "CLASS2ID"]),
+                                  (js3d, ts3d, ["VALID_CLASS_IDS_25", "CLASS_NAMES_25"])]:
             for name in names:
                 assert getattr(tmod, name) == getattr(jmod, name), name
         # the data modules the configs import (utils/config.py:PORTED_MODULES),
@@ -244,6 +277,18 @@ class TestTrainDataPath:
         import ponderv2_tpu.utils.visualization as jvis
         import ponderv2_tpu_torch.utils.visualization as tvis
 
+        import ponderv2_tpu.datasets.preprocessing.preprocess_nuscenes as jpnus
+        import ponderv2_tpu_torch.datasets.preprocessing.preprocess_nuscenes as tpnus
+
+        assert (tps3.AREA_5B_POSE_FIX == jps3.AREA_5B_POSE_FIX).all()
+        for name in ("quat_to_matrix", "transform_matrix", "quaternion_yaw",
+                     "sensor2top_transform", "gt_boxes_from_annotations",
+                     "_obtain_sensor2top", "build_infos", "main"):
+            assert inspect.getsource(getattr(tpnus, name)) == inspect.getsource(
+                getattr(jpnus, name)), name
+        assert tpnus.CAMERA_TYPES == jpnus.CAMERA_TYPES
+        assert (tpnus.MAP_NAME_FROM_GENERAL_TO_DETECTION
+                == jpnus.MAP_NAME_FROM_GENERAL_TO_DETECTION)
         for jmod, tmod in [(jvocab, tvocab), (jsc200, tsc200), (jsplits, tsplits),
                            (jvis, tvis)]:
             with open(jmod.__file__, "rb") as fj, open(tmod.__file__, "rb") as ft:

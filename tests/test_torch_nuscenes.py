@@ -320,8 +320,9 @@ def test_png_reader_every_filter_type(tmp_path, channels, ft):
 
 def test_png_reader_on_pil_files_and_other_formats(tmp_path, monkeypatch):
     """Images PIL writes (adaptive filters: Sub, Up and Paeth rows here) read
-    as PIL reads them; ``write_png`` round-trips; a JPEG goes through PIL,
-    and without PIL raises a clear error; 16-bit PNG raises."""
+    as PIL reads them; ``write_png`` round-trips; 16-bit gray PNG reads as
+    PIL reads it; a JPEG reads as PIL decodes it, with PIL blocked too (the
+    port's codec); a 1-bit PNG and a file of another format raise."""
     from PIL import Image
 
     rng = np.random.RandomState(0)
@@ -338,14 +339,21 @@ def test_png_reader_on_pil_files_and_other_formats(tmp_path, monkeypatch):
     assert np.array_equal(np.asarray(Image.open(path)), img)
     jpg = str(tmp_path / "x.jpg")
     Image.fromarray(img).save(jpg)
-    assert np.array_equal(read_image(jpg), np.asarray(Image.open(jpg)))
+    pil_jpg = np.asarray(Image.open(jpg))
+    assert np.array_equal(read_image(jpg), pil_jpg)
     wide = str(tmp_path / "wide.png")
     Image.fromarray(img[..., 0].astype(np.uint16) * 200).save(wide)
-    with pytest.raises(ValueError, match="bit depth 16"):
-        read_png(wide)
+    assert np.array_equal(read_png(wide), np.asarray(Image.open(wide)))
+    one_bit = str(tmp_path / "one_bit.png")
+    Image.fromarray(img[..., 0] > 128).save(one_bit)
+    with pytest.raises(ValueError, match="bit depth 1"):
+        read_png(one_bit)
+    bmp = str(tmp_path / "x.bmp")
+    Image.fromarray(img).save(bmp)
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(ValueError, match="PIL is not installed"):
-        read_image(jpg)
+    assert np.array_equal(read_image(jpg), pil_jpg)
+    with pytest.raises(ValueError, match="neither PNG nor JPEG"):
+        read_image(bmp)
 
 
 def test_weight_load_skips_absent_names_and_raises_on_a_shape_mismatch():

@@ -4,7 +4,7 @@
     python tools/experiments/insseg_torch.py
 
 Builds K1-K3 and the native clustering, writes phase 16's scene files (36
-train + 4 val in ScanNet's layout, one instance per box) into a temporary
+train + 2 val in ScanNet's layout, one instance per box) into a temporary
 directory and runs ``chip_smoke.py:insseg_recipe_phase`` on them: 3 steps of
 ``configs/scannet/insseg-ppt-v1m1-0-pointgroup-spunet-ft.py`` at batch 12
 in f32 and its ``InsSegEvaluator`` over the val scenes, with the phase's
